@@ -5,15 +5,28 @@
     python3 chip_smoke.py --device cpu --rows 300000   # CPU rehearsal
 
 Phase 0 builds the CUDA kernels from `src/repro_torch/kernels/csrc/`.
-Phase 1 holds each kernel against its plain PyTorch version on the card,
-at the main path's partition sizes and at ragged sizes, and times both.
+Phase 1 holds each of the ten kernels against its plain PyTorch version on
+the card, at the main paths' partition sizes and at ragged sizes, and
+times both.
 Phase 2 runs the SQL main path end to end: a `SharkSession` on the card
 loads a TPC-H `lineitem` table (6,000,000 rows, scale factor 1, in 64
 partitions of 93,750 rows, columns drawn from dbgen's domains with numpy
 from `--seed`) and answers four filter / aggregate / group-by queries,
 each checked against numpy over the generated arrays (integers exactly,
-floats to rtol 1e-9).  The launch counts of the main path's run must show
-all five kernels.
+floats to rtol 1e-9).  Its launch counts must show the five SQL kernels.
+Phase 3 trains in the engine (paper Listing 1, §6.5): a `points` table of
+10,000,000 rows in 64 partitions of 156,250 (one node's share of the
+paper's billion rows on 100 nodes), 12 feature columns that load as
+BITPACK, DICT, RLE and PLAIN blocks and an int64 label; a logistic
+regression and a k-means fit, 10 iterations each, checked against a numpy
+replay of the same updates.  Its launches must show the three decode
+kernels and `train_grad`.
+Phase 4 searches: a `docs` table of 1,000,000 rows with a 64-lane float32
+embedding in 64 partitions of 15,625, and `similarity_join` with and
+without a filter below it, ids checked exactly against numpy.  Its
+launches must show `topk_similarity`.  On the card, phases 3 and 4 each
+end with a torch.profiler trace of one warm step (a `trace` JSON line:
+device busy time and idle share, device and host ops).
 
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -50,6 +63,11 @@ TPU_KERNELS = {
     "groupby_sum": "src/repro/kernels/groupby_mxu.py:56",
     "radix_partition": "src/repro/kernels/radix_partition.py:107",
     "segmented_merge": "src/repro/kernels/segmented_merge.py:64",
+    "dict_decode": "src/repro/kernels/dictdecode.py:41",
+    "bitpack_decode": "src/repro/kernels/dictdecode.py:72",
+    "rle_decode": "src/repro/kernels/dictdecode.py:98",
+    "topk_similarity": "src/repro/kernels/topk_similarity.py:106",
+    "train_grad": "src/repro/kernels/train_grad.py:67",
 }
 SOURCES = {
     "colscan": "src/repro_torch/kernels/csrc/scan.cu",
@@ -57,7 +75,19 @@ SOURCES = {
     "groupby_sum": "src/repro_torch/kernels/csrc/group.cu",
     "radix_partition": "src/repro_torch/kernels/csrc/radix.cu",
     "segmented_merge": "src/repro_torch/kernels/csrc/group.cu",
+    "dict_decode": "src/repro_torch/kernels/csrc/decode.cu",
+    "bitpack_decode": "src/repro_torch/kernels/csrc/decode.cu",
+    "rle_decode": "src/repro_torch/kernels/csrc/decode.cu",
+    "topk_similarity": "src/repro_torch/kernels/csrc/topk.cu",
+    "train_grad": "src/repro_torch/kernels/csrc/train.cu",
 }
+SQL_KERNELS = ("colscan", "fused_decode_scan", "groupby_sum",
+               "radix_partition", "segmented_merge")
+TRAIN_KERNELS = ("dict_decode", "bitpack_decode", "rle_decode", "train_grad")
+SEARCH_KERNELS = ("topk_similarity",)
+# phase 3/4 partition sizes at full size: 10,000,000 / 64 and 1,000,000 / 64
+TRAIN_ROWS, DOCS_ROWS = 156_250, 15_625
+EMB_DIM, TOP_K = 64, 100
 
 
 def fail(msg: str) -> None:
@@ -133,6 +163,47 @@ class Timer:
         return start.elapsed_time(end) / (replays * calls)
 
 
+def traced(torch, device, label: str, fn) -> None:
+    """Run `fn()` once under torch.profiler and print one JSON line: the
+    wall time (the profiler's own cost per op included), the device's busy
+    time (the union of its kernels' and copies' spans) and idle share, the
+    device ops by time and the host ops by their own CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):    # the tracer's start-up,
+        torch.cuda.synchronize()            # outside the window
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type.name == "CUDA")
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    kernels, host = {}, []
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            k = kernels.setdefault(e.name[:60], [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total
+                    )[:12]:
+        host.append([e.key[:60], e.count, e.self_cpu_time_total / 1e3])
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    print(json.dumps({"trace": label, "wall_ms": wall,
+                      "device_busy_ms": busy / 1e3,
+                      "device_idle_share": 1.0 - busy / 1e3 / wall,
+                      "device_ops_ms": [[k, c, ms] for k, (c, ms) in top],
+                      "host_self_ms": host}), flush=True)
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
@@ -176,7 +247,7 @@ def phase_kernels(torch, device, seed: int) -> dict:
 
     rng = np.random.default_rng(seed)
     dev = device
-    err = {k: 0.0 for k in TPU_KERNELS}
+    err = {k: 0.0 for k in SQL_KERNELS}
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -280,6 +351,165 @@ def phase_kernels(torch, device, seed: int) -> dict:
             "max_abs_err": err[name], "ms": timer(kern),
             "device_ms": timer.graphed(kern),
             "plain_ms": timer(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer(lib) if lib is not None else None,
+        }
+    return out
+
+
+def pack_words(vals: np.ndarray, width: int) -> np.ndarray:
+    """uint32 words of `32 // width` lanes each, low lane first."""
+    per = 32 // width
+    nw = -(-len(vals) // per)
+    padded = np.zeros(nw * per, np.uint32)
+    padded[:len(vals)] = vals
+    words = np.zeros(nw, np.uint32)
+    for j in range(per):
+        words |= padded[j::per] << np.uint32(j * width)
+    return words
+
+
+def exact(name: str, got, want) -> float:
+    """Decoded values, row ids and orders: equal, or the run fails."""
+    if not (got.dtype == want.dtype and got.shape == want.shape
+            and bool((got.cpu() == want.cpu()).all())):
+        fail(f"{name} differs from its plain version")
+    return 0.0
+
+
+def phase_kernels_analytics(torch, device, seed: int) -> dict:
+    """The analytics kernels (decode, top-k, gradient) against their plain
+    versions on the device at ragged sizes; then each timed at the shape
+    phases 3 and 4 give it."""
+    from repro_torch.kernels import dictdecode as kd
+    from repro_torch.kernels import topk_similarity as kt
+    from repro_torch.kernels import train_grad as kg
+
+    rng = np.random.default_rng(seed + 1)
+    dev = device
+    err = {k: 0.0 for k in ("dict_decode", "bitpack_decode", "rle_decode",
+                            "topk_similarity", "train_grad")}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # decode: every dictionary dtype (out-of-range codes included), every
+    # bit width at a lane count that is not a multiple of lanes per word,
+    # single-run and many-run RLE
+    for n in (1, 1023, TRAIN_ROWS + 1):
+        for dt in ("int32", "int64", "float32", "float64"):
+            for d in (1, 11, 4000):
+                dic = t((rng.normal(size=d) * 1000).astype(dt))
+                codes = t(rng.integers(-3, d + 3, n).astype(np.int32))
+                exact("dict_decode", kd.dict_decode(codes, dic),
+                      kd.dict_decode_plain(codes, dic))
+        for width in range(1, 17):
+            vals = rng.integers(0, 1 << width, n).astype(np.uint32)
+            words = t(pack_words(vals, width).view(np.int32))
+            got = kd.bitpack_decode(words, width, -7, n)
+            exact("bitpack_decode", got,
+                  kd.bitpack_decode_plain(words, width, -7, n))
+            if not np.array_equal(got.cpu().numpy(),
+                                  vals.astype(np.int32) - 7):
+                fail(f"bitpack_decode lanes differ (width {width})")
+        for runs in (1, max(1, n // 8), n):
+            lens = rng.multinomial(n - runs, np.ones(runs) / runs) + 1
+            ends = t(np.cumsum(lens).astype(np.int32))
+            for dt in ("int64", "float64", "float32"):
+                vals = t((rng.normal(size=runs) * 100).astype(dt))
+                exact("rle_decode", kd.rle_decode(vals, ends, n),
+                      kd.rle_decode_plain(vals, ends, n))
+    # top-k: ties (integer lanes), continuous lanes, all rows tied, tile
+    # edges +-1; k = 1, 100, n + 5.  Scores are summed lane by lane on both
+    # versions, so scores too must match to the bit
+    for n in (1, 255, 256, 257, 1023, 1024, 1025, DOCS_ROWS):
+        cases = (rng.integers(-3, 4, size=(n, 8)).astype(np.float64),
+                 rng.normal(size=(n, EMB_DIM)).astype(np.float32),
+                 np.ones((n, 6), np.float32))
+        for x in cases:
+            xt, q = t(x), t(rng.normal(size=x.shape[1]))
+            for k in (1, TOP_K, n + 5):
+                gs, gi = kt.topk_similarity(xt, q, k)
+                ps, pi = kt.topk_similarity_plain(xt, q, k)
+                exact("topk_similarity", gi, pi)
+                exact("topk_similarity", gs, ps)
+    # gradient: both kinds, float32 and float64 x; sums to rtol 1e-12
+    for n in (1, 1023, TRAIN_ROWS):
+        for d in (1, 12, 130):
+            for dt in ("float32", "float64"):
+                x = t((rng.normal(size=(n, d)) * 2).astype(dt))
+                y = t((rng.uniform(size=n) < 0.5).astype(dt))
+                w = t(rng.normal(size=d).astype(dt))
+                for kind in kg.KINDS:
+                    got = kg.train_grad(x, y, w, kind).cpu().numpy()
+                    want = kg.train_grad_plain(x, y, w, kind).cpu().numpy()
+                    if not np.allclose(got, want, rtol=1e-12, atol=1e-9):
+                        fail(f"train_grad {kind} ({n}, {d}, {dt}) differs: "
+                             f"{np.max(np.abs(got - want))}")
+                    err["train_grad"] = max(err["train_grad"], float(
+                        np.max(np.abs(got - want))))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"phase 1: 5 analytics kernels match their plain versions, max "
+          f"abs err {json.dumps(err)}", flush=True)
+
+    # timing at the shapes phases 3 and 4 give each kernel
+    timer = Timer(torch, device)
+    n = TRAIN_ROWS
+    d_vals = 4000
+    codes = t(rng.integers(0, d_vals, n).astype(np.int32))
+    dic = t(np.round(np.arange(d_vals) * 0.01, 2))
+    width = 4
+    words = t(pack_words(rng.integers(0, 16, n).astype(np.uint32),
+                         width).view(np.int32))
+    n_words = int(words.shape[0])
+    runs = n // 8
+    run_lengths = t(np.full(runs, 8, np.int64))
+    run_ends = t(np.cumsum(np.full(runs, 8)).astype(np.int32))
+    run_vals = t(rng.normal(size=runs))
+    dims = 12
+    x = t(rng.normal(size=(n, dims)).astype(np.float32))
+    y = t((rng.uniform(size=n) < 0.5).astype(np.float32))
+    w = t(rng.normal(size=dims).astype(np.float32))
+    emb = t(rng.normal(size=(DOCS_ROWS, EMB_DIM)).astype(np.float32))
+    q = t(rng.normal(size=EMB_DIM))
+    q32 = q.to(torch.float32)
+    log2_runs = float(np.ceil(np.log2(runs)))
+    cases = {
+        "dict_decode": (lambda: kd.dict_decode(codes, dic),
+                        lambda: kd.dict_decode_plain(codes, dic),
+                        lambda: dic[codes], 12.0 * n + 8 * d_vals, 1.0 * n),
+        "bitpack_decode": (
+            lambda: kd.bitpack_decode(words, width, 0, n),
+            lambda: kd.bitpack_decode_plain(words, width, 0, n),
+            None, 4.0 * n_words + 4.0 * n, 3.0 * n),
+        "rle_decode": (
+            lambda: kd.rle_decode(run_vals, run_ends, n),
+            lambda: kd.rle_decode_plain(run_vals, run_ends, n),
+            lambda: torch.repeat_interleave(run_vals, run_lengths),
+            12.0 * runs + 8.0 * n, n * log2_runs),
+        "topk_similarity": (
+            lambda: kt.topk_similarity(emb, q, TOP_K),
+            lambda: kt.topk_similarity_plain(emb, q, TOP_K),
+            lambda: torch.topk(emb @ q32, TOP_K),
+            4.0 * DOCS_ROWS * EMB_DIM + 8 * EMB_DIM + 16 * TOP_K,
+            2.0 * DOCS_ROWS * EMB_DIM),
+        "train_grad": (
+            lambda: kg.train_grad(x, y, w, "logistic"),
+            lambda: kg.train_grad_plain(x, y, w, "logistic"),
+            lambda: x.T @ (torch.sigmoid(x @ w) - y),
+            4.0 * n * dims + 4.0 * n + 4.0 * dims + 8.0 * dims,
+            4.0 * n * dims),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, ops) in cases.items():
+        b_ms, b_by = bound(nbytes, ops)
+        out[name] = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name], "launches": 0,
+            "max_abs_err": err[name], "ms": timer(kern),
+            "device_ms": timer.graphed(kern),
+            "plain_ms": timer(plain, reps=10, warmup=2),
+            "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": timer(lib) if lib is not None else None,
         }
     return out
@@ -404,11 +634,255 @@ def phase_sql(torch, device, rows: int, seed: int) -> dict:
               f"{', '.join(f'{m:.3f}' for m in timed[name])} ms; routes "
               f"{json.dumps(routes[name], sort_keys=True)}", flush=True)
     print(f"phase 2: main-path launches {json.dumps(launches)}", flush=True)
-    if device.type == "cuda":
-        idle = [k for k, v in launches.items() if v == 0]
-        if idle:
-            fail(f"kernels never launched on the main path: {idle}")
     return launches
+
+
+# ---------------------------------------------------------------- phase 3
+
+# spans of the 8 small-range int features: BITPACK blocks of 1 to 4 bits
+INT_SPANS = (2, 3, 4, 6, 8, 11, 14, 16)
+FEATURES = ([f"b{i}" for i in range(len(INT_SPANS))]
+            + ["d0", "d1", "r0", "p0"])
+LR_ITERS, KM_ITERS, KM_K = 10, 10, 10
+
+
+def points(rows: int, seed: int) -> dict:
+    """12 features and a label: 8 small-range ints (BITPACK), 2 floats on a
+    cent grid with 4000 distinct values (DICT), 1 clustered float with runs
+    of 8 (RLE), 1 continuous float (PLAIN); the int64 label is a noisy
+    linear function of them (BITPACK, 1 bit)."""
+    rng = np.random.default_rng(seed + 3)
+    data = {f"b{i}": rng.integers(0, s, rows).astype(np.int64)
+            for i, s in enumerate(INT_SPANS)}
+    for c in ("d0", "d1"):
+        data[c] = np.round(rng.integers(0, 4000, rows) * 0.01, 2)
+    data["r0"] = np.repeat(np.round(rng.normal(size=rows // 8 + 1), 3),
+                           8)[:rows]
+    data["p0"] = rng.normal(size=rows)
+    x = np.stack([data[c] for c in FEATURES], axis=1)
+    x = (x - x.mean(0)) / x.std(0)
+    z = x @ rng.normal(size=x.shape[1]) + rng.normal(scale=0.5, size=rows)
+    data["label"] = (z > 0).astype(np.int64)
+    return data
+
+
+def replay_logreg(x32: np.ndarray, y: np.ndarray, edges, w: np.ndarray,
+                  lr: float, iters: int) -> np.ndarray:
+    """The estimator's updates in numpy: per partition the float64 gradient
+    of the float32 features (the train_grad route), cast to float32; the
+    float32 partials summed; w float32."""
+    for _ in range(iters):
+        gs = []
+        for a, b in zip(edges[:-1], edges[1:]):
+            xp = x32[a:b].astype(np.float64)
+            z = xp @ w.astype(np.float64)
+            e = np.exp(-np.abs(z))
+            p = np.where(z >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+            gs.append((xp.T @ (p - y[a:b])).astype(np.float32))
+        g = np.sum(gs, axis=0)
+        w = w - lr * (g / len(y)).astype(w.dtype)
+    return w
+
+
+def replay_kmeans(x32: np.ndarray, edges, c: np.ndarray, iters: int):
+    """The estimator's k-means steps in numpy, float32 as the port's."""
+    objs = []
+    for _ in range(iters):
+        sums, counts, obj = [], [], 0.0
+        for a, b in zip(edges[:-1], edges[1:]):
+            x = x32[a:b]
+            d2 = ((x * x).sum(1, keepdims=True) - 2.0 * (x @ c.T)
+                  + (c * c).sum(1)[None, :])
+            assign = np.argmin(d2, axis=1)
+            obj += float(np.min(d2, axis=1).sum())
+            onehot = np.eye(c.shape[0], dtype=np.float32)[assign]
+            sums.append(onehot.T @ x)
+            counts.append(onehot.sum(0))
+        s, n = np.sum(sums, axis=0), np.sum(counts, axis=0)
+        objs.append(obj)
+        c = c.copy()
+        nz = n > 0
+        c[nz] = (s[nz] / n[nz, None]).astype(np.float32)
+    return c, objs
+
+
+def phase_train(torch, device, rows: int, seed: int) -> dict:
+    from repro_torch.core import DType, Schema, SharkSession
+    from repro_torch.core.expr import DECODE_COUNTERS
+    from repro_torch.kernels import ops
+    from repro_torch.ml import KMeans, LogisticRegression
+
+    t0 = time.perf_counter()
+    data = points(rows, seed)
+    sess = SharkSession(device=str(device), num_workers=8, max_threads=8)
+    schema = {c: DType.INT64 for c in FEATURES if c.startswith("b")}
+    schema.update({c: DType.FLOAT64 for c in ("d0", "d1", "r0", "p0")})
+    sess.create_table("points", Schema.of(**schema, label=DType.INT64), data,
+                      num_partitions=PARTITIONS)
+    encs = {}
+    for part in sess.catalog.get("points").partitions:
+        for c in FEATURES:
+            e = part.columns[c].encoding.value
+            encs[e] = encs.get(e, 0) + 1
+    print(f"phase 3: points {rows} rows in {PARTITIONS} partitions loaded "
+          f"in {time.perf_counter() - t0:.3f} s; feature blocks by encoding "
+          f"{json.dumps(encs, sort_keys=True)}", flush=True)
+    for e in ("bitpack", "dict", "rle", "plain"):
+        if not encs.get(e):
+            fail(f"points has no {e} feature block: {encs}")
+
+    try:
+        ops.reset_launch_counts()
+        decodes = DECODE_COUNTERS["numeric_blocks"]
+        t1 = time.perf_counter()
+        clf = LogisticRegression(dims=len(FEATURES),
+                                 iterations=LR_ITERS).fit(
+            sess.table("points"), FEATURES, "label")
+        km = KMeans(k=KM_K, dims=len(FEATURES), iterations=KM_ITERS).fit(
+            sess.table("points"), FEATURES, "label")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        decoded = DECODE_COUNTERS["numeric_blocks"] - decodes
+        if device.type == "cuda":
+            # where a warm iteration's time goes
+            from repro_torch.ml import IterativeTrainer
+            feats = sess.table("points").to_features(FEATURES, "label")
+            feats.cache()
+            tr = IterativeTrainer(feats, "trace")
+            tr.gradient_iteration(clf.w, "logistic")       # fills the cache
+            traced(torch, device, "phase 3: one warm logistic iteration",
+                   lambda: tr.gradient_iteration(clf.w, "logistic"))
+            traced(torch, device, "phase 3: one warm k-means iteration",
+                   lambda: tr.kmeans_iteration(km.centroids))
+    finally:
+        sess.shutdown()
+    print(f"phase 3: main-path launches {json.dumps(launches)}", flush=True)
+    for name, est in (("logistic", clf), ("kmeans", km)):
+        its = est.metrics.train_iterations
+        warm = [it["seconds"] * 1e3 for it in its[1:]]
+        print(f"phase 3: {name} first iteration "
+              f"{its[0]['seconds'] * 1e3:.3f} ms, then "
+              f"{', '.join(f'{m:.3f}' for m in warm)} ms (median "
+              f"{float(np.median(warm)):.3f}); routes "
+              f"{json.dumps(its[-1]['routes'], sort_keys=True)}", flush=True)
+    print(f"phase 3: both fits {fit_s:.3f} s; host block decodes "
+          f"{decoded}", flush=True)
+    if decoded:
+        fail(f"training decoded {decoded} blocks on the host")
+    if device.type == "cuda":
+        for it in clf.metrics.train_iterations:
+            if it["routes"] != {"train_grad": PARTITIONS}:
+                fail(f"logistic iteration took routes {it['routes']}")
+
+    # the numpy replay of both fits, over the generated arrays
+    x32 = np.stack([data[c] for c in FEATURES], axis=1).astype(np.float32)
+    edges = np.linspace(0, rows, PARTITIONS + 1, dtype=np.int64)
+    w0 = LogisticRegression(dims=len(FEATURES)).w
+    w = replay_logreg(x32, data["label"], edges, w0, 0.1, LR_ITERS)
+    c, objs = replay_kmeans(x32, edges,
+                            KMeans(k=KM_K, dims=len(FEATURES)).centroids,
+                            KM_ITERS)
+    # w is float32: per-partition gradients are float64 sums taken in
+    # another order than numpy's, rounded to float32, so a last-place
+    # rounding can differ and carry through the updates
+    if not np.allclose(clf.w, w, rtol=1e-5, atol=1e-6):
+        fail(f"logistic weights differ from the numpy replay: "
+             f"{np.max(np.abs(clf.w - w))}")
+    # k-means runs in float32 on both sides, with float32 sums of 156,250
+    # rows in another order (cuBLAS against numpy) that can also move a
+    # point lying on a boundary between two centroids
+    if not (np.allclose(km.centroids, c, rtol=1e-4, atol=1e-3)
+            and np.allclose(km.objective_history, objs, rtol=1e-4)):
+        fail(f"k-means differs from the numpy replay: centroids "
+             f"{np.max(np.abs(km.centroids - c))}, objective "
+             f"{km.objective_history[-1]} vs {objs[-1]}")
+    if not (np.all(np.isfinite(clf.w)) and objs[-1] < objs[0]):
+        fail("training did not converge")
+    print(f"phase 3: weights match the numpy replay (max abs diff "
+          f"{float(np.max(np.abs(clf.w - w))):.3g}), centroids "
+          f"{float(np.max(np.abs(km.centroids - c))):.3g}, objective "
+          f"{km.objective_history[0]:.6g} -> {km.objective_history[-1]:.6g}",
+          flush=True)
+    return {k: launches[k] for k in TRAIN_KERNELS}
+
+
+# ---------------------------------------------------------------- phase 4
+
+N_QUERIES = 3
+
+
+def phase_search(torch, device, rows: int, seed: int) -> dict:
+    from repro_torch.core import DType, Schema, SharkSession
+    from repro_torch.core.functions import col
+    from repro_torch.core.pde import PDEConfig
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 4)
+    emb = rng.normal(size=(rows, EMB_DIM)).astype(np.float32)
+    cat = rng.integers(0, 4, rows).astype(np.int64)
+    # the CPU rehearsal forces the kernel route (its plain version) on
+    # partitions below the kernel threshold
+    cfg = (PDEConfig() if device.type == "cuda"
+           else PDEConfig(segment_force_kernels=True,
+                          segment_kernel_min_rows=256))
+    sess = SharkSession(device=str(device), num_workers=8, max_threads=8,
+                        pde_config=cfg)
+    sess.create_table("docs", Schema.of(id=DType.INT64, cat=DType.INT64),
+                      {"id": np.arange(rows, dtype=np.int64), "cat": cat,
+                       "emb": emb}, num_partitions=PARTITIONS)
+    scores = emb.astype(np.float64)
+    print(f"phase 4: docs {rows} rows x {EMB_DIM} lanes in {PARTITIONS} "
+          f"partitions loaded in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    def run(q, c):
+        frame = sess.table("docs")
+        if c is not None:
+            frame = frame.filter(col("cat") == c)
+        t = time.perf_counter()
+        got = frame.similarity_join("emb", q, TOP_K).to_numpy()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        s = scores @ q
+        idx = np.nonzero(cat == c)[0] if c is not None else np.arange(rows)
+        want = idx[np.argsort(-s[idx], kind="stable")[:TOP_K]]
+        if not np.array_equal(got["id"], want):
+            fail(f"similarity ids differ from numpy (filter cat={c})")
+        return ms
+
+    try:
+        ops.reset_launch_counts()
+        for i in range(N_QUERIES):
+            q = rng.normal(size=EMB_DIM)
+            c = int(rng.integers(0, 4))
+            before = dict(sess.metrics().segment_routes())
+            times = [run(q, None) for _ in range(3)]
+            routes = {k: v - before.get(k, 0)
+                      for k, v in sess.metrics().segment_routes().items()
+                      if v != before.get(k, 0)}
+            ftimes = [run(q, c) for _ in range(3)]
+            print(f"phase 4: query {i}: top {TOP_K} first {times[0]:.3f} ms, "
+                  f"then {times[1]:.3f}, {times[2]:.3f} ms; with cat = {c} "
+                  f"below: {ftimes[0]:.3f}, then {ftimes[1]:.3f}, "
+                  f"{ftimes[2]:.3f} ms; routes "
+                  f"{json.dumps(routes, sort_keys=True)}", flush=True)
+            if routes.get("topk_similarity", 0) == 0:
+                fail(f"similarity search took routes {routes}")
+        launches = ops.launch_counts()
+        if device.type == "cuda":
+            traced(torch, device, "phase 4: one warm top-100 search",
+                   lambda: run(q, None))
+            traced(torch, device, f"phase 4: one warm search, cat = {c}",
+                   lambda: run(q, c))
+    finally:
+        sess.shutdown()
+    print(f"phase 4: main-path launches {json.dumps(launches)}; ids match "
+          f"numpy", flush=True)
+    return {k: launches[k] for k in SEARCH_KERNELS}
 
 
 def main() -> int:
@@ -438,7 +912,18 @@ def main() -> int:
               flush=True)
 
     kernels = phase_kernels(torch, device, args.seed)
-    launches = phase_sql(torch, device, args.rows, args.seed)
+    kernels.update(phase_kernels_analytics(torch, device, args.seed))
+    launches = {k: v for k, v in phase_sql(torch, device, args.rows,
+                                          args.seed).items()
+                if k in SQL_KERNELS}
+    # phases 3 and 4 keep the SQL phase's ratio to their full sizes
+    launches.update(phase_train(torch, device, args.rows * 5 // 3,
+                                args.seed))
+    launches.update(phase_search(torch, device, args.rows // 6, args.seed))
+    if device.type == "cuda":
+        idle = [k for k, v in launches.items() if v == 0]
+        if idle:
+            fail(f"kernels never launched on their main path: {idle}")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

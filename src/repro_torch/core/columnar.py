@@ -24,7 +24,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
-from .compression import Encoded, Encoding, decode_np, encode, recompress
+from .compression import (Encoded, Encoding, decode_np, device_stream,
+                          encode, recompress)
 from .types import DType, Field, Schema
 
 ENUM_DISTINCT_LIMIT = 64  # paper: keep distinct values "if the number is small"
@@ -128,27 +129,26 @@ class ColumnBlock:
         return enc.words, enc.bit_width, enc.bias, enc.n
 
     def device_array(self, what: str, device):
-        """This block's `what` ("values", "codes", "dictionary" or
-        "group_codes") as a torch tensor on `device`, copied there once and
-        memoized on the encoded block, so repeated queries read it from
-        device memory instead of over PCIe.  "group_codes" are the int32
-        ids of `group_space()`.  On the CPU the tensor shares the numpy
-        array's memory."""
+        """This block's `what` as a torch tensor on `device`, copied there
+        once and memoized on the encoded block, so repeated queries and
+        training steps read it from device memory instead of over PCIe.
+        `what` is "values" (the stored values), "group_codes" (the int32
+        ids of `group_space()`), or an encoded stream of
+        `compression.device_stream`: "codes", "dictionary", "words",
+        "run_values" or "run_ends" (uint32 words cross as int32 bits, run
+        lengths as int32 cumulative ends).  On the CPU the tensor shares the numpy array's
+        memory."""
         import torch
+        if what == "values" and self.enc.encoding == Encoding.PLAIN:
+            what = "data"            # one device copy of a PLAIN block
+        if what not in ("values", "group_codes"):
+            return device_stream(self.enc, what, device)
         key = (what, str(device))
         memo = self.enc._device
         t = memo.get(key)
         if t is None:
-            if what == "values":
-                arr = self.values()
-            elif what == "codes":
-                arr = self.enc.codes
-            elif what == "dictionary":
-                arr = self.enc.dictionary
-            elif what == "group_codes":
-                arr = self.group_space()[1]
-            else:
-                raise ValueError(what)
+            arr = (self.values() if what == "values"
+                   else self.group_space()[1])
             t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
             memo[key] = t
         return t

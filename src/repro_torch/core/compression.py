@@ -8,7 +8,8 @@ PLAIN fallback, and the local per-partition selection heuristic.
 
 Encoding happens host-side at load (numpy) and is byte-identical to the
 JAX reference's.  `decode_np` is the host decode; `decode_torch` decodes
-onto a torch device.  On the GPU, compression is a *bandwidth*
+onto a torch device from the block's memoized device streams, through the
+decode kernels on the GPU.  On the GPU, compression is a *bandwidth*
 optimization: a kernel that reads codes instead of values (the fused
 dictionary-decode scan) moves fewer HBM bytes by the compression ratio.
 """
@@ -270,32 +271,83 @@ def decode_np(enc: Encoded) -> np.ndarray:
     return out
 
 
+_KERNEL_DTYPES = ("int32", "int64", "float32", "float64")
+
+
+def _stream(enc: Encoded, what: str) -> np.ndarray:
+    """Encoded stream `what` of `enc` as the device decoders take it: uint32
+    words as int32 bits (torch has no CPU `>>` for uint32), wider unsigned
+    codes as int64, dictionaries and run values in a dtype the kernels read
+    (narrower numbers widen exactly to int64 / float64), run lengths as
+    their int32 cumulative ends."""
+    if what == "data":
+        return enc.data
+    if what == "codes":
+        c = enc.codes
+        return c.astype(np.int64) if c.dtype.kind == "u" and c.itemsize > 1 \
+            else c
+    if what == "words":
+        return enc.words.view(np.int32)
+    if what in ("dictionary", "run_values"):
+        v = getattr(enc, what)
+        if v.dtype.name in _KERNEL_DTYPES:
+            return v
+        return v.astype(np.float64 if v.dtype.kind == "f" else np.int64)
+    if what == "run_ends":
+        return np.cumsum(enc.run_lengths, dtype=np.int64).astype(np.int32)
+    raise ValueError(what)
+
+
+def device_stream(enc: Encoded, what: str, device):
+    """Encoded stream `what` ("data", "codes", "dictionary", "words",
+    "run_values" or "run_ends") as a torch tensor on
+    `device`, copied there once and memoized on the block (`enc._device`),
+    so every later decode reads it from device memory.  On the CPU the
+    tensor shares the numpy array's memory where the dtype allows."""
+    import torch
+    key = (what, str(device))
+    t = enc._device.get(key)
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(_stream(enc, what))).to(
+            device)
+        enc._device[key] = t
+    return t
+
+
 def decode_torch(enc: Encoded, device="cpu"):
     """Decode onto a torch device (output length = enc.n), in the block's
-    original dtype: the device twin of `decode_np`, not memoized."""
+    original dtype: the device twin of `decode_np`.  It reads the block's
+    memoized device streams and never the host decode, so
+    `expr.DECODE_COUNTERS` stay still.  DICT, BITPACK and RLE blocks go
+    through the `dict_decode`, `bitpack_decode` and `rle_decode` kernels on
+    a CUDA device (their plain versions on the CPU); FOR is `codes + bias`
+    and PLAIN the stored array."""
     import torch
 
-    from ..kernels import ref
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    from ..kernels import ops
 
     out_dtype = torch.from_numpy(np.zeros(0, enc.orig_dtype)).dtype
+
+    def s(what):
+        return device_stream(enc, what, device)
+
     if enc.encoding == Encoding.PLAIN:
-        return t(enc.data)
+        return s("data")
+    if enc.n == 0:
+        return torch.empty(0, dtype=out_dtype, device=device)
     if enc.encoding == Encoding.DICT:
-        return ref.dict_decode_ref(t(enc.codes), t(enc.dictionary))
+        return ops.dict_decode(s("codes"), s("dictionary")).to(out_dtype)
     if enc.encoding == Encoding.FOR:
-        return (t(enc.codes.astype(np.int64)) + int(enc.bias)).to(out_dtype)
+        return (s("codes").to(torch.int64) + int(enc.bias)).to(out_dtype)
     if enc.encoding == Encoding.RLE:
-        ends = torch.cumsum(t(enc.run_lengths.astype(np.int64)), 0)
-        return ref.rle_decode_ref(t(enc.run_values), ends, enc.n)
+        return ops.rle_decode(s("run_values"), s("run_ends"),
+                              enc.n).to(out_dtype)
     if enc.encoding == Encoding.BITPACK:
-        # uint32 words widen to int64 on the host: torch has no CPU `>>`
-        # for uint32
-        return ref.bitpack_decode_ref(t(enc.words.astype(np.int64)),
-                                      enc.bit_width, enc.bias,
-                                      enc.n).to(out_dtype)
+        # the kernel's int32 lanes with bias 0 are exact (a lane holds at
+        # most BITPACK_MAX_BITS = 16 bits); the block's bias may not fit in
+        # int32, so it is added after widening to int64, as decode_np does
+        lanes = ops.bitpack_decode(s("words"), enc.bit_width, 0, enc.n)
+        return (lanes.to(torch.int64) + int(enc.bias)).to(out_dtype)
     raise ValueError(enc.encoding)
 
 

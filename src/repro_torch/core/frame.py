@@ -287,7 +287,7 @@ class SharkFrame:
         before the call push below the score projection and prune
         partitions as usual, and the physical layer may route eligible
         partitions to the `topk_similarity` kernel route
-        (`physical._match_topk`), which the port does not have yet.  `embedding` resolves through the
+        (`physical._match_topk`).  `embedding` resolves through the
         catalog's `Table.embeddings` lane mapping, or by `{embedding}_{i}`
         prefix over this frame's columns."""
         q = np.asarray(query, dtype=np.float64).ravel()
@@ -392,11 +392,20 @@ class SharkFrame:
     def to_features(self, feature_cols: Sequence[str],
                     label_col: Optional[str] = None,
                     map_rows=None, dtype=None):
-        """Encoded-feature RDD for ml/ (Listing 1's mapRows step,
-        DESIGN.md §15.1): the ml/ tier is not ported yet."""
-        raise NotImplementedError(
-            "to_features: the ml/ tier is not ported yet (ROADMAP queue A, "
-            "analytics)")
+        """Encoded-feature RDD for ml/ (Listing 1's mapRows step), extending
+        this frame's lineage graph with one narrow map; partitions stay
+        encoded column blocks until the train step decodes them on the
+        session's device (DESIGN.md §15.1).  `dtype` sets the feature
+        compute dtype (float32 default; labels always keep their source
+        dtype)."""
+        self._check_columns(list(feature_cols)
+                            + ([label_col] if label_col else []),
+                            "to_features")
+        from ..ml.featurize import table_rdd_to_features
+        return table_rdd_to_features(self.to_rdd(), feature_cols, label_col,
+                                     map_rows,
+                                     dtype=(np.float32 if dtype is None
+                                            else dtype))
 
     def cache(self, name: str, num_partitions: Optional[int] = None,
               distribute_by: Optional[str] = None) -> "SharkFrame":

@@ -405,6 +405,15 @@ class SegmentRunner:
         with self._lock:
             rec.fused_routes[route] = rec.fused_routes.get(route, 0) + 1
 
+    def _note_route(self, route: str) -> None:
+        """Tally an auxiliary route taken ON TOP of the partition's segment
+        route — e.g. the topk_similarity selection that replaces the host
+        lexsort after a similarity segment ran under `jit`.  Routes only;
+        partition/row counts stay with the primary `_note`."""
+        rec = self.record
+        with self._lock:
+            rec.routes[route] = rec.routes.get(route, 0) + 1
+
     # -- compiled expression set ----------------------------------------------
 
     def _computed_exprs(self) -> List[Expr]:
@@ -1866,8 +1875,7 @@ class Executor:
             names = seg.output_names(self.catalog)
             # ORDER BY <dot-product score> DESC LIMIT k over a segment
             # whose lanes survive projection: the per-partition top-k is
-            # the topk_similarity kernel's route (DESIGN.md §15.3), which
-            # raises until that kernel is ported
+            # the topk_similarity kernel's route (DESIGN.md §15.3)
             topk = (_match_topk(seg, keys[0][0], names)
                     if limit is not None and len(keys) == 1 and keys[0][1]
                     else None)

@@ -880,13 +880,32 @@ def _find_shuffle_dep(rdd: RDD, shuffle_id: int) -> Optional[ShuffleDependency]:
     return None
 
 
+def resolve_device(device=None):
+    """The torch device a session computes on.  None means "cuda", which
+    raises when no card is present: a session never moves to the CPU
+    unless asked."""
+    import torch
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "SharkSession: no CUDA device is available; pass device=\"cpu\" "
+            "to run on the CPU")
+    return dev
+
+
 class SharkContext:
-    """The cluster handle: block manager + scheduler + RDD constructors."""
+    """The cluster handle: block manager + scheduler + RDD constructors.
+
+    `device` is where the context's tasks compute (the GPU unless the
+    caller asks for the CPU); every RDD reaches it through `rdd.ctx`, so
+    work launched from an RDD — a training iteration over a FeatureRDD —
+    runs where the session that built it runs."""
 
     def __init__(self, num_workers: int = 8, max_threads: int = 8,
                  speculation: bool = True,
                  task_launch_overhead_s: float = 0.0,
-                 policy: Optional[ResiliencePolicy] = None):
+                 policy: Optional[ResiliencePolicy] = None, device=None):
+        self.device = resolve_device(device)
         self.block_manager = BlockManager()
         self.scheduler = Scheduler(
             self, num_workers=num_workers, max_threads=max_threads,

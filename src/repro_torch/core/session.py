@@ -33,22 +33,9 @@ from .pde import PDEConfig
 from .physical import ExecResult, Executor
 from .plan import Node, explain, optimize
 from .rdd import RDD
-from .runtime import SharkContext
+from .runtime import SharkContext, resolve_device
 from .sql import Binder, CreateStmt, SelectStmt, parse
 from .types import Schema
-
-
-def resolve_device(device=None):
-    """The torch device a session computes on.  None means "cuda", which
-    raises when no card is present: a session never moves to the CPU
-    unless asked."""
-    import torch
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "SharkSession: no CUDA device is available; pass device=\"cpu\" "
-            "to run on the CPU")
-    return dev
 
 
 class SharkSession:
@@ -76,7 +63,7 @@ class SharkSession:
                                 max_threads=max_threads,
                                 speculation=speculation,
                                 task_launch_overhead_s=task_launch_overhead_s,
-                                policy=resilience)
+                                policy=resilience, device=self.device)
         self.catalog = Catalog()
         self.default_partitions = default_partitions
         self.executor = Executor(

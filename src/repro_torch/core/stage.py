@@ -56,8 +56,8 @@ class StageRunner:
         self.cfg = cfg
         # (lane columns, query weights) when the sort stage's key is a
         # dot-product similarity score (physical._match_topk): partitions
-        # the PDE routes to the topk_similarity kernel raise until that
-        # kernel is ported (DESIGN.md §15.3)
+        # the PDE routes there take the topk_similarity kernel
+        # (DESIGN.md §15.3)
         self.topk = topk
 
     def _gate(self, num_rows: int) -> bool:
@@ -92,9 +92,10 @@ class StageRunner:
         """Segment + per-partition top-k; the sorted prefix ships as one
         zero-copy piece (single reducer) — no host-assembly copy.
 
-        Similarity-scored stages (self.topk set) whose partitions the PDE
-        routes to the topk_similarity kernel raise NotImplementedError:
-        that kernel is not ported yet."""
+        Similarity-scored stages (self.topk set) route eligible partitions
+        to the topk_similarity kernel: per-tile ranking plus pairwise
+        merges select the same rows, in the same order, as the lexsort
+        oracle (ties broken by row index, both paths)."""
         if not self._gate(batch.num_rows):
             b = self.runner.run(batch)
             return b.take(self._sort_limit_indices(b, keys, limit))
@@ -119,20 +120,32 @@ class StageRunner:
 
     def _topk_kernel_indices(self, b: PartitionBatch,
                              k: int) -> Optional[np.ndarray]:
-        """None when the PDE routes this partition to the host lexsort;
-        raises where it would take the topk_similarity kernel, which the
-        port does not have yet — never a silent change of route."""
-        from ..kernels.ops import on_gpu
+        """Row indices of the top-k similarity candidates via the
+        topk_similarity kernel, or None when the PDE routes this partition
+        to the host lexsort.  The lane columns are stacked on the runner's
+        device (block-backed lanes from their memoized device copies)."""
+        import torch
+
+        from ..kernels import ops
         d = decide_segment_backend(b.num_rows, "topk_similarity", None,
-                                   on_gpu(self.runner.device), self.cfg)
+                                   ops.on_gpu(self.runner.device), self.cfg)
         if d.route != "topk_similarity":
             return None
-        lanes, _weights = self.topk
-        if any(b.col(n).is_string for n in lanes):
+        lanes, weights = self.topk
+        cols = [b.col(n) for n in lanes]
+        if any(c.is_string for c in cols):
             return None
-        raise NotImplementedError(
-            "topk_similarity route: kernel not ported yet (ROADMAP queue "
-            "B, kernel 9)")
+        ts = [self.runner._tensor(c) for c in cols]
+        if not all(t.dtype == ts[0].dtype for t in ts) \
+                or ts[0].dtype not in (torch.float32, torch.float64):
+            # the kernel reads float32 or float64 lanes; other lanes widen
+            # exactly to float64 (integers below 2**53)
+            ts = [t.to(torch.float64) for t in ts]
+        x = torch.stack(ts, dim=1)
+        q = torch.from_numpy(np.asarray(weights, np.float64)).to(x.device)
+        _scores, idx = ops.topk_similarity(x, q, k)
+        self.runner._note_route("topk_similarity")
+        return idx.cpu().numpy()
 
     def run_limit_stage(self, batch: PartitionBatch, n: int):
         """Segment + head(n), shipped as one zero-copy piece: surviving

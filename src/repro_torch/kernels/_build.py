@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("scan", "group", "radix")
+SOURCES = ("scan", "group", "radix", "decode", "train", "topk")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -36,6 +36,12 @@ SIGNATURES = {
     "group": ("shark_group_reduce",
               [_vp, _i, _vp, _i, _ll, _i, _i, _vp, _i, _vp, _vp]),
     "radix": ("shark_radix", [_vp, _ll, ctypes.c_uint, _vp, _vp, _i, _vp]),
+    "decode": ("shark_decode",
+               [_i, _vp, _vp, _i, _ll, _i, _i, _i, _vp, _ll, _i, _vp]),
+    "train": ("shark_train_grad",
+              [_vp, _i, _vp, _vp, _ll, _i, _i, _vp, _i, _vp, _vp]),
+    "topk": ("shark_topk",
+             [_vp, _i, _vp, _ll, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
 }
 
 # dtype codes of the C interfaces (enum DType in every source)

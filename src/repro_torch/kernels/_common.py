@@ -48,8 +48,8 @@ def check_cuda_operand(t: torch.Tensor, name: str, n: int = None) -> None:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(launches: dict) -> None:
-    """Add one to a wrapper's launch count (wrappers run on executor
-    threads, so the increment takes a lock)."""
+def count_launch(launches: dict, name: str) -> None:
+    """Add one to kernel `name`'s launch count in its module's `LAUNCHES`
+    (wrappers run on executor threads, so the increment takes a lock)."""
     with _COUNT_LOCK:
-        launches["count"] += 1
+        launches[name] += 1

@@ -21,7 +21,7 @@ from ._common import (check_cuda_operand, count_launch, grid_blocks,
                       on_cpu)
 
 # launches of the CUDA kernel (one per wrapper call that reached the card)
-LAUNCHES = {"count": 0}
+LAUNCHES = {"colscan": 0}
 
 
 def colscan_plain(filter_col: torch.Tensor, agg_col: torch.Tensor,
@@ -69,5 +69,5 @@ def colscan(filter_col: torch.Tensor, agg_col: torch.Tensor, lo, hi
     check_cuda_operand(filter_col, "filter_col")
     check_cuda_operand(agg_col, "agg_col", n)
     out = launch_scan("colscan", filter_col, None, agg_col, n, lo, hi)
-    count_launch(LAUNCHES)
+    count_launch(LAUNCHES, "colscan")
     return out

@@ -20,7 +20,7 @@ from . import _build
 from ._common import (check_cuda_operand, count_launch, grid_blocks,
                       on_cpu)
 
-LAUNCHES = {"count": 0}
+LAUNCHES = {"groupby_sum": 0}
 MAX_GROUPS = 1024      # shared-memory accumulators per block (group.cu)
 
 
@@ -71,5 +71,5 @@ def groupby_sum(codes: torch.Tensor, values: torch.Tensor,
     if on_cpu(codes, values):
         return groupby_sum_plain(codes, values, num_groups)
     out = launch_group("groupby_sum", codes, values, num_groups, False)
-    count_launch(LAUNCHES)
+    count_launch(LAUNCHES, "groupby_sum")
     return out

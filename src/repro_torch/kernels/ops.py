@@ -19,13 +19,21 @@ from . import dictdecode as _dd
 from . import groupby_mxu as _gb
 from . import radix_partition as _rp
 from . import segmented_merge as _sm
+from . import topk_similarity as _tk
+from . import train_grad as _tg
 
+# kernel name -> the module whose LAUNCHES counts it (dictdecode holds four)
 KERNEL_MODULES = {
     "colscan": _colscan,
     "fused_decode_scan": _dd,
     "groupby_sum": _gb,
     "radix_partition": _rp,
     "segmented_merge": _sm,
+    "dict_decode": _dd,
+    "bitpack_decode": _dd,
+    "rle_decode": _dd,
+    "topk_similarity": _tk,
+    "train_grad": _tg,
 }
 
 
@@ -36,12 +44,12 @@ def on_gpu(device) -> bool:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {name: m.LAUNCHES["count"] for name, m in KERNEL_MODULES.items()}
+    return {name: m.LAUNCHES[name] for name, m in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for m in KERNEL_MODULES.values():
-        m.LAUNCHES["count"] = 0
+    for name, m in KERNEL_MODULES.items():
+        m.LAUNCHES[name] = 0
 
 
 def colscan(filter_col, agg_col, lo, hi) -> torch.Tensor:
@@ -51,6 +59,21 @@ def colscan(filter_col, agg_col, lo, hi) -> torch.Tensor:
 
 def fused_decode_scan(codes, dictionary, agg_col, lo, hi) -> torch.Tensor:
     return _dd.fused_decode_scan(codes, dictionary, agg_col, lo, hi)
+
+
+def dict_decode(codes, dictionary) -> torch.Tensor:
+    """`dictionary[codes]` (jnp's indexing rule for out-of-range codes)."""
+    return _dd.dict_decode(codes, dictionary)
+
+
+def bitpack_decode(words, bit_width: int, bias: int, n: int) -> torch.Tensor:
+    """The first n int32 lanes of the packed words, plus `bias`."""
+    return _dd.bitpack_decode(words, bit_width, bias, n)
+
+
+def rle_decode(run_values, run_ends, n: int) -> torch.Tensor:
+    """Runs expanded to n positions; run_ends cumulative exclusive."""
+    return _dd.rle_decode(run_values, run_ends, n)
 
 
 def groupby_sum(codes, values, num_groups: int) -> torch.Tensor:
@@ -69,6 +92,19 @@ def radix_partition(keys_u32, num_buckets: int, with_counts: bool = True):
     `with_counts=False` skips the histogram (ids-only callers)."""
     return _rp.radix_partition(keys_u32, num_buckets=num_buckets,
                                with_counts=with_counts)
+
+
+def topk_similarity(x, q, k: int):
+    """(scores, row ids) of the min(k, rows) rows of `x` most similar to
+    `q` by dot product: scores descending, ties by ascending row, exactly
+    `np.argsort(-scores, kind="stable")[:k]` (DESIGN.md §15.3)."""
+    return _tk.topk_similarity(x, q, k)
+
+
+def train_grad(x, y, w, kind: str = "logistic") -> torch.Tensor:
+    """Unnormalised batch gradient `x.T @ (pred(x @ w) - y)` as a float64
+    (d,) tensor — the kernel route of `pde.decide_train_backend`."""
+    return _tg.train_grad(x, y, w, kind)
 
 
 # -- double-buffered kernel dispatch (DESIGN.md §14) --------------------

@@ -29,7 +29,7 @@ from . import _build
 from ._common import (check_cuda_operand, count_launch, grid_blocks,
                       on_cpu)
 
-LAUNCHES = {"count": 0}
+LAUNCHES = {"radix_partition": 0}
 MAX_BUCKETS = 8192     # shared-memory histogram per block (radix.cu)
 
 _GOLDEN32 = 2654435761          # 2^32 / phi, Knuth's constant
@@ -102,7 +102,7 @@ def radix_partition(keys_u32: torch.Tensor, num_buckets: int,
         counts.data_ptr() if counts is not None else None,
         grid_blocks(n), _build.stream_handle(dev))
     _build.check_launch("radix_partition", rc)
-    count_launch(LAUNCHES)
+    count_launch(LAUNCHES, "radix_partition")
     return ids, counts
 
 

@@ -18,7 +18,7 @@ import torch
 from ._common import count_launch, on_cpu
 from .groupby_mxu import _valid, groupby_sum_plain, launch_group
 
-LAUNCHES = {"count": 0}
+LAUNCHES = {"segmented_merge": 0}
 
 
 def segmented_merge_plain(codes: torch.Tensor, values: torch.Tensor,
@@ -43,5 +43,5 @@ def segmented_merge(codes: torch.Tensor, values: torch.Tensor,
     if on_cpu(codes, values):
         return segmented_merge_plain(codes, values, num_groups)
     out = launch_group("segmented_merge", codes, values, num_groups, True)
-    count_launch(LAUNCHES)
+    count_launch(LAUNCHES, "segmented_merge")
     return out

@@ -95,3 +95,37 @@ def test_device_memo_dropped_with_decode_cache():
     before = blk.nbytes
     blk.drop_decoded()
     assert blk.enc._device == {} and blk.nbytes == before
+
+
+@pytest.mark.parametrize("encoding", ["dict", "rle", "bitpack", "for"])
+@pytest.mark.parametrize("offset", [0, 2 ** 40])
+def test_decode_torch_reads_memoized_streams_not_the_host_decode(encoding,
+                                                                 offset):
+    """The device decode reads streams memoized on the block (words as
+    int32 bits, run lengths as cumulative ends) and never the host decode;
+    a bias past int32 survives the int32 bit-pack lanes."""
+    from repro_torch.core.expr import DECODE_COUNTERS
+    v = np.repeat(np.arange(50, dtype=np.int64), 4)[::-1] + offset
+    enc = tc.encode(v, tc.Encoding(encoding))
+    before = DECODE_COUNTERS["numeric_blocks"]
+    got = tc.decode_torch(enc)
+    assert DECODE_COUNTERS["numeric_blocks"] == before
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), v)
+    streams = dict(enc._device)
+    assert streams
+    np.testing.assert_array_equal(tc.decode_torch(enc).numpy(), v)
+    assert all(enc._device[k] is t for k, t in streams.items())
+    if encoding == "bitpack":
+        assert enc._device[("words", "cpu")].dtype == torch.int32
+    if encoding == "rle":
+        assert enc._device[("run_ends", "cpu")].dtype == torch.int32
+
+
+def test_decode_torch_widens_narrow_dictionaries():
+    """A bool dictionary widens exactly for the gather and decodes back to
+    bool."""
+    v = np.array([True, False, False, True] * 10)
+    got = tc.decode_torch(tc.encode(v, tc.Encoding.DICT))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), v)

@@ -1,6 +1,6 @@
 """The torch port stands alone: importing it pulls in neither JAX nor any
 module of the reference package, and a session computes on the GPU unless
-the caller asks for the CPU."""
+the caller asks for the CPU — training included."""
 
 import subprocess
 import sys
@@ -22,7 +22,10 @@ def _run(code: str) -> str:
 def test_import_pulls_in_no_jax_and_no_reference():
     out = _run(
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
-        "import repro_torch.kernels.ref\n"
+        "import repro_torch.kernels.ref, repro_torch.ml\n"
+        "import repro_torch.kernels.train_grad\n"
+        "import repro_torch.kernels.topk_similarity\n"
+        "import repro_torch.kernels.dictdecode\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)")
@@ -52,3 +55,45 @@ def test_unported_paths_raise():
         SharkSession(device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SharkSession(device="cpu", server=object())
+
+
+def test_cpu_session_trains_on_the_cpu():
+    """A device="cpu" session trains on the CPU with the CPU's routes, on
+    a host with a card too: no kernel launches, no CUDA tensor."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DType, Schema, SharkSession
+    from repro_torch.kernels import ops
+    from repro_torch.ml import KMeans, LogisticRegression
+    from repro_torch.ml import trainer
+
+    rng = np.random.default_rng(0)
+    data = {f"f{i}": rng.integers(0, 9, 20_000).astype(np.int64)
+            for i in range(3)}
+    data["y"] = rng.integers(0, 2, 20_000).astype(np.int64)
+    sess = SharkSession(num_workers=2, max_threads=2, device="cpu")
+    sess.create_table("t", Schema.of(**{c: DType.INT64 for c in data}), data,
+                      num_partitions=4)
+    seen = []
+    orig = trainer.partition_grad
+
+    def spy(*args, **kw):
+        route, g = orig(*args, **kw)
+        seen.append((args[7], route))
+        return route, g
+
+    ops.reset_launch_counts()
+    trainer.partition_grad = spy
+    try:
+        clf = LogisticRegression(dims=3, iterations=2).fit(
+            sess.table("t"), ["f0", "f1", "f2"], "y")
+        KMeans(k=2, dims=3, iterations=2).fit(sess.table("t"),
+                                              ["f0", "f1", "f2"], "y")
+    finally:
+        trainer.partition_grad = orig
+        sess.shutdown()
+    assert {r for _, r in seen} == {"jit"}, seen
+    assert all(torch.device(dev).type == "cpu" for dev, _ in seen)
+    assert clf.metrics.segment_routes() == {"jit": 8}
+    assert set(ops.launch_counts().values()) == {0}

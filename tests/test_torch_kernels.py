@@ -1,34 +1,49 @@
-"""The torch port's five engine kernels against the JAX reference kernels.
+"""The torch port's ten kernels against the JAX reference kernels.
 
 Each test feeds the same numpy inputs, made from a seed, to the reference
 Pallas kernel (interpret mode on the CPU, through `repro.kernels.ops`, as
-tests/test_kernels.py runs it, with float64 accumulation) and to the
-port's wrapper on CPU tensors, which runs the kernel's plain PyTorch
-version.  Tolerances: counts, min, max, group ids and bucket ids exact;
-float64 sums to rtol 1e-12 (both sides accumulate in float64, in
-different orders).
+tests/test_kernels.py and tests/test_kernels_topk.py run it, with float64
+accumulation) and to the port's wrapper on CPU tensors, which runs the
+kernel's plain PyTorch version.  Tolerances: counts, min, max, group ids,
+bucket ids, decoded values, top-k row ids and their order exact; float64
+sums and gradients to rtol 1e-12 (both sides accumulate in float64, in
+different orders); top-k scores to rtol 1e-12 (the same float64 products,
+summed in another order).
 
 `test_cuda_kernel_matches_plain` holds each CUDA kernel against its plain
 version on the card; it needs a CUDA device and skips without one.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels import ops as jops
-from repro.kernels.radix_partition import radix_partition_ref
+try:
+    import jax
+    from repro.kernels import ops as jops
+    from repro.kernels.radix_partition import radix_partition_ref
+except ImportError:      # a GPU host without JAX runs the cuda test alone
+    jax = jops = radix_partition_ref = None
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import colscan as tcolscan
 from repro_torch.kernels import dictdecode as tdd
 from repro_torch.kernels import groupby_mxu as tgb
 from repro_torch.kernels import radix_partition as trp
 from repro_torch.kernels import segmented_merge as tsm
+from repro_torch.kernels import topk_similarity as ttk
+from repro_torch.kernels import train_grad as ttg
 
 SIZES = [1, 100, 1023, 8 * 128 * 3 + 17]
 BOUNDS = [(-0.5, 0.5), (-np.inf, 0.25), (-0.25, np.inf), (np.inf, -np.inf)]
 NP_DTYPES = {"int32": np.int32, "int64": np.int64, "float64": np.float64}
+
+
+@pytest.fixture(autouse=True)
+def _reference_installed(request):
+    """Every test but the cuda-marked one compares with the JAX reference,
+    which a GPU host may lack."""
+    if jops is None and request.node.get_closest_marker("cuda") is None:
+        pytest.skip("the JAX reference package is not installed")
 
 
 def _t(a):
@@ -40,7 +55,8 @@ def _scan_close(got, want):
     want = np.asarray(want, np.float64)
     assert got[0] == want[0]                     # count
     np.testing.assert_allclose(got[1], want[1], rtol=1e-12, atol=1e-9)
-    assert got[2] == want[2] and got[3] == want[3]   # min, max exact
+    # min, max exact; a NaN aggregate value makes both NaN on both sides
+    np.testing.assert_array_equal(got[2:], want[2:])
 
 
 def _filter_col(rng, n, nan_every=0):
@@ -161,6 +177,198 @@ def test_fold_keys_u32_torch_matches_numpy():
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
+# -- decode kernels (tests/test_kernels.py:29-62) ------------------------
+
+
+def _pack(vals: np.ndarray, width: int) -> np.ndarray:
+    per = 32 // width
+    nw = -(-len(vals) // per)
+    padded = np.zeros(nw * per, np.uint32)
+    padded[:len(vals)] = vals
+    words = np.zeros(nw, np.uint32)
+    for j in range(per):
+        words |= padded[j::per] << np.uint32(j * width)
+    return words
+
+
+@pytest.mark.parametrize("n,d", [(1, 3), (1000, 50), (8 * 128 * 2 + 5, 4096)])
+@pytest.mark.parametrize("dtype", ["int32", "int64", "float32", "float64"])
+def test_dict_decode_matches_reference(n, d, dtype):
+    rng = np.random.default_rng(n + d)
+    dic = (rng.normal(size=d) * 100).astype(dtype)
+    codes = rng.integers(0, d, n).astype(np.int32)
+    with jax.enable_x64():
+        want = np.asarray(jops.dict_decode(codes, dic))
+    got = tops.dict_decode(_t(codes), _t(dic))
+    assert got.dtype == _t(dic).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dict_decode_out_of_range_codes_follow_jnp_indexing():
+    """Negative codes count from the end, then indices clamp."""
+    from repro.kernels import ref as jref
+    dic = np.arange(10, 20, dtype=np.int64)
+    codes = np.array([5, -1, -5, 12, -30, 9, 10], np.int32)
+    want = np.asarray(jref.dict_decode_ref(jax.numpy.asarray(codes),
+                                           jax.numpy.asarray(dic)))
+    np.testing.assert_array_equal(tops.dict_decode(_t(codes), _t(dic)).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("width", range(1, 17))
+@pytest.mark.parametrize("n", [1, 3000])
+def test_bitpack_decode_matches_reference(width, n):
+    rng = np.random.default_rng(width * 31 + n)
+    vals = rng.integers(0, 1 << width, n).astype(np.uint32)
+    words = _pack(vals, width)
+    want = np.asarray(jops.bitpack_decode(words, width, -3, n))
+    for w in (_t(words.view(np.int32)), _t(words.astype(np.int64))):
+        got = tops.bitpack_decode(w, width, -3, n)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, vals.astype(np.int32) - 3)
+
+
+@pytest.mark.parametrize("runs,n", [(1, 64), (5, 1000), (100, 8 * 128 * 2)])
+@pytest.mark.parametrize("dtype", ["int64", "float32", "float64"])
+def test_rle_decode_matches_reference(runs, n, dtype):
+    rng = np.random.default_rng(runs + n)
+    lens = np.maximum(1, rng.multinomial(n - runs, np.ones(runs) / runs) + 1)
+    ends = np.cumsum(lens).astype(np.int32)
+    vals = (rng.normal(size=runs) * 50).astype(dtype)
+    total = int(ends[-1])
+    with jax.enable_x64():
+        want = np.asarray(jops.rle_decode(vals, ends, total))
+        # positions past the last end clamp to the last run, as the TPU
+        # kernel does
+        past = np.asarray(jops.rle_decode(vals, ends, total + 7))
+    np.testing.assert_array_equal(
+        tops.rle_decode(_t(vals), _t(ends), total).numpy(), want)
+    np.testing.assert_array_equal(
+        tops.rle_decode(_t(vals), _t(ends), total + 7).numpy(), past)
+
+
+# -- topk_similarity and train_grad (tests/test_kernels_topk.py) ---------
+
+
+def _topk_oracle(x, q, k):
+    s = x.astype(np.float64) @ q.astype(np.float64)
+    idx = np.argsort(-s, kind="stable")[: min(k, len(s))]
+    return s[idx], idx
+
+
+def _topk_both(x, q, k):
+    """(reference, port) top-k of the same inputs."""
+    with jax.enable_x64():
+        want = jops.topk_similarity(x, q, k)
+    got_s, got_i = tops.topk_similarity(_t(x), _t(q.astype(np.float64)), k)
+    assert got_s.dtype == torch.float64 and got_i.dtype == torch.int64
+    return want, (got_s.numpy(), got_i.numpy())
+
+
+@pytest.mark.parametrize("n,d,k", [
+    (1, 1, 1),
+    (2048, 5, 1),
+    (5000, 7, 10),
+    (1024, 128, 128),
+    (4096, 16, 200),
+    (300, 3, 500),          # k > num_rows: trimmed to n
+])
+def test_topk_similarity_integer_ties_exact(n, d, k):
+    """Integer-valued lanes: exact products, genuine ties, exact order."""
+    rng = np.random.default_rng(n + d + k)
+    x = rng.integers(-4, 5, size=(n, d)).astype(np.float64)
+    q = rng.integers(-3, 4, size=d).astype(np.float64)
+    (ws, wi), (gs, gi) = _topk_both(x, q, k)
+    os_, oi = _topk_oracle(x, q, k)
+    if n > 100:             # the sweep must actually contain ties
+        assert len(np.unique(x @ q)) < n
+    np.testing.assert_array_equal(gi, oi)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gs, os_)
+    np.testing.assert_allclose(gs, ws, rtol=1e-12)
+
+
+@pytest.mark.parametrize("n,d,k", [(3000, 12, 25), (777, 40, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_topk_similarity_continuous(n, d, k, dtype):
+    rng = np.random.default_rng(n * d)
+    x = rng.normal(size=(n, d)).astype(dtype)
+    q = rng.normal(size=d)
+    (ws, wi), (gs, gi) = _topk_both(x, q, k)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gi, _topk_oracle(x, q, k)[1])
+    np.testing.assert_allclose(gs, ws, rtol=1e-12)
+
+
+def test_topk_similarity_all_tied():
+    x = np.ones((512, 6))
+    q = np.arange(6, dtype=np.float64)
+    (ws, wi), (gs, gi) = _topk_both(x, q, 20)
+    np.testing.assert_array_equal(gi, np.arange(20))
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gs, np.full(20, q.sum()))
+
+
+@pytest.mark.parametrize("n", [255, 256, 257, 1023, 1024, 1025, 2048])
+def test_topk_similarity_tile_boundaries(n):
+    """n at the port's 256-row tiles and the reference's 1024-row tiles,
+    and one off: padding never surfaces as a result."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(-2, 3, size=(n, 4)).astype(np.float64)
+    q = np.array([1.0, -1.0, 2.0, 0.5])
+    (_, wi), (_, gi) = _topk_both(x, q, 64)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gi, _topk_oracle(x, q, 64)[1])
+    assert gi.max() < n
+
+
+def test_topk_similarity_nan_scores_rank_last():
+    """NaN scores follow numpy's argsort: after every number, in row
+    order; -0.0 ties with +0.0."""
+    x = np.array([[np.nan], [1.0], [-0.0], [np.inf], [0.0], [np.nan],
+                  [-np.inf]])
+    q = np.array([1.0])
+    s, i = tops.topk_similarity(_t(x), _t(q), 10)
+    np.testing.assert_array_equal(i.numpy(), _topk_oracle(x, q, 10)[1])
+
+
+def test_topk_similarity_rejects_k_below_one():
+    with pytest.raises(ValueError):
+        tops.topk_similarity(_t(np.ones((3, 2))), _t(np.ones(2)), 0)
+
+
+@pytest.mark.parametrize("kind", ["logistic", "linear"])
+@pytest.mark.parametrize("n,d", [(1, 1), (4096, 24), (1023, 130)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_train_grad_matches_reference(kind, n, d, dtype):
+    rng = np.random.default_rng(n + d)
+    x = (rng.normal(size=(n, d)) * 3).astype(dtype)
+    w = rng.normal(size=d).astype(dtype)
+    y = (rng.uniform(size=n) < 0.5).astype(dtype)
+    with jax.enable_x64():
+        want = jops.train_grad(x, y, w, kind)
+    got = tops.train_grad(_t(x), _t(y), _t(w), kind)
+    assert got.dtype == torch.float64 and got.shape == (d,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+def test_train_grad_stable_sigmoid_at_extremes():
+    """Large |x . w| saturates without overflow or NaN."""
+    x = np.array([[800.0], [-800.0], [0.0]])
+    got = tops.train_grad(_t(x), _t(np.zeros(3)), _t(np.ones(1)),
+                          "logistic").numpy()
+    np.testing.assert_allclose(got, [800.0])
+
+
+def test_train_grad_rejects_unknown_kind():
+    with pytest.raises(ValueError):
+        jops.train_grad(np.ones((4, 2)), np.ones(4), np.ones(2), "huber")
+    with pytest.raises(ValueError):
+        tops.train_grad(_t(np.ones((4, 2))), _t(np.ones(4)), _t(np.ones(2)),
+                        "huber")
+
+
 def test_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers run the plain versions: no launch."""
     tops.reset_launch_counts()
@@ -171,7 +379,13 @@ def test_wrappers_count_only_kernel_launches():
     tops.groupby_sum(c, x, 3)
     tops.segmented_merge(c, x, 3)
     tops.radix_partition(c, 4)
-    assert set(tops.launch_counts().values()) == {0}
+    tops.dict_decode(c, x)
+    tops.bitpack_decode(c, 4, 0, 10)
+    tops.rle_decode(x, c.cumsum(0).to(torch.int32) + 1, 10)
+    tops.topk_similarity(x[:, None], x[:1], 3)
+    tops.train_grad(x[:, None], x, x[:1])
+    counts = tops.launch_counts()
+    assert len(counts) == 10 and set(counts.values()) == {0}
 
 
 def test_mixed_devices_raise():
@@ -217,3 +431,44 @@ def test_cuda_kernel_matches_plain(n):
         want_ids, want_counts = trp.radix_partition_ref(keys, b)
         np.testing.assert_array_equal(ids.cpu().numpy(), want_ids)
         np.testing.assert_array_equal(counts.cpu().numpy(), want_counts)
+    # decode kernels: exact against their plain versions
+    for dt in ("int32", "int64", "float32", "float64"):
+        for d in (3, 4096):
+            dic = _t((rng.normal(size=d) * 100).astype(dt))
+            c = _t(rng.integers(-2, d + 2, n).astype(np.int32))
+            assert torch.equal(tdd.dict_decode(c.cuda(), dic.cuda()).cpu(),
+                               tdd.dict_decode_plain(c, dic))
+    for width in range(1, 17):
+        vals = rng.integers(0, 1 << width, n).astype(np.uint32)
+        words = _t(_pack(vals, width).view(np.int32))
+        assert torch.equal(tdd.bitpack_decode(words.cuda(), width, -3,
+                                              n).cpu(),
+                           tdd.bitpack_decode_plain(words, width, -3, n))
+    for runs in (1, max(1, n // 5)):
+        lens = rng.integers(1, 9, runs)
+        ends = _t(np.cumsum(lens).astype(np.int32))
+        vals = _t(rng.normal(size=runs))
+        total = int(ends[-1])
+        assert torch.equal(tdd.rle_decode(vals.cuda(), ends.cuda(),
+                                          total).cpu(),
+                           tdd.rle_decode_plain(vals, ends, total))
+    # topk_similarity: ids and order exact, scores bitwise (same lane order)
+    for x in (rng.integers(-3, 4, size=(n, 5)).astype(np.float64),
+              rng.normal(size=(n, 64)).astype(np.float32)):
+        q = _t(rng.normal(size=x.shape[1]))
+        for k in (1, 100, n + 5):
+            gs, gi = ttk.topk_similarity(_t(x).cuda(), q.cuda(), k)
+            ps, pi = ttk.topk_similarity_plain(_t(x), q, k)
+            assert torch.equal(gi.cpu(), pi) and torch.equal(gs.cpu(), ps)
+    # train_grad: gradient sums to rtol 1e-12
+    for dt in ("float32", "float64"):
+        for d in (1, 12, 130):
+            x = _t(rng.normal(size=(n, d)).astype(dt))
+            y = _t((rng.uniform(size=n) < 0.5).astype(dt))
+            w = _t(rng.normal(size=d).astype(dt))
+            for kind in ttg.KINDS:
+                got = ttg.train_grad(x.cuda(), y.cuda(), w.cuda(), kind)
+                np.testing.assert_allclose(
+                    got.cpu().numpy(),
+                    ttg.train_grad_plain(x, y, w, kind).numpy(),
+                    rtol=1e-12, atol=1e-9)
