@@ -5,9 +5,10 @@
     python3 chip_smoke.py --device cpu --rows 300000   # CPU rehearsal
 
 Phase 0 builds the CUDA kernels from `src/repro_torch/kernels/csrc/`.
-Phase 1 holds each of the ten kernels against its plain PyTorch version on
-the card, at the main paths' partition sizes and at ragged sizes, and
-times both.
+Phase 1 holds each of the twelve kernels against its plain PyTorch version
+on the card, at the main paths' sizes and at ragged sizes, and times both
+(flash attention and the SSD scan at Zamba2-7B's prefill shapes, with
+`scaled_dot_product_attention` timed beside flash as a yardstick).
 Phase 2 runs the SQL main path end to end: a `SharkSession` on the card
 loads a TPC-H `lineitem` table (6,000,000 rows, scale factor 1, in 64
 partitions of 93,750 rows, columns drawn from dbgen's domains with numpy
@@ -27,6 +28,17 @@ without a filter below it, ids checked exactly against numpy.  Its
 launches must show `topk_similarity`.  On the card, phases 3 and 4 each
 end with a torch.profiler trace of one warm step (a `trace` JSON line:
 device busy time and idle share, device and host ops).
+Phase 5 serves Zamba2-7B (arXiv:2411.15242 as the registry defines it: 81
+slots, d_model 3584, 5.88 B parameters, random bf16 weights drawn on the
+card from `--seed`) through `ServeEngine`: a batch of 4 prompts of 2,048
+tokens with 64 new tokens each, and 1 prompt of 1,000 tokens with 16 new
+tokens (prompts drawn with numpy from `--seed`).  It prints the build,
+prefill and decode times, the launches of one prefill (11
+`flash_attention_fwd`, 70 `ssd_scan`), traces of one prefill and one
+decode step, and peak device memory; then, on a float32 copy of the same
+weights, it holds the kernels' prefill logits against the plain
+versions' and one decode step against the full forward over S + 1
+tokens.  The CPU rehearsal serves the smoke variant.
 
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -37,6 +49,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -50,6 +63,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 # tensor cores (67 TFLOP/s) is the nearest listed peak for these kernels'
 # scalar float work
 PEAK_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12          # dense bf16 tensor cores, same data sheet
 # 64 partitions put 64 x 50 = 3,200 partial-state rows into query (c)'s
 # reduce, past PDEConfig.reduce_min_compiled_rows (2048), so the merge
 # takes segmented_merge; the main path is timed over REPS runs
@@ -68,6 +82,8 @@ TPU_KERNELS = {
     "rle_decode": "src/repro/kernels/dictdecode.py:98",
     "topk_similarity": "src/repro/kernels/topk_similarity.py:106",
     "train_grad": "src/repro/kernels/train_grad.py:67",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention.py:96",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:94",
 }
 SOURCES = {
     "colscan": "src/repro_torch/kernels/csrc/scan.cu",
@@ -80,11 +96,14 @@ SOURCES = {
     "rle_decode": "src/repro_torch/kernels/csrc/decode.cu",
     "topk_similarity": "src/repro_torch/kernels/csrc/topk.cu",
     "train_grad": "src/repro_torch/kernels/csrc/train.cu",
+    "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd.cu",
 }
 SQL_KERNELS = ("colscan", "fused_decode_scan", "groupby_sum",
                "radix_partition", "segmented_merge")
 TRAIN_KERNELS = ("dict_decode", "bitpack_decode", "rle_decode", "train_grad")
 SEARCH_KERNELS = ("topk_similarity",)
+LM_KERNELS = ("flash_attention_fwd", "ssd_scan")
 # phase 3/4 partition sizes at full size: 10,000,000 / 64 and 1,000,000 / 64
 TRAIN_ROWS, DOCS_ROWS = 156_250, 15_625
 EMB_DIM, TOP_K = 64, 100
@@ -204,9 +223,9 @@ def traced(torch, device, label: str, fn) -> None:
                       "host_self_ms": host}), flush=True)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak: float = PEAK_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -885,6 +904,330 @@ def phase_search(torch, device, rows: int, seed: int) -> dict:
     return {k: launches[k] for k in SEARCH_KERNELS}
 
 
+# ---------------------------------------------------------------- LM kernels
+
+# Zamba2-7B's prefill shapes (repro_torch/configs/registry.py): 32 heads of
+# 112 in the shared attention; 64 SSD heads of P = 112, N = 64, chunk 256
+LM_BATCH, LM_SEQ = 4, 2048
+ATT_HEADS, ATT_HD = 32, 112
+SSD_HEADS, SSD_P, SSD_N, SSD_CHUNK, SSD_TILE = 64, 112, 64, 256, 64
+BF16_STEP = 2.0 ** -7            # one bfloat16 rounding step, relative
+
+
+def flash_cost(b, h, s, hd, itemsize):
+    """(bytes, flops) of causal attention: q, k, v read and o written once;
+    two hd-long dot products per (row, col <= row) pair."""
+    return 4.0 * b * h * s * hd * itemsize, 4.0 * b * h * hd * s * (s + 1) / 2
+
+
+def ssd_cost(b, s, h, p, n, itemsize):
+    """(bytes, flops) of the SSD scan with 64-row tiles: x, B, C (x's dtype)
+    and dt read once, y (x's dtype) and the float32 final state written
+    once; per row and head the causal halves of C B^T and M x, C . state
+    and the state update."""
+    nbytes = (2.0 * b * s * h * p + 2.0 * b * s * n) * itemsize \
+        + 4.0 * b * s * h + 4.0 * b * h * p * n + 8.0 * h
+    flops = 2.0 * b * s * h * (SSD_TILE / 2 * (n + p) + 2.0 * n * p)
+    return nbytes, flops
+
+
+def phase_kernels_lm(torch, device, seed: int) -> dict:
+    """The flash and SSD kernels against their plain versions on the device,
+    at Zamba2's prefill shapes, at Mamba2-370m's SSD head geometry, at a
+    ragged S = 1000, at head dims 64 and 128 and in float32; then each timed
+    at Zamba2's prefill shape in the layout the model hands it."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssd_scan as ks
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed + 5)
+    dev = device
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = {k: 0.0 for k in LM_KERNELS}
+    # the CPU rehearsal compares the plain versions with themselves at a
+    # fraction of the heads
+    cut = 1 if device.type == "cuda" else 8
+
+    def t(a, dt=f32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(dt)
+
+    # flash: rel max err < 0.03 in bf16, < 1e-4 in float32 (the
+    # reference's kernel test)
+    for b, h, s, hd, dt in ((LM_BATCH, ATT_HEADS, LM_SEQ, ATT_HD, bf16),
+                            (LM_BATCH, ATT_HEADS, 1000, ATT_HD, bf16),
+                            (2, 16, LM_SEQ, 64, bf16),
+                            (2, 16, 1000, 128, bf16),
+                            (2, 8, 1000, ATT_HD, f32),
+                            (1, 8, 777, 128, f32), (2, 4, 129, 64, f32)):
+        h = max(1, h // cut)
+        # the model's layout: (B, S, H, hd) seen as (B, H, S, hd)
+        q, k, v = (t(rng.normal(size=(b, s, h, hd)), dt).transpose(1, 2)
+                   for _ in range(3))
+        got = kf.flash_attention_fwd(q, k, v).float()
+        want = kf.flash_attention_fwd_plain(q, k, v).float()
+        rel = float((got - want).abs().max() / want.abs().max())
+        if not (np.isfinite(rel) and rel < (0.03 if dt == bf16 else 1e-4)):
+            fail(f"flash ({b}, {h}, {s}, {hd}, {dt}) rel err {rel}")
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], float(
+            (got - want).abs().max()))
+    # SSD: rtol = atol = 1e-3 on y and the final state (the reference's
+    # kernel test); a bf16 y is rounded once to bf16 on both sides, so two
+    # values that close may still round one bf16 step apart
+    for b, s, h, p, n, dt in ((LM_BATCH, LM_SEQ, SSD_HEADS, SSD_P, SSD_N,
+                               bf16),
+                              (1, LM_SEQ, 32, 64, 128, bf16),
+                              (2, 1000, SSD_HEADS, SSD_P, SSD_N, bf16),
+                              (2, 1000, 8, SSD_P, SSD_N, f32),
+                              (1, 1000, 32, 64, 128, f32)):
+        h = max(1, h // cut)
+        x = t(rng.normal(size=(b, s, h, p)), dt)
+        dtt = F.softplus(t(rng.normal(size=(b, s, h))))
+        a = -torch.exp(t(rng.normal(size=h)))
+        bm, cm = t(rng.normal(size=(b, s, n)), dt), t(rng.normal(size=(b, s, n)),
+                                                      dt)
+        d = t(rng.normal(size=h))
+        y, st = ks.ssd_scan(x, dtt, a, bm, cm, SSD_CHUNK, d=d)
+        yp, sp = ks.ssd_scan_plain(x, dtt, a, bm, cm, SSD_CHUNK, d=d)
+        y, yp = y.float(), yp.float()
+        rtol = 1e-3 + (BF16_STEP if dt == bf16 else 0.0)
+        over_y = float(((y - yp).abs() - 1e-3 - rtol * yp.abs()).max())
+        over_s = float(((st - sp).abs() - 1e-3 - 1e-3 * sp.abs()).max())
+        if not (over_y <= 0 and over_s <= 0):
+            fail(f"ssd ({b}, {s}, {h}, {p}, {n}, {dt}) beyond tolerance: y "
+                 f"by {over_y}, state by {over_s}")
+        err["ssd_scan"] = max(err["ssd_scan"], float((y - yp).abs().max()),
+                              float((st - sp).abs().max()))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"phase 1: flash and SSD kernels match their plain versions, max "
+          f"abs err {json.dumps(err)}", flush=True)
+
+    timer = Timer(torch, device)
+    b, s = LM_BATCH, LM_SEQ
+    ah, sh = ATT_HEADS // cut, SSD_HEADS // cut
+    q, k, v = (t(rng.normal(size=(b, s, ah, ATT_HD)), bf16).transpose(1, 2)
+               for _ in range(3))
+    di = sh * SSD_P
+    # x, B, C as the in-projection's slices of the conv output
+    xbc = t(rng.normal(size=(b, s, di + 2 * SSD_N)), bf16)
+    x = xbc[..., :di].reshape(b, s, sh, SSD_P)
+    bm, cm = xbc[..., di:di + SSD_N], xbc[..., di + SSD_N:]
+    dtt = F.softplus(t(rng.normal(size=(b, s, sh))))
+    a = -torch.exp(t(rng.normal(size=sh)))
+    d = t(np.ones(sh))
+    fb, ff = flash_cost(b, ah, s, ATT_HD, 2)
+    sb, sf = ssd_cost(b, s, sh, SSD_P, SSD_N, 2)
+    cases = {
+        "flash_attention_fwd": (
+            lambda: kf.flash_attention_fwd(q, k, v),
+            lambda: kf.flash_attention_fwd_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            fb, ff),
+        "ssd_scan": (
+            lambda: ks.ssd_scan(x, dtt, a, bm, cm, SSD_CHUNK, d=d),
+            lambda: ks.ssd_scan_plain(x, dtt, a, bm, cm, SSD_CHUNK, d=d),
+            None, sb, sf),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, ops) in cases.items():
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        out[name] = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name], "launches": 0,
+            "max_abs_err": err[name], "ms": timer(kern, reps=10, warmup=2),
+            "device_ms": timer.graphed(kern, calls=5, replays=4),
+            "plain_ms": timer(plain, reps=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": (timer(lib, reps=10, warmup=2)
+                           if lib is not None else None),
+        }
+    print(f"phase 1: flash {ff / 1e9:.1f} GFLOP / {fb / 1e6:.1f} MB, ssd "
+          f"{sf / 1e9:.1f} GFLOP / {sb / 1e6:.1f} MB at the timed shape",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 5
+
+# requests: (batch, prompt tokens, new tokens); the second is ragged for
+# both kernels (1000 is no multiple of their 64-row tiles or of chunk 256)
+REQUESTS = ((LM_BATCH, LM_SEQ, 64), (1, 1000, 16))
+DECODE_STEPS = 8
+# the consistency checks run on a float32 copy of the served weights, where
+# the two routes differ only in float32 summation order (rel 3.4e-5 at the
+# full depth on an H100, PERF.md section 6); in bf16 each route's rounding
+# drifts over the 81 slots by more than the 0.05 the reference's smoke
+# test allows (kernels vs plain 0.070, bf16 vs float32 0.086 there), so
+# the bf16 gaps are reported beside that noise floor, not gated
+CONSISTENCY_REL = 1e-3
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """The model's kernel wrappers replaced by their plain versions (the
+    model reaches them through `kernels.ops` at call time)."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ks
+    saved = ops.flash_attention_fwd, ops.ssd_scan
+    ops.flash_attention_fwd = kf.flash_attention_fwd_plain
+    ops.ssd_scan = ks.ssd_scan_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention_fwd, ops.ssd_scan = saved
+
+
+def phase_serve(torch, device, seed: int) -> dict:
+    """Serve Zamba2-7B (81 slots, d_model 3584, bf16 weights drawn on the
+    device from `--seed`) through ServeEngine: per request, the prefill and
+    decode times and the launches of one prefill; then both requests
+    through `generate`, the counted main path; then, on a float32 copy of
+    the same weights, the kernels' prefill against the plain versions' and
+    one decode step against the full forward over S + 1 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeEngine
+
+    cuda = device.type == "cuda"
+    # the CPU rehearsal serves the smoke variant (same family and code path)
+    cfg = get_config("zamba2-7b" if cuda else "zamba2-7b-smoke")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.build_model(cfg, device,
+                           torch.Generator(device=device).manual_seed(seed))
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"phase 5: {cfg.name} ({cfg.n_layers} slots, d_model "
+          f"{cfg.d_model}, {n_params} parameters, {n_bytes} bytes) built on "
+          f"{device} in {time.perf_counter() - t0:.3f} s", flush=True)
+    rng = np.random.default_rng(seed + 6)
+    prompts = [rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+               for b, s, _ in REQUESTS]
+    n_groups = cfg.n_layers // cfg.attn_every
+    per_prefill = {"flash_attention_fwd": n_groups,
+                   "ssd_scan": cfg.n_layers - n_groups}
+
+    def prefill(toks, max_seq):
+        return lm.prefill_fn(cfg, model, {"tokens": toks}, max_seq)
+
+    def full_forward_last(toks):
+        h = lm._backbone_full(cfg, model, toks)
+        return (h[:, -1:] @ lm._unembed(cfg, model)).float()
+
+    bf16_logits = []
+    for (b, s, new), prompt in zip(REQUESTS, prompts):
+        max_seq = s + new
+        toks = torch.from_numpy(prompt).to(device)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        logits, caches = prefill(toks, max_seq)
+        sync()
+        first_ms = (time.perf_counter() - t) * 1e3
+        counts = {k: ops.launch_counts()[k] for k in LM_KERNELS}
+        if cuda and counts != per_prefill:
+            fail(f"one prefill launched {counts}, expected {per_prefill}")
+        if not (logits.shape == (b, 1, cfg.vocab)
+                and bool(torch.isfinite(logits).all())):
+            fail(f"prefill logits {tuple(logits.shape)} not finite")
+        with plain_routes():
+            logits_plain, _ = prefill(toks, max_seq)
+        t = time.perf_counter()
+        logits, caches = prefill(toks, max_seq)
+        sync()
+        warm_ms = (time.perf_counter() - t) * 1e3
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        steps = []
+        for i in range(DECODE_STEPS):
+            t = time.perf_counter()
+            logits_d, caches = lm.decode_fn(cfg, model, tok[:, None], caches,
+                                            s + i)
+            sync()
+            steps.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                first_dec = logits_d
+            tok = torch.argmax(logits_d[:, -1], dim=-1)
+        if not bool(torch.isfinite(logits_d).all()):
+            fail("decode logits not finite")
+        first_tok = torch.argmax(logits[:, -1], dim=-1)
+        full = full_forward_last(torch.cat([toks.long(), first_tok[:, None]],
+                                           dim=1))
+        bf16_logits.append((logits, logits_plain, first_dec, full))
+        print(f"phase 5: request {b} x {s} + {new}: prefill first "
+              f"{first_ms:.3f} ms, warm {warm_ms:.3f} ms "
+              f"({b * s / warm_ms * 1e3:.1f} tokens/s); decode first step "
+              f"{steps[0]:.3f} ms, warm {float(np.median(steps[1:])):.3f} "
+              f"ms/step (median of {len(steps) - 1}); bf16 gaps: kernels vs "
+              f"plain rel {rel(logits, logits_plain):.4g}, decode vs full "
+              f"forward rel {rel(first_dec, full):.4g}; launches per "
+              f"prefill {json.dumps(counts)}", flush=True)
+        if cuda and b == LM_BATCH:
+            traced(torch, device, f"phase 5: one prefill, {b} x {s}",
+                   lambda: prefill(toks, max_seq))
+            traced(torch, device, "phase 5: one warm decode step",
+                   lambda: lm.decode_fn(cfg, model, tok[:, None], caches,
+                                        s + DECODE_STEPS))
+        del caches, logits_d
+
+    # the main path: both requests through ServeEngine.generate
+    ops.reset_launch_counts()
+    for (b, s, new), prompt in zip(REQUESTS, prompts):
+        eng = ServeEngine(cfg, model, max_seq=s + new, temperature=0.0,
+                          seed=seed)
+        t = time.perf_counter()
+        out = eng.generate(prompt, new)
+        gen_s = time.perf_counter() - t
+        if not (out.shape == (b, new) and out.dtype == np.int32
+                and ((out >= 0) & (out < cfg.vocab)).all()):
+            fail(f"generate returned {out.shape} {out.dtype}")
+        print(f"phase 5: generate {b} x {s} + {new} tokens in {gen_s:.3f} s "
+              f"({b * new / gen_s:.1f} new tokens/s incl. prefill); first "
+              f"tokens {out[0, :8].tolist()}", flush=True)
+    launches = {k: ops.launch_counts()[k] for k in LM_KERNELS}
+    want = {k: v * len(REQUESTS) for k, v in per_prefill.items()}
+    if cuda and launches != want:
+        fail(f"generate launched {launches}, expected {want}")
+    if cuda:
+        print(f"phase 5: peak device memory serving bf16 "
+              f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+
+    # consistency, on a float32 copy of the same weights
+    model.float()
+    for (b, s, new), prompt, (lk16, lp16, ld16, lf16) in zip(
+            REQUESTS, prompts, bf16_logits):
+        toks = torch.from_numpy(prompt).to(device)
+        logits, caches = prefill(toks, s + new)
+        with plain_routes():
+            logits_plain, _ = prefill(toks, s + new)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        logits_d, _ = lm.decode_fn(cfg, model, tok[:, None], caches, s)
+        del caches
+        full = full_forward_last(torch.cat([toks.long(), tok[:, None]], dim=1))
+        r_plain, r_dec = rel(logits, logits_plain), rel(logits_d, full)
+        print(f"phase 5: request {b} x {s}, float32 weights: kernels vs "
+              f"plain rel {r_plain:.4g}, decode vs full forward rel "
+              f"{r_dec:.4g}; the bf16 route's own rounding: plain bf16 vs "
+              f"plain float32 rel {rel(lp16, logits_plain):.4g}, kernels "
+              f"bf16 vs float32 rel {rel(lk16, logits):.4g}", flush=True)
+        if not (r_plain < CONSISTENCY_REL and r_dec < CONSISTENCY_REL):
+            fail(f"float32 consistency beyond {CONSISTENCY_REL}: kernels vs "
+                 f"plain {r_plain}, decode vs full forward {r_dec}")
+    print(f"phase 5: main-path launches {json.dumps(launches)}", flush=True)
+    del model
+    return launches
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -913,6 +1256,7 @@ def main() -> int:
 
     kernels = phase_kernels(torch, device, args.seed)
     kernels.update(phase_kernels_analytics(torch, device, args.seed))
+    kernels.update(phase_kernels_lm(torch, device, args.seed))
     launches = {k: v for k, v in phase_sql(torch, device, args.rows,
                                           args.seed).items()
                 if k in SQL_KERNELS}
@@ -920,6 +1264,7 @@ def main() -> int:
     launches.update(phase_train(torch, device, args.rows * 5 // 3,
                                 args.seed))
     launches.update(phase_search(torch, device, args.rows // 6, args.seed))
+    launches.update(phase_serve(torch, device, args.seed))
     if device.type == "cuda":
         idle = [k for k, v in launches.items() if v == 0]
         if idle:

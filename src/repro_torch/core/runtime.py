@@ -881,14 +881,14 @@ def _find_shuffle_dep(rdd: RDD, shuffle_id: int) -> Optional[ShuffleDependency]:
 
 
 def resolve_device(device=None):
-    """The torch device a session computes on.  None means "cuda", which
-    raises when no card is present: a session never moves to the CPU
+    """The torch device a session or a model computes on.  None means
+    "cuda", which raises when no card is present: nothing moves to the CPU
     unless asked."""
     import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "SharkSession: no CUDA device is available; pass device=\"cpu\" "
+            "no CUDA device is available; pass device=\"cpu\" "
             "to run on the CPU")
     return dev
 

@@ -22,7 +22,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("scan", "group", "radix", "decode", "train", "topk")
+SOURCES = ("scan", "group", "radix", "decode", "train", "topk", "flash",
+           "ssd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -42,10 +43,17 @@ SIGNATURES = {
               [_vp, _i, _vp, _vp, _ll, _i, _i, _vp, _i, _vp, _vp]),
     "topk": ("shark_topk",
              [_vp, _i, _vp, _ll, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
+    "flash": ("shark_flash_attention_fwd",
+              [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i] + [_ll] * 12
+              + [_vp]),
+    "ssd": ("shark_ssd_scan",
+            [_vp, _i, _ll, _ll, _vp, _vp, _vp, _ll, _ll, _vp, _ll, _ll,
+             _i, _i, _i, _i, _i, _vp, _vp, _vp]),
 }
 
 # dtype codes of the C interfaces (enum DType in every source)
-DTYPE_CODES = {"int32": 0, "int64": 1, "float32": 2, "float64": 3}
+DTYPE_CODES = {"int32": 0, "int64": 1, "float32": 2, "float64": 3,
+               "bfloat16": 4}
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[str, object] = {}

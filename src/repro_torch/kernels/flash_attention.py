@@ -1,0 +1,89 @@
+"""Causal flash attention, forward (the shared-attention prefill of the
+`hybrid` family).
+
+`flash_attention_fwd(q, k, v, causal)` returns `softmax(q k^T / sqrt(hd))
+v` with the causal mask `col <= row` (absolute indices), for q (B, H, S,
+hd) and k, v (B, H, T, hd) in the reference kernel's layout: MHA, one k/v
+head per query head (GQA callers repeat k/v heads first).  Scores,
+running max, running denominator and the output accumulator are float32;
+the output has q's dtype and is divided by `max(l, 1e-30)`, as the
+reference kernel's finalize does.  bfloat16 and float32 inputs; hd up to
+128; any S and T (the ragged last tile is masked, where the reference
+wrapper asserts `s % block_q == 0`).
+
+On CUDA tensors the wrapper launches `csrc/flash.cu` (it replaces
+repro/kernels/flash_attention.py:flash_attention_fwd; the design note is in
+the source).  The kernel takes each operand's batch, head and sequence
+strides, so a (B, S, H, hd) tensor seen through `.transpose(1, 2)` needs no
+copy; the output is allocated in q's layout.  On CPU tensors the wrapper
+runs `flash_attention_fwd_plain`, the masked softmax in float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from ._common import count_launch, on_cpu
+
+LAUNCHES = {"flash_attention_fwd": 0}
+MAX_HEAD_DIM = 128      # flash.cu's shared-memory tiles
+NEG_INF = -1e30
+
+
+def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True
+                              ) -> torch.Tensor:
+    """Plain PyTorch version (any device): the full masked softmax in
+    float32, cast to q's dtype."""
+    hd = q.shape[-1]
+    s, t = q.shape[2], k.shape[2]
+    qf = q.float() / math.sqrt(hd)
+    sc = torch.einsum("bhsd,bhtd->bhst", qf, k.float())
+    if causal:
+        mask = torch.ones(s, t, dtype=torch.bool, device=q.device).tril()
+        sc = torch.where(mask, sc, torch.tensor(NEG_INF, device=q.device))
+    return torch.einsum("bhst,bhtd->bhsd", torch.softmax(sc, dim=-1),
+                        v.float()).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention_fwd takes q (B, H, S, hd) and k, v "
+                         f"(B, H, T, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch, heads or head dim")
+    if not (q.dtype == k.dtype == v.dtype
+            and q.dtype in (torch.bfloat16, torch.float32)):
+        raise TypeError(f"q, k, v must share bfloat16 or float32, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not 1 <= q.shape[3] <= MAX_HEAD_DIM:
+        raise ValueError(f"flash kernel takes head dim 1..{MAX_HEAD_DIM}, "
+                         f"got {q.shape[3]}")
+    if min(q.shape[2], k.shape[2]) < 1:
+        raise ValueError("flash_attention_fwd needs S >= 1 and T >= 1")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    if on_cpu(q, k, v):
+        return flash_attention_fwd_plain(q, k, v, causal)
+    _check(q, k, v)
+    b, h, s, hd = (int(x) for x in q.shape)
+    t = int(k.shape[2])
+    out = torch.empty_like(q)      # q's layout when dense, else contiguous
+    rc = _build.kernel_fn("flash")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _build.dtype_code(q), b, h, s, t, hd, int(causal),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], _build.stream_handle(q.device))
+    _build.check_launch("flash_attention_fwd", rc)
+    count_launch(LAUNCHES, "flash_attention_fwd")
+    return out

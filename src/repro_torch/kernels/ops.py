@@ -16,9 +16,11 @@ import torch
 
 from . import colscan as _colscan
 from . import dictdecode as _dd
+from . import flash_attention as _fa
 from . import groupby_mxu as _gb
 from . import radix_partition as _rp
 from . import segmented_merge as _sm
+from . import ssd_scan as _ssd
 from . import topk_similarity as _tk
 from . import train_grad as _tg
 
@@ -34,6 +36,8 @@ KERNEL_MODULES = {
     "rle_decode": _dd,
     "topk_similarity": _tk,
     "train_grad": _tg,
+    "flash_attention_fwd": _fa,
+    "ssd_scan": _ssd,
 }
 
 
@@ -105,6 +109,19 @@ def train_grad(x, y, w, kind: str = "logistic") -> torch.Tensor:
     """Unnormalised batch gradient `x.T @ (pred(x @ w) - y)` as a float64
     (d,) tensor — the kernel route of `pde.decide_train_backend`."""
     return _tg.train_grad(x, y, w, kind)
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Causal attention forward, q (B, H, S, hd), k, v (B, H, T, hd), MHA;
+    float32 softmax, output in q's dtype (the hybrid prefill's attention)."""
+    return _fa.flash_attention_fwd(q, k, v, causal)
+
+
+def ssd_scan(x, dt, a, b, c, chunk: int = 128, d=None):
+    """(y, final_state) of the Mamba2 SSD scan with one B/C group: y in
+    x's dtype (plus the D skip when `d` is given), final_state (B, H, P, N)
+    float32 (every Mamba2 prefill)."""
+    return _ssd.ssd_scan(x, dt, a, b, c, chunk, d)
 
 
 # -- double-buffered kernel dispatch (DESIGN.md §14) --------------------

@@ -1,0 +1,5 @@
+"""The LM substrate of the port: layers and the `ssm` / `hybrid` families.
+
+Import submodules directly (repro_torch.models.lm etc.); this package init
+stays empty to avoid import cycles with repro_torch.configs.
+"""

@@ -1,0 +1,173 @@
+"""GQA self-attention (RoPE, optional QKV bias): prefill and decode.
+
+Prefill runs causal attention through `kernels.ops.flash_attention_fwd`:
+the hand-written kernel (`kernels/csrc/flash.cu`) on the card, its plain
+masked softmax on the CPU.  `_blockwise_attention` is the reference's
+route (an online softmax over KV chunks in plain torch) and the port's
+oracle for it.  Decode attends one query against the KV cache with a
+length mask, in plain torch, writing the new k/v into the preallocated
+cache in place.  MLA, cross-attention and the int8 cache wait (ROADMAP
+A.5).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..kernels import ops
+from .common import _param, apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+class GQA(nn.Module):
+    """`gqa_init`'s parameters: wq (d, H*hd), wk, wv (d, KV*hd), wo
+    (H*hd, d), and zero biases bq, bk, bv with `qkv_bias`."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                 qkv_bias: bool = False, dtype=torch.bfloat16, device=None,
+                 generator=None):
+        super().__init__()
+
+        def mk(i, o):
+            return _param(dense_init(i, o, dtype, device, generator))
+
+        self.wq = mk(d_model, n_heads * head_dim)
+        self.wk = mk(d_model, n_kv * head_dim)
+        self.wv = mk(d_model, n_kv * head_dim)
+        self.wo = mk(n_heads * head_dim, d_model)
+        self.qkv_bias = qkv_bias
+        if qkv_bias:
+            for nm, width in (("bq", n_heads * head_dim),
+                              ("bk", n_kv * head_dim),
+                              ("bv", n_kv * head_dim)):
+                setattr(self, nm, _param(torch.zeros(width, dtype=dtype,
+                                                     device=device)))
+
+
+def _project_qkv(p: GQA, x: torch.Tensor, n_heads: int, n_kv: int,
+                 head_dim: int):
+    b, s, _ = x.shape
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if p.qkv_bias:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    return (q.reshape(b, s, n_heads, head_dim),
+            k.reshape(b, s, n_kv, head_dim),
+            v.reshape(b, s, n_kv, head_dim))
+
+
+def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_positions: torch.Tensor, kv_chunk: int,
+                         causal: bool, kv_offset: int = 0) -> torch.Tensor:
+    """q: (B,S,H,hd); k,v: (B,T,KV,hd).  Online softmax over KV chunks in
+    float32 (the reference's default `scores_dtype="f32"`)."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    n_kv = k.shape[2]
+    g = h // n_kv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, s, n_kv, g, hd).float() * scale
+
+    kv_chunk = min(kv_chunk, t)
+    t_orig = t
+    if t % kv_chunk != 0:
+        pad = kv_chunk - t % kv_chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        t = t + pad
+    n_chunks = t // kv_chunk
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+
+    m = torch.full((b, s, n_kv, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, s, n_kv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, s, n_kv, g, hd), dtype=torch.float32,
+                      device=q.device)
+    for idx in range(n_chunks):
+        kb = k[:, idx * kv_chunk:(idx + 1) * kv_chunk].float()
+        vb = v[:, idx * kv_chunk:(idx + 1) * kv_chunk].float()
+        kpos = idx * kv_chunk + torch.arange(kv_chunk, device=q.device) \
+            + kv_offset
+        scores = torch.einsum("bsgxd,bcgd->bsgxc", qg, kb)
+        if causal:
+            mask = kpos[None, None, None, None, :] \
+                <= q_positions[:, :, None, None, None]
+            scores = torch.where(mask, scores, neg)
+        if t != t_orig:  # mask KV padding (non-multiple chunk lengths)
+            valid = (kpos < t_orig)[None, None, None, None, :]
+            scores = torch.where(valid, scores, neg)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.exp(scores - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bsgxc,bcgd->bsgxd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def self_attention(p: GQA, x: torch.Tensor, positions: torch.Tensor,
+                   n_heads: int, n_kv: int, head_dim: int, rope_theta: float,
+                   causal: bool = True, return_kv: bool = False):
+    """Full-sequence causal self-attention (prefill).  x: (B,S,D);
+    positions: (B,S), the same row for every batch entry (the causal mask
+    is by sequence index).  With `return_kv`, also (k after RoPE, v), each
+    (B,S,KV,hd), as the reference caches them.  The reference's `kv_chunk`
+    belongs to its blockwise route; the flash kernel tiles on its own."""
+    b, s, d = x.shape
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
+    if rope_theta > 0:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    kh, vh = k, v
+    if n_kv != n_heads:   # the kernel is MHA: repeat each kv head
+        kh = k.repeat_interleave(n_heads // n_kv, dim=2)
+        vh = v.repeat_interleave(n_heads // n_kv, dim=2)
+    # (B,S,H,hd) seen as (B,H,S,hd): the kernel reads the strides, and its
+    # output comes back in q's layout, so the transpose copies nothing
+    out = ops.flash_attention_fwd(q.transpose(1, 2), kh.transpose(1, 2),
+                                  vh.transpose(1, 2), causal).transpose(1, 2)
+    y = out.reshape(b, s, n_heads * head_dim) @ p.wo
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def decode_attention(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, cur_len: int, n_heads: int,
+                     n_kv: int, head_dim: int, rope_theta: float):
+    """One-token decode: x (B,1,D); cache (B,Smax,KV,hd); cur_len = number
+    of valid cache entries.  Returns the attention output (B,1,D).  The
+    new token's k (after RoPE) and v are written into the caches at
+    position cur_len IN PLACE (the reference returns updated copies).
+
+    The cache is read at its storage dtype with float32 products and
+    sums, as the reference's dots accumulate in float32."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
+    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
+    if rope_theta > 0:
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    cache_k[:, cur_len:cur_len + 1] = k.to(cache_k.dtype)
+    cache_v[:, cur_len:cur_len + 1] = v.to(cache_v.dtype)
+    t = cache_k.shape[1]
+    g = n_heads // n_kv
+    scale = 1.0 / math.sqrt(head_dim)
+    qg = (q.reshape(b, n_kv, g, head_dim).float() * scale) \
+        .to(cache_k.dtype).float()
+    scores = torch.einsum("bgxd,btgd->bgxt", qg, cache_k.float())
+    mask = torch.arange(t, device=x.device)[None, None, None, :] <= cur_len
+    scores = torch.where(mask, scores,
+                         torch.tensor(NEG_INF, device=x.device))
+    w = torch.softmax(scores, dim=-1).to(cache_v.dtype).float()
+    out = torch.einsum("bgxt,btgd->bgxd", w, cache_v.float())
+    return out.reshape(b, 1, n_heads * head_dim).to(x.dtype) @ p.wo

@@ -1,0 +1,164 @@
+"""Shared model components: initializers, norms, RoPE, MLPs, embeddings.
+
+The reference keeps parameters as nested dicts with stacked leading layer
+axes (`stacked_dense_init`); the port keeps them on `nn.Module`s, one
+module per layer, with the reference's names and shapes (a weight is
+(in, out) and applied as `x @ w`), so `models/convert.py` maps one tree
+onto the other.  Each `*_init` of the reference is a module's
+constructor here (`Norm`, `MLP`, `Embed`), drawing from an explicit
+`torch.Generator` with the reference's distributions: normal in float32,
+scaled, then cast.  The chunked losses wait for training (ROADMAP A.5).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    """Serving weights: no gradient is kept."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+def normal(shape, std: float, dtype, device, generator) -> torch.Tensor:
+    """N(0, std^2) drawn in float32, then cast (the reference's pattern)."""
+    x = torch.randn(shape, dtype=torch.float32, device=device,
+                    generator=generator)
+    return (x * std).to(dtype)
+
+
+def dense_init(in_dim: int, out_dim: int, dtype=torch.bfloat16,
+               device=None, generator=None,
+               scale: Optional[float] = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    return normal((in_dim, out_dim), scale, dtype, device, generator)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dt)
+
+
+class Norm(nn.Module):
+    """`norm_init`'s parameters: `w` (ones), and `b` (zeros) for "ln"."""
+
+    def __init__(self, kind: str, dim: int, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.kind = kind
+        self.w = _param(torch.ones(dim, dtype=dtype, device=device))
+        if kind == "ln":
+            self.b = _param(torch.zeros(dim, dtype=dtype, device=device))
+
+
+def norm_apply(kind: str, x: torch.Tensor, p: Norm) -> torch.Tensor:
+    if kind == "rms":
+        return rmsnorm(x, p.w)
+    return layernorm(x, p.w, p.b)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)              # hd/2
+    angles = positions[..., :, None].float() * freqs           # (..., s, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """`mlp_init`'s parameters: swiglu {gate, up, down}, gelu {fc, proj,
+    fc_b, proj_b}."""
+
+    def __init__(self, kind: str, d_model: int, d_ff: int,
+                 dtype=torch.bfloat16, device=None, generator=None):
+        super().__init__()
+        self.kind = kind
+
+        def mk(i, o):
+            return _param(dense_init(i, o, dtype, device, generator))
+
+        if kind == "swiglu":
+            self.gate = mk(d_model, d_ff)
+            self.up = mk(d_model, d_ff)
+            self.down = mk(d_ff, d_model)
+        else:
+            self.fc = mk(d_model, d_ff)
+            self.proj = mk(d_ff, d_model)
+            self.fc_b = _param(torch.zeros(d_ff, dtype=dtype, device=device))
+            self.proj_b = _param(torch.zeros(d_model, dtype=dtype,
+                                             device=device))
+
+
+def mlp_apply(kind: str, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    if kind == "swiglu":
+        g = x @ p.gate
+        u = x @ p.up
+        return (F.silu(g.float()).to(x.dtype) * u) @ p.down
+    h = x @ p.fc + p.fc_b
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ p.proj + p.proj_b
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    """`embed_init`'s parameters: `tok` (vocab, d_model), N(0, 0.02^2)."""
+
+    def __init__(self, vocab: int, d_model: int, dtype=torch.bfloat16,
+                 device=None, generator=None):
+        super().__init__()
+        self.tok = _param(normal((vocab, d_model), 0.02, dtype, device,
+                                 generator))
+
+
+def embed_lookup(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    return p.tok[tokens]

@@ -1,0 +1,71 @@
+"""Carry the reference's parameters into the port.
+
+`params_from_jax(np_params, cfg, model)` takes the reference's parameter
+tree (`lm.init_params(cfg, key)[0]`) as nested dicts of numpy arrays — its
+caller makes them with `jax.tree.map(np.asarray, params)` — unstacks the
+leading layer axes onto the port's per-layer modules, and loads the result
+into `model`, taking each array's dtype.  Names map one to one:
+`{"group_mamba": {"mamba": {"in_proj": (G, n, d, o)}}}` becomes
+`group_mamba.<g>.<i>.mamba.in_proj`.
+
+numpy gives JAX's bfloat16 arrays the `ml_dtypes` bfloat16 dtype, which
+`torch.from_numpy` refuses; such an array crosses as its uint16 bits and
+is viewed as `torch.bfloat16` on the torch side.  `ml_dtypes` itself is
+not imported (a host without JAX need not have it).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from .lm import FAMILIES, LM
+
+# reference tree keys whose arrays carry stacked leading layer axes
+STACKED_AXES = {"layers": 1, "group_mamba": 2, "tail_mamba": 1}
+
+
+def to_torch(a) -> torch.Tensor:
+    """A numpy array as a torch tensor of the same dtype, bfloat16 too."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _leaves(tree, path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, np.asarray(tree)
+
+
+def state_from_jax(np_params: dict, cfg: ModelConfig
+                   ) -> Dict[str, torch.Tensor]:
+    """The port's state dict (CPU tensors) of a reference parameter tree."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
+                                  f"see ROADMAP A.5")
+    state = {}
+    for (top, *rest), arr in _leaves(np_params):
+        lead = STACKED_AXES.get(top, 0)
+        for idx in np.ndindex(*arr.shape[:lead]):
+            name = ".".join([top, *map(str, idx), *rest])
+            state[name] = to_torch(arr[idx])
+    return state
+
+
+def params_from_jax(np_params: dict, cfg: ModelConfig, model: LM) -> LM:
+    """Load a reference parameter tree into `model` (built from the same
+    cfg), on the model's device; every parameter must be matched."""
+    device = model.embed.tok.device
+    state = {k: v.to(device) for k, v in state_from_jax(np_params,
+                                                        cfg).items()}
+    model.load_state_dict(state, strict=True, assign=True)
+    return model

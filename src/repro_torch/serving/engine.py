@@ -1,0 +1,51 @@
+"""Batched serving engine: prefill, then one decode step per new token
+against caches allocated at `max_seq`, with greedy or temperature
+sampling.  It computes on the model's device (the card unless the model
+was built on the CPU); the sampled tokens stay there until the end."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import lm
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, model: lm.LM, max_seq: int,
+                 temperature: float = 0.0, seed: int = 0):
+        self.cfg = cfg
+        self.model = model
+        self.max_seq = max_seq
+        self.temperature = temperature
+        self.device = model.embed.tok.device
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.temperature <= 0.0:
+            return torch.argmax(logits[:, -1], dim=-1)
+        probs = torch.softmax(logits[:, -1] / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator)[:, 0]
+
+    def generate(self, prompt_tokens: np.ndarray, max_new_tokens: int
+                 ) -> np.ndarray:
+        """prompt_tokens: (B, S) int32 (right-aligned, no padding support in
+        this minimal loop).  Returns (B, max_new_tokens) int32."""
+        b, s = prompt_tokens.shape
+        if s + max_new_tokens > self.max_seq:
+            raise ValueError(f"{s} prompt + {max_new_tokens} new tokens "
+                             f"exceed max_seq={self.max_seq}")
+        tokens = torch.from_numpy(np.ascontiguousarray(prompt_tokens)).to(
+            self.device)
+        logits, caches = lm.prefill_fn(self.cfg, self.model,
+                                       {"tokens": tokens},
+                                       max_seq=self.max_seq)
+        out = []
+        tok = self._sample(logits)
+        for i in range(max_new_tokens):
+            out.append(tok)
+            logits, caches = lm.decode_fn(self.cfg, self.model, tok[:, None],
+                                          caches, s + i)
+            tok = self._sample(logits)
+        return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)

@@ -26,8 +26,14 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.kernels.train_grad\n"
         "import repro_torch.kernels.topk_similarity\n"
         "import repro_torch.kernels.dictdecode\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.models, repro_torch.models.lm\n"
+        "import repro_torch.models.convert, repro_torch.models.flash\n"
+        "import repro_torch.configs, repro_torch.serving\n"
+        "import repro_torch.launch.serve\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
+        "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "print(bad)")
     assert out == "[]"
 
@@ -41,6 +47,24 @@ def test_session_without_device_needs_a_card():
         "else:\n"
         "    try:\n"
         "        SharkSession()\n"
+        "        print('no-raise')\n"
+        "    except RuntimeError:\n"
+        "        print('raised')\n")
+    if out == "card":
+        pytest.skip("a CUDA device is present")
+    assert out == "raised"
+
+
+def test_model_without_device_needs_a_card():
+    out = _run(
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import lm\n"
+        "if torch.cuda.is_available():\n"
+        "    print('card')\n"
+        "else:\n"
+        "    try:\n"
+        "        lm.build_model(get_config('zamba2-7b-smoke'))\n"
         "        print('no-raise')\n"
         "    except RuntimeError:\n"
         "        print('raised')\n")

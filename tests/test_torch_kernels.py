@@ -1,4 +1,4 @@
-"""The torch port's ten kernels against the JAX reference kernels.
+"""The torch port's kernels against the JAX reference kernels.
 
 Each test feeds the same numpy inputs, made from a seed, to the reference
 Pallas kernel (interpret mode on the CPU, through `repro.kernels.ops`, as
@@ -10,8 +10,10 @@ sums and gradients to rtol 1e-12 (both sides accumulate in float64, in
 different orders); top-k scores to rtol 1e-12 (the same float64 products,
 summed in another order).
 
-`test_cuda_kernel_matches_plain` holds each CUDA kernel against its plain
-version on the card; it needs a CUDA device and skips without one.
+The flash-attention and SSD-scan kernels' twins against the reference are
+in tests/test_torch_lm_kernels.py.  `test_cuda_kernel_matches_plain` holds
+each CUDA kernel against its plain version on the card; it needs a CUDA
+device and skips without one.
 """
 
 import numpy as np
@@ -27,9 +29,11 @@ except ImportError:      # a GPU host without JAX runs the cuda test alone
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import colscan as tcolscan
 from repro_torch.kernels import dictdecode as tdd
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import groupby_mxu as tgb
 from repro_torch.kernels import radix_partition as trp
 from repro_torch.kernels import segmented_merge as tsm
+from repro_torch.kernels import ssd_scan as tss
 from repro_torch.kernels import topk_similarity as ttk
 from repro_torch.kernels import train_grad as ttg
 
@@ -384,8 +388,13 @@ def test_wrappers_count_only_kernel_launches():
     tops.rle_decode(x, c.cumsum(0).to(torch.int32) + 1, 10)
     tops.topk_similarity(x[:, None], x[:1], 3)
     tops.train_grad(x[:, None], x, x[:1])
+    q = x.float().reshape(1, 1, 10, 1)
+    tops.flash_attention_fwd(q, q, q)
+    xs = x.float().reshape(1, 10, 1, 1)
+    tops.ssd_scan(xs, xs[..., 0].abs(), -x[:1].float(), xs[..., 0],
+                  xs[..., 0], 4)
     counts = tops.launch_counts()
-    assert len(counts) == 10 and set(counts.values()) == {0}
+    assert len(counts) == 12 and set(counts.values()) == {0}
 
 
 def test_mixed_devices_raise():
@@ -472,3 +481,34 @@ def test_cuda_kernel_matches_plain(n):
                     got.cpu().numpy(),
                     ttg.train_grad_plain(x, y, w, kind).numpy(),
                     rtol=1e-12, atol=1e-9)
+    # flash attention: rel max err < 0.03 in bf16, < 1e-4 in float32, at
+    # a ragged S and hd 112 and 64, in the model's (B, S, H, hd) layout
+    s = min(n, 1000)
+    for dt, hd in ((torch.bfloat16, 112), (torch.float32, 112),
+                   (torch.bfloat16, 64), (torch.float32, 128)):
+        q, k, v = (_t(rng.normal(size=(2, s, 3, hd))).to(dt).cuda()
+                   .transpose(1, 2) for _ in range(3))
+        for causal in (True, False):
+            got = tfa.flash_attention_fwd(q, k, v, causal).float()
+            want = tfa.flash_attention_fwd_plain(q, k, v, causal).float()
+            rel = float((got - want).abs().max() / want.abs().max())
+            assert rel < (0.03 if dt == torch.bfloat16 else 1e-4), rel
+    # SSD scan: y and the final state to rtol = atol = 1e-3 (a bf16 y also
+    # one bf16 rounding step, as both sides round it once), ragged S
+    for dt, p, nst in ((torch.bfloat16, 112, 64), (torch.float32, 112, 64),
+                       (torch.float32, 64, 128)):
+        h = 4
+        x = _t(rng.normal(size=(2, s, h, p))).to(dt).cuda()
+        dts = torch.nn.functional.softplus(
+            _t(rng.normal(size=(2, s, h))).float()).cuda()
+        a = -torch.exp(_t(rng.normal(size=h)).float()).cuda()
+        bm, cm = (_t(rng.normal(size=(2, s, nst))).to(dt).cuda()
+                  for _ in range(2))
+        d = _t(rng.normal(size=h)).float().cuda()
+        y, st = tss.ssd_scan(x, dts, a, bm, cm, 256, d=d)
+        yp, sp = tss.ssd_scan_plain(x, dts, a, bm, cm, 256, d=d)
+        rtol = 1e-3 + (2.0 ** -7 if dt == torch.bfloat16 else 0.0)
+        y, yp = y.float().cpu(), yp.float().cpu()
+        assert bool(((y - yp).abs() <= 1e-3 + rtol * yp.abs()).all())
+        np.testing.assert_allclose(st.cpu().numpy(), sp.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-3)

@@ -1,0 +1,223 @@
+"""The port's LM serving path (`ssm` and `hybrid` families) against the JAX
+reference, at smoke size on the CPU.
+
+The reference's parameters (`lm.init_params`) are carried into the port by
+`models/convert.params_from_jax`; the same numpy tokens, made from a seed,
+go to both.  Three configurations: `zamba2-7b-smoke` (2 groups of 1 shared
+attention + 3 Mamba2 blocks, no tail), a tail variant of it (n_layers=10,
+attn_every=4: 2 groups and 2 tail blocks, as the full model has a tail)
+and `mamba2-370m-smoke`.
+
+Tolerances, relative to the reference tensor's max magnitude:
+- float32 weights (every bf16 leaf cast to float32 on both sides): prefill
+  logits, every cache tensor and three decode steps' logits to 1e-4, and
+  `ServeEngine.generate`'s greedy tokens identical;
+- bf16 weights: 3e-2, against the reference run op by op
+  (`jax.disable_jit()`).  Jitted, XLA fuses the reference's scanned layer
+  bodies and drops bf16 round trips inside the fusions, which moves its
+  own bf16 logits 2–5% from its op-by-op ones on these inputs; the port,
+  like the op-by-op reference, rounds after every op.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import REGISTRY as JREGISTRY
+from repro.configs import get_config as jget_config
+from repro.models import lm as jlm
+from repro.serving import ServeEngine as JServeEngine
+from repro_torch.configs import REGISTRY, get_config
+from repro_torch.models import convert, lm
+from repro_torch.serving import ServeEngine
+
+B, S, MAXS, NEW = 2, 37, 48, 6
+VARIANTS = {
+    "zamba2-7b-smoke": {},
+    "zamba2-tail": dict(n_layers=10, attn_every=4),
+    "mamba2-370m-smoke": {},
+}
+
+
+def _configs(variant):
+    name = "zamba2-7b-smoke" if variant == "zamba2-tail" else variant
+    kw = VARIANTS[variant]
+    return (dataclasses.replace(jget_config(name), **kw),
+            dataclasses.replace(get_config(name), **kw))
+
+
+def _models(variant, dtype, seed=0):
+    jcfg, cfg = _configs(variant)
+    params, _ = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
+    if dtype == "float32":
+        params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    model = convert.params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                    lm.build_model(cfg, "cpu"))
+    return jcfg, cfg, params, model
+
+
+def _rel(got, want):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return np.abs(got - want).max() / (np.abs(want).max() + 1e-9)
+
+
+def _tokens(cfg, seed, shape=(B, S)):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, shape) \
+        .astype(np.int32)
+
+
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+@pytest.mark.parametrize("smoke", [False, True])
+def test_registry_matches_reference(name, smoke):
+    full = name + ("-smoke" if smoke else "")
+    assert dataclasses.asdict(get_config(full)) \
+        == dataclasses.asdict(jget_config(full))
+    assert sorted(REGISTRY) == sorted(JREGISTRY)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_caches_and_decode_match_reference(variant, dtype):
+    jcfg, cfg, params, model = _models(variant, dtype)
+    toks = _tokens(cfg, 1)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+
+    def jrun():
+        jl, jc = jlm.prefill_fn(jcfg, params, {"tokens": jnp.asarray(toks)},
+                                MAXS)
+        out = [(jl, {k: np.asarray(v) for k, v in jc.items()})]
+        for i in range(3):
+            tok = jnp.argmax(jl[:, 0], -1).astype(jnp.int32)[:, None]
+            jl, jc = jlm.decode_fn(jcfg, params, tok, jc, jnp.int32(S + i))
+            out.append((jl, None))
+        return out
+
+    if dtype == "float32":
+        want = jrun()
+    else:
+        with jax.disable_jit():
+            want = jrun()
+    logits, caches = lm.prefill_fn(cfg, model,
+                                   {"tokens": torch.from_numpy(toks)}, MAXS)
+    assert logits.shape == (B, 1, cfg.vocab) and logits.dtype == torch.float32
+    assert _rel(logits, want[0][0]) < tol
+    assert sorted(caches) == sorted(want[0][1])
+    for k, v in want[0][1].items():
+        assert tuple(caches[k].shape) == v.shape, k
+        assert _rel(caches[k], v) < tol, k
+    for i in range(3):
+        # the reference's own next token, so both decode the same sequence
+        tok = np.argmax(np.asarray(want[i][0])[:, 0], -1)
+        logits, caches = lm.decode_fn(cfg, model,
+                                      torch.from_numpy(tok)[:, None], caches,
+                                      S + i)
+        assert _rel(logits, want[i + 1][0]) < tol, i
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_generate_greedy_tokens_match_reference(variant):
+    jcfg, cfg, params, model = _models(variant, "float32", seed=2)
+    toks = _tokens(cfg, 3)
+    want = JServeEngine(jcfg, params, max_seq=S + NEW).generate(toks, NEW)
+    got = ServeEngine(cfg, model, max_seq=S + NEW).generate(toks, NEW)
+    assert got.dtype == np.int32 and got.shape == (B, NEW)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_decode_matches_full_forward(variant):
+    """decode(tok | prefill(S)) equals the full forward over S + 1 tokens,
+    bf16 weights, rel 0.05 (tests/test_models_smoke.py's check)."""
+    _, cfg, _, model = _models(variant, "bfloat16", seed=4)
+    toks = torch.from_numpy(_tokens(cfg, 5))
+    logits, caches = lm.prefill_fn(cfg, model, {"tokens": toks}, MAXS)
+    nxt = torch.argmax(logits[:, 0], -1)[:, None]
+    logits_d, _ = lm.decode_fn(cfg, model, nxt, caches, S)
+    h = lm._backbone_full(cfg, model, torch.cat([toks.long(), nxt], dim=1))
+    full = (h[:, -1:] @ lm._unembed(cfg, model)).float()
+    assert torch.isfinite(logits_d).all()
+    assert _rel(logits_d, full.numpy()) < 0.05
+
+
+def test_temperature_sampling_is_seeded():
+    _, cfg, _, model = _models("mamba2-370m-smoke", "float32", seed=6)
+    toks = _tokens(cfg, 7)
+
+    def run(seed):
+        return ServeEngine(cfg, model, max_seq=S + NEW, temperature=1.0,
+                           seed=seed).generate(toks, NEW)
+
+    a, b, c = run(0), run(0), run(1)
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+    assert ((a >= 0) & (a < cfg.vocab)).all()
+
+
+def test_short_prompt_fills_the_conv_cache_tail():
+    """A prompt shorter than d_conv - 1 leaves the conv cache's first rows
+    zero (the causal conv's padding); its decode equals the full forward."""
+    _, cfg, _, model = _models("mamba2-370m-smoke", "float32", seed=8)
+    toks = torch.from_numpy(_tokens(cfg, 9, (B, 2)))
+    logits, caches = lm.prefill_fn(cfg, model, {"tokens": toks}, 8)
+    assert torch.all(caches["conv"][:, :, 0] == 0)
+    nxt = torch.argmax(logits[:, 0], -1)[:, None]
+    logits_d, _ = lm.decode_fn(cfg, model, nxt, caches, 2)
+    h = lm._backbone_full(cfg, model, torch.cat([toks.long(), nxt], dim=1))
+    full = (h[:, -1:] @ lm._unembed(cfg, model)).float()
+    assert _rel(logits_d, full.numpy()) < 1e-4
+
+
+def test_build_model_draws_the_reference_init():
+    """Each leaf has the reference's shape and dtype, and its draws the
+    reference's distribution: constants exact, and the standard deviations
+    of the two draws within 5 / sqrt(n) of each other, relative (each
+    estimate's relative standard error is about 1 / sqrt(2n))."""
+    cfg = get_config("zamba2-7b-smoke")
+    jparams, _ = jlm.init_params(jget_config("zamba2-7b-smoke"),
+                                 jax.random.PRNGKey(0))
+    want = convert.state_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    model = lm.build_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    got = model.state_dict()
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].shape == v.shape and got[k].dtype == v.dtype, k
+        g, w = got[k].float(), v.float()
+        if w.std() == 0:
+            assert torch.equal(g, w), k
+        else:
+            tol = 5.0 / np.sqrt(w.numel())
+            assert abs(float(g.std()) / float(w.std()) - 1) < tol, k
+
+
+def test_converter_carries_bfloat16_bits():
+    x = jnp.asarray(np.random.default_rng(0).normal(size=(3, 5)),
+                    jnp.bfloat16)
+    arr = np.asarray(x)
+    assert arr.dtype.name == "bfloat16"
+    t = convert.to_torch(arr)
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(),
+                                  np.asarray(x, np.float32))
+
+
+@pytest.mark.parametrize("name", ["yi-9b-smoke", "phi3.5-moe-42b-a6.6b",
+                                  "llama-3.2-vision-11b", "whisper-base"])
+def test_unported_families_raise_when_built(name):
+    cfg = get_config(name)            # looking a config up works
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.build_model(cfg, "cpu")
+
+
+def test_cli_serves_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", "zamba2-7b-smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "9",
+                      "--new-tokens", "3"])
+    assert out.shape == (2, 3) and out.dtype == np.int32
+    assert "on cpu" in capsys.readouterr().out

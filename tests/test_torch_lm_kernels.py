@@ -1,0 +1,257 @@
+"""The port's flash-attention and SSD-scan plain versions against the JAX
+reference: twins of tests/test_kernels_flash.py and
+tests/test_kernels_ssd.py.
+
+The same numpy inputs, made from a seed, go to the reference Pallas
+kernel (interpret mode on the CPU) or its jnp oracle and to the port's
+plain PyTorch version, which is what the port's wrappers run on CPU
+tensors.  bf16 inputs are rounded from the same float32 values by both
+frameworks (round to nearest even), so both sides see the same bits.
+Tolerances: flash rel max error < 0.03 in bf16 and < 1e-4 in float32 (the
+reference test's); SSD rtol = atol = 1e-3 on y and the final state (the
+reference test's), 2e-3 against the sequential recurrence; float32 twins
+of the same jnp algorithm to rtol 1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_fwd as jflash
+from repro.kernels.ssd_scan import ssd_scan as jssd
+from repro.models import attention as jatt
+from repro.models import flash as jmflash
+from repro.models.mamba2 import ssd_chunked as jssd_chunked
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssd_scan as tss
+from repro_torch.models import attention as tatt
+from repro_torch.models import flash as tmflash
+from repro_torch.models.mamba2 import ssd_chunked
+
+TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+JAX_DTYPES = {"bfloat16": jnp.bfloat16, "float32": jnp.float32}
+
+
+def _pair(a, dtype):
+    """The same float32 array in both frameworks, at `dtype`."""
+    a = np.asarray(a, np.float32)
+    return (jnp.asarray(a, JAX_DTYPES[dtype]),
+            torch.from_numpy(a).to(TORCH_DTYPES[dtype]))
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return np.abs(got - want).max() / (np.abs(want).max() + 1e-9)
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+# ---------------------------------------------------------------- flash
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,s,hd,bq,bk", [
+    (2, 3, 128, 32, 32, 32),
+    (1, 2, 256, 64, 64, 128),
+    (1, 1, 512, 128, 128, 128),
+    (1, 2, 128, 112, 64, 64),      # Zamba2's head dim
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_plain_matches_reference_kernel(causal, b, h, s, hd, bq, bk,
+                                              dtype):
+    rng = np.random.default_rng(s + hd)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.normal(size=(b, h, s, hd)),
+                                          dtype) for _ in range(3))
+    want = jflash(jq, jk, jv, causal, bq, bk, interpret=True)
+    got = tfa.flash_attention_fwd_plain(tq, tk, tv, causal)
+    assert got.dtype == TORCH_DTYPES[dtype] and got.shape == (b, h, s, hd)
+    rel = _rel(_np(got), want)
+    assert rel < (0.03 if dtype == "bfloat16" else 1e-4), rel
+
+
+@pytest.mark.parametrize("s,hd", [(1000, 112), (77, 64), (300, 128)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_plain_ragged_matches_reference_blockwise(s, hd, dtype):
+    """Ragged S (the reference kernel asserts s % block == 0, so the
+    reference side is `_blockwise_attention`, the model's route)."""
+    rng = np.random.default_rng(s)
+    b, h = 1, 2
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.normal(size=(b, s, h, hd)),
+                                          dtype) for _ in range(3))
+    pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], (b, s))
+    want = jatt._blockwise_attention(jq, jk, jv, pos, 256, True)
+    got = tfa.flash_attention_fwd_plain(tq.transpose(1, 2),
+                                        tk.transpose(1, 2),
+                                        tv.transpose(1, 2)).transpose(1, 2)
+    rel = _rel(_np(got), want)
+    assert rel < (0.03 if dtype == "bfloat16" else 1e-4), rel
+
+
+@pytest.mark.parametrize("kv_chunk,n_kv", [(32, 4), (48, 2), (1024, 1)])
+def test_blockwise_attention_matches_reference(kv_chunk, n_kv):
+    """The port's `_blockwise_attention` (GQA, ragged KV chunks) against
+    the reference's, float32, rtol 1e-5 of the max."""
+    rng = np.random.default_rng(kv_chunk)
+    b, s, h, hd = 2, 100, 4, 16
+    jq, tq = _pair(rng.normal(size=(b, s, h, hd)), "float32")
+    jk, tk = _pair(rng.normal(size=(b, s, n_kv, hd)), "float32")
+    jv, tv = _pair(rng.normal(size=(b, s, n_kv, hd)), "float32")
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
+    want = jatt._blockwise_attention(jq, jk, jv, jnp.asarray(pos), kv_chunk,
+                                     True)
+    got = tatt._blockwise_attention(tq, tk, tv, torch.from_numpy(pos.copy()),
+                                    kv_chunk, True)
+    assert _rel(_np(got), want) < 1e-5
+
+
+def test_model_flash_forward_matches_reference():
+    """models/flash.py `_flash_fwd_impl` (bf16 operands, float32
+    statistics) against the reference's: o to rel 0.03 (bf16 output), the
+    float32 log-sum-exp to rtol 1e-5."""
+    rng = np.random.default_rng(1)
+    b, s, h, hd = 2, 128, 4, 32
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.normal(size=(b, s, h, hd)),
+                                          "bfloat16") for _ in range(3))
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
+    jo, jlse = jmflash._flash_fwd_impl(jq, jk, jv, jnp.asarray(pos), 32, True)
+    to, tlse = tmflash._flash_fwd_impl(tq, tk, tv,
+                                       torch.from_numpy(pos.copy()), 32, True)
+    assert _rel(_np(to), jo) < 0.03
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=1e-5,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------- SSD
+
+def _ssd_inputs(rng, b, s, h, p, n, groups=None):
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, h)))).astype(np.float32)
+    a = -np.exp(rng.normal(size=h)).astype(np.float32)
+    shape = (b, s, n) if groups is None else (b, s, groups, n)
+    bm = rng.normal(size=shape).astype(np.float32)
+    cm = rng.normal(size=shape).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 4, 16, 8, 16),
+    (1, 128, 2, 32, 16, 32),
+    (2, 256, 8, 64, 128, 64),   # mamba2-370m-like head geometry
+    (1, 128, 4, 112, 64, 32),   # zamba2-like headdim/state
+])
+def test_ssd_plain_matches_reference_kernel(b, s, h, p, n, chunk):
+    """y against the reference kernel (interpret mode), the final state
+    against the reference's `ssd_chunked` (the kernel drops it)."""
+    rng = np.random.default_rng(s * h)
+    x, dt, a, bm, cm = _ssd_inputs(rng, b, s, h, p, n)
+    want_y = jssd(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(a),
+                  jnp.asarray(bm), jnp.asarray(cm), chunk, interpret=True)
+    _, want_state = jssd_chunked(jnp.asarray(x), jnp.asarray(dt),
+                                 jnp.asarray(a), jnp.asarray(bm[:, :, None]),
+                                 jnp.asarray(cm[:, :, None]), jnp.zeros(h),
+                                 chunk)
+    y, state = tss.ssd_scan_plain(_t(x), _t(dt), _t(a), _t(bm), _t(cm), chunk)
+    assert y.dtype == torch.float32 and state.shape == (b, h, p, n)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_state),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("s,chunk", [(1000, 256), (37, 16), (256, 256)])
+def test_ssd_plain_ragged_matches_reference_chunked(s, chunk):
+    """Ragged S (padded with dt = 0 rows) with the D skip, against the
+    reference's `ssd_chunked`: y and the final state, rtol = atol = 1e-3."""
+    rng = np.random.default_rng(s)
+    b, h, p, n = 1, 4, 112, 64
+    x, dt, a, bm, cm = _ssd_inputs(rng, b, s, h, p, n)
+    d = rng.normal(size=h).astype(np.float32)
+    want_y, want_state = jssd_chunked(
+        jnp.asarray(x), jnp.asarray(dt), jnp.asarray(a),
+        jnp.asarray(bm[:, :, None]), jnp.asarray(cm[:, :, None]),
+        jnp.asarray(d), chunk)
+    y, state = tops.ssd_scan(_t(x), _t(dt), _t(a), _t(bm), _t(cm), chunk,
+                             d=_t(d))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_state),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("groups,init", [(1, False), (2, True)])
+def test_ssd_chunked_matches_reference(groups, init):
+    """The port's `ssd_chunked` (ngroups 1 and 2, an initial state, bf16
+    x, B, C) against the reference's: the same jnp algorithm in torch,
+    rtol 1e-5 in float32 compute (y is rounded to bf16 on both sides from
+    float32 sums that agree to 1e-5, so y may differ by one bf16 step)."""
+    rng = np.random.default_rng(groups)
+    b, s, h, p, n, chunk = 2, 48, 4, 8, 6, 16
+    x, dt, a, bm, cm = _ssd_inputs(rng, b, s, h, p, n, groups=groups)
+    d = rng.normal(size=h).astype(np.float32)
+    s0 = rng.normal(size=(b, h, p, n)).astype(np.float32) if init else None
+    jx, tx = _pair(x, "bfloat16")
+    jb, tb = _pair(bm, "bfloat16")
+    jc, tc = _pair(cm, "bfloat16")
+    want_y, want_state = jssd_chunked(
+        jx, jnp.asarray(dt), jnp.asarray(a), jb, jc, jnp.asarray(d), chunk,
+        None if s0 is None else jnp.asarray(s0))
+    y, state = ssd_chunked(tx, _t(dt), _t(a), tb, tc, _t(d), chunk,
+                           None if s0 is None else _t(s0))
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_state),
+                               rtol=1e-5, atol=1e-5)
+    want = np.asarray(want_y, np.float32)
+    assert np.all(np.abs(_np(y) - want) <= 2.0 ** -7 * np.abs(want) + 1e-6)
+
+
+def test_ssd_plain_sequential_ground_truth():
+    """Direct check against the raw recurrence, y and the final state
+    (rtol = atol = 2e-3, the reference test's)."""
+    rng = np.random.default_rng(7)
+    b, s, h, p, n, chunk = 1, 32, 2, 8, 4, 8
+    x, dt, a, bm, cm = _ssd_inputs(rng, b, s, h, p, n)
+    state = np.zeros((b, h, p, n), np.float32)
+    ys = []
+    for t in range(s):
+        da = np.exp(dt[:, t] * a[None])
+        state = state * da[:, :, None, None] \
+            + dt[:, t][:, :, None, None] * x[:, t][..., None] \
+            * bm[:, t][:, None, None, :]
+        ys.append(np.einsum("bhpn,bn->bhp", state, cm[:, t]))
+    y, got_state = tss.ssd_scan_plain(_t(x), _t(dt), _t(a), _t(bm), _t(cm),
+                                      chunk)
+    np.testing.assert_allclose(y.numpy(), np.stack(ys, 1), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(got_state.numpy(), state, rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_lm_wrappers_run_plain_on_cpu_without_launching():
+    tops.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    q = _t(rng.normal(size=(1, 2, 10, 8)).astype(np.float32))
+    assert torch.equal(tops.flash_attention_fwd(q, q, q),
+                       tfa.flash_attention_fwd_plain(q, q, q))
+    x, dt, a, bm, cm = (_t(v) for v in _ssd_inputs(rng, 1, 10, 2, 4, 3))
+    y, st = tops.ssd_scan(x, dt, a, bm, cm, 4)
+    y2, st2 = tss.ssd_scan_plain(x, dt, a, bm, cm, 4)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    counts = tops.launch_counts()
+    assert counts["flash_attention_fwd"] == 0 and counts["ssd_scan"] == 0
+
+
+def test_lm_wrappers_reject_bad_operands():
+    with pytest.raises(ValueError):
+        tops.ssd_scan(*(torch.zeros(1),) * 5, chunk=0)
+    x = torch.zeros(1, 2, 3, 4)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(x, x, x.to("meta"))
