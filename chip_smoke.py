@@ -6,9 +6,14 @@
 
 Phase 0 builds the CUDA kernels from `src/repro_torch/kernels/csrc/`.
 Phase 1 holds each of the twelve kernels against its plain PyTorch version
-on the card, at the main paths' sizes and at ragged sizes, and times both
-(flash attention and the SSD scan at Zamba2-7B's prefill shapes, with
-`scaled_dot_product_attention` timed beside flash as a yardstick).
+on the card, at the main paths' sizes and at ragged sizes (flash on both
+of its routes: bf16 on the tensor cores, float32 and odd head dims on the
+SIMT kernel), checks under torch.profiler that one `groupby_sum` and one
+`segmented_merge` call each run exactly one device kernel, and times each
+kernel, its plain version and, where one PyTorch call computes the same
+function, that call, each with the host's cost (`ms`) and as a CUDA graph
+(`device_ms`; flash and the SSD scan at Zamba2-7B's prefill shapes, with
+`scaled_dot_product_attention` as flash's yardstick).
 Phase 2 runs the SQL main path end to end: a `SharkSession` on the card
 loads a TPC-H `lineitem` table (6,000,000 rows, scale factor 1, in 64
 partitions of 93,750 rows, columns drawn from dbgen's domains with numpy
@@ -34,11 +39,12 @@ card from `--seed`) through `ServeEngine`: a batch of 4 prompts of 2,048
 tokens with 64 new tokens each, and 1 prompt of 1,000 tokens with 16 new
 tokens (prompts drawn with numpy from `--seed`).  It prints the build,
 prefill and decode times, the launches of one prefill (11
-`flash_attention_fwd`, 70 `ssd_scan`), traces of one prefill and one
-decode step, and peak device memory; then, on a float32 copy of the same
-weights, it holds the kernels' prefill logits against the plain
-versions' and one decode step against the full forward over S + 1
-tokens.  The CPU rehearsal serves the smoke variant.
+`flash_attention_fwd`, all on the tensor-core route, and 70 `ssd_scan`;
+a bf16 prefill launch on the SIMT route fails the run), traces of one
+prefill and one decode step, and peak device memory; then, on a float32
+copy of the same weights, it holds the kernels' prefill logits against
+the plain versions' and one decode step against the full forward over
+S + 1 tokens.  The CPU rehearsal serves the smoke variant.
 
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -223,6 +229,20 @@ def traced(torch, device, label: str, fn) -> None:
                       "host_self_ms": host}), flush=True)
 
 
+def device_kernels(torch, fn) -> list:
+    """The device kernels one warm `fn()` runs, by name, from a
+    torch.profiler trace (copies and memsets left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type.name == "CUDA"
+            and not any(w in e.name for w in ("Memcpy", "Memset", "memcpy",
+                                              "memset"))]
+
+
 def bound(nbytes: float, ops: float, peak: float = PEAK_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
@@ -361,6 +381,14 @@ def phase_kernels(torch, device, seed: int) -> dict:
             lambda: kr.radix_partition_plain(rkeys, 64, with_counts=False),
             None, 8.0 * 50, 8.0 * 50),
     }
+    if device.type == "cuda":
+        for name in ("groupby_sum", "segmented_merge"):
+            names = device_kernels(torch, cases[name][0])
+            if len(names) != 1:
+                fail(f"one {name} call ran {len(names)} device kernels: "
+                     f"{names}")
+            print(f"phase 1: one {name} call runs one kernel: {names[0]}",
+                  flush=True)
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
         b_ms, b_by = bound(nbytes, ops)
@@ -371,6 +399,8 @@ def phase_kernels(torch, device, seed: int) -> dict:
             "device_ms": timer.graphed(kern),
             "plain_ms": timer(plain), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": timer(lib) if lib is not None else None,
+            "library_device_ms": (timer.graphed(lib) if lib is not None
+                                  else None),
         }
     return out
 
@@ -504,7 +534,10 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
         "rle_decode": (
             lambda: kd.rle_decode(run_vals, run_ends, n),
             lambda: kd.rle_decode_plain(run_vals, run_ends, n),
-            lambda: torch.repeat_interleave(run_vals, run_lengths),
+            # output_size: the call then needs no device-to-host sync
+            # (one is not allowed inside a CUDA graph capture)
+            lambda: torch.repeat_interleave(run_vals, run_lengths,
+                                            output_size=8 * runs),
             12.0 * runs + 8.0 * n, n * log2_runs),
         "topk_similarity": (
             lambda: kt.topk_similarity(emb, q, TOP_K),
@@ -530,6 +563,8 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
             "plain_ms": timer(plain, reps=10, warmup=2),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": timer(lib) if lib is not None else None,
+            "library_device_ms": (timer.graphed(lib) if lib is not None
+                                  else None),
         }
     return out
 
@@ -952,22 +987,28 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(dt)
 
     # flash: rel max err < 0.03 in bf16, < 1e-4 in float32 (the
-    # reference's kernel test)
-    for b, h, s, hd, dt in ((LM_BATCH, ATT_HEADS, LM_SEQ, ATT_HD, bf16),
-                            (LM_BATCH, ATT_HEADS, 1000, ATT_HD, bf16),
-                            (2, 16, LM_SEQ, 64, bf16),
-                            (2, 16, 1000, 128, bf16),
-                            (2, 8, 1000, ATT_HD, f32),
-                            (1, 8, 777, 128, f32), (2, 4, 129, 64, f32)):
+    # reference's kernel test); bf16 takes the tensor-core route (P rounded
+    # to bf16), float32 and bf16 at hd % 8 != 0 the SIMT one
+    for b, h, s, hd, dt, causal in (
+            (LM_BATCH, ATT_HEADS, LM_SEQ, ATT_HD, bf16, True),
+            (LM_BATCH, ATT_HEADS, 1000, ATT_HD, bf16, True),
+            (2, 16, LM_SEQ, 64, bf16, True),
+            (2, 16, 1000, 128, bf16, True),
+            (2, 16, 1000, ATT_HD, bf16, False),
+            (2, 4, 1, ATT_HD, bf16, True), (2, 4, 63, 64, bf16, False),
+            (2, 4, 65, 128, bf16, True), (2, 4, 300, 36 + 2, bf16, True),
+            (2, 8, 1000, ATT_HD, f32, True), (2, 8, 1000, ATT_HD, f32, False),
+            (1, 8, 777, 128, f32, True), (2, 4, 129, 64, f32, True)):
         h = max(1, h // cut)
         # the model's layout: (B, S, H, hd) seen as (B, H, S, hd)
         q, k, v = (t(rng.normal(size=(b, s, h, hd)), dt).transpose(1, 2)
                    for _ in range(3))
-        got = kf.flash_attention_fwd(q, k, v).float()
-        want = kf.flash_attention_fwd_plain(q, k, v).float()
+        got = kf.flash_attention_fwd(q, k, v, causal).float()
+        want = kf.flash_attention_fwd_plain(q, k, v, causal).float()
         rel = float((got - want).abs().max() / want.abs().max())
         if not (np.isfinite(rel) and rel < (0.03 if dt == bf16 else 1e-4)):
-            fail(f"flash ({b}, {h}, {s}, {hd}, {dt}) rel err {rel}")
+            fail(f"flash ({b}, {h}, {s}, {hd}, {dt}, causal={causal}) rel "
+                 f"err {rel}")
         err["flash_attention_fwd"] = max(err["flash_attention_fwd"], float(
             (got - want).abs().max()))
     # SSD: rtol = atol = 1e-3 on y and the final state (the reference's
@@ -1040,10 +1081,18 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": (timer(lib, reps=10, warmup=2)
                            if lib is not None else None),
+            "library_device_ms": (timer.graphed(lib, calls=5, replays=4)
+                                  if lib is not None else None),
         }
+    flash = out["flash_attention_fwd"]
+    if flash["device_ms"] is not None:
+        # achieved rate of the tensor-core route over the causal flops
+        flash["tflops"] = ff / (flash["device_ms"] * 1e-3) / 1e12
+        flash["library_tflops"] = (ff / (flash["library_device_ms"] * 1e-3)
+                                   / 1e12)
     print(f"phase 1: flash {ff / 1e9:.1f} GFLOP / {fb / 1e6:.1f} MB, ssd "
-          f"{sf / 1e9:.1f} GFLOP / {sb / 1e6:.1f} MB at the timed shape",
-          flush=True)
+          f"{sf / 1e9:.1f} GFLOP / {sb / 1e6:.1f} MB at the timed shape; "
+          f"flash routes {json.dumps(kf.ROUTES)}", flush=True)
     return out
 
 
@@ -1086,6 +1135,7 @@ def phase_serve(torch, device, seed: int) -> dict:
     the same weights, the kernels' prefill against the plain versions' and
     one decode step against the full forward over S + 1 tokens."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serving import ServeEngine
@@ -1119,6 +1169,13 @@ def phase_serve(torch, device, seed: int) -> dict:
     n_groups = cfg.n_layers // cfg.attn_every
     per_prefill = {"flash_attention_fwd": n_groups,
                    "ssd_scan": cfg.n_layers - n_groups}
+    # every bf16 prefill launch of flash takes the tensor-core route
+    routes_per_prefill = {"tensor_core": n_groups, "simt": 0}
+
+    def reset_counts():
+        ops.reset_launch_counts()
+        for r in kf.ROUTES:
+            kf.ROUTES[r] = 0
 
     def prefill(toks, max_seq):
         return lm.prefill_fn(cfg, model, {"tokens": toks}, max_seq)
@@ -1131,14 +1188,18 @@ def phase_serve(torch, device, seed: int) -> dict:
     for (b, s, new), prompt in zip(REQUESTS, prompts):
         max_seq = s + new
         toks = torch.from_numpy(prompt).to(device)
-        ops.reset_launch_counts()
+        reset_counts()
         t = time.perf_counter()
         logits, caches = prefill(toks, max_seq)
         sync()
         first_ms = (time.perf_counter() - t) * 1e3
         counts = {k: ops.launch_counts()[k] for k in LM_KERNELS}
+        routes = dict(kf.ROUTES)
         if cuda and counts != per_prefill:
             fail(f"one prefill launched {counts}, expected {per_prefill}")
+        if cuda and routes != routes_per_prefill:
+            fail(f"one bf16 prefill took flash routes {routes}, expected "
+                 f"{routes_per_prefill}")
         if not (logits.shape == (b, 1, cfg.vocab)
                 and bool(torch.isfinite(logits).all())):
             fail(f"prefill logits {tuple(logits.shape)} not finite")
@@ -1172,7 +1233,8 @@ def phase_serve(torch, device, seed: int) -> dict:
               f"ms/step (median of {len(steps) - 1}); bf16 gaps: kernels vs "
               f"plain rel {rel(logits, logits_plain):.4g}, decode vs full "
               f"forward rel {rel(first_dec, full):.4g}; launches per "
-              f"prefill {json.dumps(counts)}", flush=True)
+              f"prefill {json.dumps(counts)}, flash routes "
+              f"{json.dumps(routes)}", flush=True)
         if cuda and b == LM_BATCH:
             traced(torch, device, f"phase 5: one prefill, {b} x {s}",
                    lambda: prefill(toks, max_seq))
@@ -1182,7 +1244,7 @@ def phase_serve(torch, device, seed: int) -> dict:
         del caches, logits_d
 
     # the main path: both requests through ServeEngine.generate
-    ops.reset_launch_counts()
+    reset_counts()
     for (b, s, new), prompt in zip(REQUESTS, prompts):
         eng = ServeEngine(cfg, model, max_seq=s + new, temperature=0.0,
                           seed=seed)
@@ -1196,9 +1258,13 @@ def phase_serve(torch, device, seed: int) -> dict:
               f"({b * new / gen_s:.1f} new tokens/s incl. prefill); first "
               f"tokens {out[0, :8].tolist()}", flush=True)
     launches = {k: ops.launch_counts()[k] for k in LM_KERNELS}
+    routes = dict(kf.ROUTES)
     want = {k: v * len(REQUESTS) for k, v in per_prefill.items()}
+    want_routes = {k: v * len(REQUESTS) for k, v in routes_per_prefill.items()}
     if cuda and launches != want:
         fail(f"generate launched {launches}, expected {want}")
+    if cuda and routes != want_routes:
+        fail(f"generate took flash routes {routes}, expected {want_routes}")
     if cuda:
         print(f"phase 5: peak device memory serving bf16 "
               f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
@@ -1224,7 +1290,8 @@ def phase_serve(torch, device, seed: int) -> dict:
         if not (r_plain < CONSISTENCY_REL and r_dec < CONSISTENCY_REL):
             fail(f"float32 consistency beyond {CONSISTENCY_REL}: kernels vs "
                  f"plain {r_plain}, decode vs full forward {r_dec}")
-    print(f"phase 5: main-path launches {json.dumps(launches)}", flush=True)
+    print(f"phase 5: main-path launches {json.dumps(launches)}, flash "
+          f"routes {json.dumps(routes)}", flush=True)
     del model
     return launches
 

@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("scan", "group", "radix", "decode", "train", "topk", "flash",
            "ssd")
@@ -34,8 +36,7 @@ _vp, _i, _ll, _d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "scan": ("shark_colscan",
              [_vp, _i, _vp, _ll, _vp, _i, _ll, _d, _d, _vp, _i, _vp, _vp]),
-    "group": ("shark_group_reduce",
-              [_vp, _i, _vp, _i, _ll, _i, _i, _vp, _i, _vp, _vp]),
+    "group": ("shark_group_reduce", [_vp, _vp, _ll, _i, _ll, _vp, _vp]),
     "radix": ("shark_radix", [_vp, _ll, ctypes.c_uint, _vp, _vp, _i, _vp]),
     "decode": ("shark_decode",
                [_i, _vp, _vp, _i, _ll, _i, _i, _i, _vp, _ll, _i, _vp]),
@@ -44,16 +45,16 @@ SIGNATURES = {
     "topk": ("shark_topk",
              [_vp, _i, _vp, _ll, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
     "flash": ("shark_flash_attention_fwd",
-              [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i] + [_ll] * 12
-              + [_vp]),
+              [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i]
+              + [_ll] * 12 + [_vp]),
     "ssd": ("shark_ssd_scan",
             [_vp, _i, _ll, _ll, _vp, _vp, _vp, _ll, _ll, _vp, _ll, _ll,
              _i, _i, _i, _i, _i, _vp, _vp, _vp]),
 }
 
 # dtype codes of the C interfaces (enum DType in every source)
-DTYPE_CODES = {"int32": 0, "int64": 1, "float32": 2, "float64": 3,
-               "bfloat16": 4}
+DTYPE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+               torch.float64: 3, torch.bfloat16: 4}
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[str, object] = {}
@@ -128,10 +129,10 @@ def kernel_fn(name: str):
 
 def dtype_code(t) -> int:
     """The C interface's code for tensor `t`'s dtype; raises on the rest."""
-    key = str(t.dtype).replace("torch.", "")
-    if key not in DTYPE_CODES:
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
         raise TypeError(f"kernel does not take dtype {t.dtype}")
-    return DTYPE_CODES[key]
+    return code
 
 
 def check_launch(name: str, rc: int) -> None:
@@ -140,5 +141,6 @@ def check_launch(name: str, rc: int) -> None:
 
 
 def stream_handle(device) -> int:
-    import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of `device`'s current CUDA stream (no Stream object is
+    built: this runs on every kernel call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -13,10 +13,20 @@ wrapper asserts `s % block_q == 0`).
 
 On CUDA tensors the wrapper launches `csrc/flash.cu` (it replaces
 repro/kernels/flash_attention.py:flash_attention_fwd; the design note is in
-the source).  The kernel takes each operand's batch, head and sequence
-strides, so a (B, S, H, hd) tensor seen through `.transpose(1, 2)` needs no
-copy; the output is allocated in q's layout.  On CPU tensors the wrapper
-runs `flash_attention_fwd_plain`, the masked softmax in float32.
+the source) on one of two routes, chosen by `flash_route(dtype, hd)` and
+counted in `ROUTES`:
+- `tensor_core`: bfloat16 with hd % 8 == 0 (hd <= 128) runs the TMA and
+  wgmma kernel on the bf16 tensor cores, P rounded to bfloat16 before the
+  P V product as flash kernels do.  TMA needs 16-byte aligned bases and
+  strides of a multiple of 8 elements: the wrapper raises on anything else
+  rather than copy.
+- `simt`: float32 (bf16 tensor cores would lose its 1e-4 tolerance, TF32
+  keeps about three digits), and bfloat16 at any other hd, run the float32
+  FMA kernel on the CUDA cores.
+Both take each operand's batch, head and sequence strides, so a (B, S, H,
+hd) tensor seen through `.transpose(1, 2)` needs no copy; the output is
+allocated in q's layout.  On CPU tensors the wrapper runs
+`flash_attention_fwd_plain`, the masked softmax in float32.
 """
 
 from __future__ import annotations
@@ -29,8 +39,19 @@ from . import _build
 from ._common import count_launch, on_cpu
 
 LAUNCHES = {"flash_attention_fwd": 0}
+# launches per route (the tensor-core and the float32 SIMT kernel)
+ROUTES = {"tensor_core": 0, "simt": 0}
+_ROUTE_CODES = {"simt": 0, "tensor_core": 1}
 MAX_HEAD_DIM = 128      # flash.cu's shared-memory tiles
 NEG_INF = -1e30
+
+
+def flash_route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call takes: `tensor_core` for bfloat16 with a head
+    dim that is a multiple of 8 (the TMA boxes' 16-byte rule), `simt` for
+    float32 and any other bfloat16 head dim."""
+    return ("tensor_core" if dtype == torch.bfloat16 and hd % 8 == 0
+            else "simt")
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -71,6 +92,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name}'s head dim must be contiguous")
 
 
+def _check_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """TMA's rules on the tensor-core route: 16-byte aligned bases, and in
+    every dimension longer than 1 a positive stride of a multiple of 8
+    elements (16 bytes)."""
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} starts at an address that is not "
+                             f"16-byte aligned; the tensor-core route "
+                             f"reads it with TMA")
+        for dim in range(3):
+            st = t.stride(dim)
+            if t.shape[dim] > 1 and (st <= 0 or st % 8):
+                raise ValueError(
+                    f"{name}'s stride {st} in dim {dim} is not a positive "
+                    f"multiple of 8 elements; the tensor-core route reads "
+                    f"it with TMA")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     if on_cpu(q, k, v):
@@ -78,12 +117,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     b, h, s, hd = (int(x) for x in q.shape)
     t = int(k.shape[2])
+    route = flash_route(q.dtype, hd)
+    if route == "tensor_core":
+        _check_tma(q, k, v)
     out = torch.empty_like(q)      # q's layout when dense, else contiguous
     rc = _build.kernel_fn("flash")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.dtype_code(q), b, h, s, t, hd, int(causal),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        _build.dtype_code(q), _ROUTE_CODES[route], b, h, s, t, hd,
+        int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], _build.stream_handle(q.device))
     _build.check_launch("flash_attention_fwd", rc)
     count_launch(LAUNCHES, "flash_attention_fwd")
+    count_launch(ROUTES, route)
     return out

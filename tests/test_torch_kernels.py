@@ -512,3 +512,111 @@ def test_cuda_kernel_matches_plain(n):
         assert bool(((y - yp).abs() <= 1e-3 + rtol * yp.abs()).all())
         np.testing.assert_allclose(st.cpu().numpy(), sp.cpu().numpy(),
                                    rtol=1e-3, atol=1e-3)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _flash_inputs(rng, b, s, h, hd, dt, layout):
+    """q, k, v on the card as (B, H, S, hd): the model's (B, S, H, hd)
+    tensors through `.transpose(1, 2)`, or dense (B, H, S, hd)."""
+    shape = (b, s, h, hd) if layout == "model" else (b, h, s, hd)
+    out = []
+    for _ in range(3):
+        x = _t(rng.normal(size=shape)).to(dt).cuda()
+        out.append(x.transpose(1, 2) if layout == "model" else x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("s", [1, 63, 65, 1000, 2048])
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_routes_match_plain(dtype, s, hd, causal):
+    """Both flash routes against the plain version on the card: rel max
+    error < 0.03 in bfloat16 (the tensor-core route rounds P to bfloat16),
+    < 1e-4 in float32, in the model's strided layout and dense; every bf16
+    call takes the tensor-core route, every float32 call the SIMT one."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(s * 7 + hd)
+    for layout in ("model", "dense"):
+        q, k, v = _flash_inputs(rng, 2, s, 3, hd, dt, layout)
+        before = dict(tfa.ROUTES)
+        got = tfa.flash_attention_fwd(q, k, v, causal)
+        route = "tensor_core" if dt == torch.bfloat16 else "simt"
+        assert tfa.ROUTES[route] == before[route] + 1
+        assert got.shape == q.shape and got.stride() == q.stride()
+        got = got.float()
+        want = tfa.flash_attention_fwd_plain(q, k, v, causal).float()
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel < (0.03 if dt == torch.bfloat16 else 1e-4), (layout, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_odd_head_dim_takes_simt():
+    _cuda_or_skip()
+    rng = np.random.default_rng(3)
+    q, k, v = _flash_inputs(rng, 2, 100, 3, 36 + 2, torch.bfloat16, "model")
+    before = tfa.ROUTES["simt"]
+    got = tfa.flash_attention_fwd(q, k, v).float()
+    assert tfa.ROUTES["simt"] == before + 1
+    want = tfa.flash_attention_fwd_plain(q, k, v).float()
+    assert float((got - want).abs().max() / want.abs().max()) < 0.03
+
+
+@pytest.mark.cuda
+def test_cuda_flash_raises_on_what_its_routes_cannot_take():
+    """hd > 128, a sequence stride that is no multiple of 8 elements and a
+    base that is not 16-byte aligned raise on the tensor-core route; the
+    wrapper never copies."""
+    _cuda_or_skip()
+    x = torch.zeros(1, 2, 64, 136, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(x, x, x)                 # hd 136 > 128
+    wide = torch.zeros(1, 64, 2 * 64 + 4, dtype=torch.bfloat16,
+                       device="cuda")
+    odd = wide.as_strided((1, 2, 64, 64), (64 * 132, 64, 132, 1))
+    with pytest.raises(ValueError, match="stride"):
+        tfa.flash_attention_fwd(odd, odd, odd)           # row stride 132
+    flat = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention_fwd(shifted, shifted, shifted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 7, 50, 1024])
+@pytest.mark.parametrize("code_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("n", [1, 93750, 10 ** 6])
+def test_cuda_group_kernels_one_launch_match_plain(g, code_dtype, n):
+    """groupby_sum and segmented_merge on the card at the main path's
+    partition (93,750 rows: one 16-block cluster) and past one cluster
+    (10**6 rows: the ticket fold), ids out of range and NaN values
+    included: counts, min and max exact and identical on two calls, sums
+    to rtol 1e-12."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(g * 31 + n)
+    codes = rng.integers(-2, g + 2, n).astype(NP_DTYPES[code_dtype])
+    vals = rng.normal(size=n) * 50
+    vals[::97] = np.nan
+    c, v = _t(codes), _t(vals)
+    finite = _t(np.nan_to_num(vals))
+    got = tgb.groupby_sum(c.cuda(), finite.cuda(), g).cpu().numpy()
+    again = tgb.groupby_sum(c.cuda(), finite.cuda(), g).cpu().numpy()
+    want = tgb.groupby_sum_plain(c, finite, g).numpy()
+    np.testing.assert_array_equal(got[:, 1], want[:, 1])
+    np.testing.assert_array_equal(got[:, 1], again[:, 1])
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-12, atol=1e-9)
+    got = tsm.segmented_merge(c.cuda(), v.cuda(), g).cpu().numpy()
+    again = tsm.segmented_merge(c.cuda(), v.cuda(), g).cpu().numpy()
+    want = tsm.segmented_merge_plain(c, v, g).numpy()
+    np.testing.assert_array_equal(got[:, 1:], want[:, 1:])
+    np.testing.assert_array_equal(got[:, 1:], again[:, 1:])
+    sums = ~np.isnan(want[:, 0])
+    np.testing.assert_allclose(got[sums, 0], want[sums, 0], rtol=1e-12,
+                               atol=1e-9)
+    assert np.array_equal(np.isnan(got[:, 0]), ~sums)
