@@ -8,8 +8,11 @@ Phase 0 builds the CUDA kernels from `src/repro_torch/kernels/csrc/`.
 Phase 1 holds each of the twelve kernels against its plain PyTorch version
 on the card, at the main paths' sizes and at ragged sizes (flash on both
 of its routes: bf16 on the tensor cores, float32 and odd head dims on the
-SIMT kernel), checks under torch.profiler that one `groupby_sum` and one
-`segmented_merge` call each run exactly one device kernel, and times each
+SIMT kernel; the SSD scan on both of its routes: bf16 on the tensor
+cores, float32 on the SIMT kernel), checks that one
+`groupby_sum`, one `segmented_merge`, one `dict_decode` and one bf16
+`ssd_scan` call each put exactly one kernel on the device (the nodes of a
+CUDA graph captured around the call), and times each
 kernel, its plain version and, where one PyTorch call computes the same
 function, that call, each with the host's cost (`ms`) and as a CUDA graph
 (`device_ms`; flash and the SSD scan at Zamba2-7B's prefill shapes, with
@@ -39,8 +42,8 @@ card from `--seed`) through `ServeEngine`: a batch of 4 prompts of 2,048
 tokens with 64 new tokens each, and 1 prompt of 1,000 tokens with 16 new
 tokens (prompts drawn with numpy from `--seed`).  It prints the build,
 prefill and decode times, the launches of one prefill (11
-`flash_attention_fwd`, all on the tensor-core route, and 70 `ssd_scan`;
-a bf16 prefill launch on the SIMT route fails the run), traces of one
+`flash_attention_fwd` and 70 `ssd_scan`, all on the tensor-core routes;
+a bf16 prefill launch on a SIMT route fails the run), traces of one
 prefill and one decode step, and peak device memory; then, on a float32
 copy of the same weights, it holds the kernels' prefill logits against
 the plain versions' and one decode step against the full forward over
@@ -221,7 +224,7 @@ def traced(torch, device, label: str, fn) -> None:
     for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total
                     )[:12]:
         host.append([e.key[:60], e.count, e.self_cpu_time_total / 1e3])
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
     print(json.dumps({"trace": label, "wall_ms": wall,
                       "device_busy_ms": busy / 1e3,
                       "device_idle_share": 1.0 - busy / 1e3 / wall,
@@ -229,18 +232,18 @@ def traced(torch, device, label: str, fn) -> None:
                       "host_self_ms": host}), flush=True)
 
 
-def device_kernels(torch, fn) -> list:
-    """The device kernels one warm `fn()` runs, by name, from a
-    torch.profiler trace (copies and memsets left out)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type.name == "CUDA"
-            and not any(w in e.name for w in ("Memcpy", "Memset", "memcpy",
-                                              "memset"))]
+def one_kernel(name: str, fn) -> None:
+    """Fail unless one `fn()` call runs exactly one device kernel (the
+    nodes of a CUDA graph captured around the call)."""
+    from repro_torch.kernels._common import graph_nodes
+    try:
+        kinds = graph_nodes(fn)
+    except RuntimeError as e:
+        fail(str(e))
+    if kinds != {"kernel": 1}:
+        fail(f"one {name} call put {kinds} on the device, not one kernel")
+    print(f"phase 1: one {name} call runs one kernel (the nodes of a CUDA "
+          f"graph of the call: {json.dumps(kinds)})", flush=True)
 
 
 def bound(nbytes: float, ops: float, peak: float = PEAK_OPS_PER_S):
@@ -383,12 +386,7 @@ def phase_kernels(torch, device, seed: int) -> dict:
     }
     if device.type == "cuda":
         for name in ("groupby_sum", "segmented_merge"):
-            names = device_kernels(torch, cases[name][0])
-            if len(names) != 1:
-                fail(f"one {name} call ran {len(names)} device kernels: "
-                     f"{names}")
-            print(f"phase 1: one {name} call runs one kernel: {names[0]}",
-                  flush=True)
+            one_kernel(name, cases[name][0])
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
         b_ms, b_by = bound(nbytes, ops)
@@ -552,6 +550,8 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
             4.0 * n * dims + 4.0 * n + 4.0 * dims + 8.0 * dims,
             4.0 * n * dims),
     }
+    if device.type == "cuda":
+        one_kernel("dict_decode", cases["dict_decode"][0])
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
         b_ms, b_by = bound(nbytes, ops)
@@ -1027,7 +1027,12 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
         bm, cm = t(rng.normal(size=(b, s, n)), dt), t(rng.normal(size=(b, s, n)),
                                                       dt)
         d = t(rng.normal(size=h))
+        before = dict(ks.ROUTES)
         y, st = ks.ssd_scan(x, dtt, a, bm, cm, SSD_CHUNK, d=d)
+        route = "tensor_core" if dt == bf16 else "simt"
+        if device.type == "cuda" and ks.ROUTES[route] != before[route] + 1:
+            fail(f"ssd ({b}, {s}, {h}, {p}, {n}, {dt}) did not take route "
+                 f"{route}: {ks.ROUTES} after {before}")
         yp, sp = ks.ssd_scan_plain(x, dtt, a, bm, cm, SSD_CHUNK, d=d)
         y, yp = y.float(), yp.float()
         rtol = 1e-3 + (BF16_STEP if dt == bf16 else 0.0)
@@ -1069,6 +1074,8 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
             lambda: ks.ssd_scan_plain(x, dtt, a, bm, cm, SSD_CHUNK, d=d),
             None, sb, sf),
     }
+    if device.type == "cuda":
+        one_kernel("bf16 ssd_scan", cases["ssd_scan"][0])
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
         b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
@@ -1084,15 +1091,18 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
             "library_device_ms": (timer.graphed(lib, calls=5, replays=4)
                                   if lib is not None else None),
         }
-    flash = out["flash_attention_fwd"]
+    flash, ssd = out["flash_attention_fwd"], out["ssd_scan"]
     if flash["device_ms"] is not None:
-        # achieved rate of the tensor-core route over the causal flops
+        # achieved rates of the tensor-core routes over the causal flops
         flash["tflops"] = ff / (flash["device_ms"] * 1e-3) / 1e12
         flash["library_tflops"] = (ff / (flash["library_device_ms"] * 1e-3)
                                    / 1e12)
+        ssd["tflops"] = sf / (ssd["device_ms"] * 1e-3) / 1e12
     print(f"phase 1: flash {ff / 1e9:.1f} GFLOP / {fb / 1e6:.1f} MB, ssd "
           f"{sf / 1e9:.1f} GFLOP / {sb / 1e6:.1f} MB at the timed shape; "
-          f"flash routes {json.dumps(kf.ROUTES)}", flush=True)
+          f"flash routes {json.dumps(kf.ROUTES)}, ssd routes "
+          f"{json.dumps(ks.ROUTES)}, ssd TFLOP/s {ssd.get('tflops')}",
+          flush=True)
     return out
 
 
@@ -1137,6 +1147,7 @@ def phase_serve(torch, device, seed: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ks
     from repro_torch.models import lm
     from repro_torch.serving import ServeEngine
 
@@ -1169,13 +1180,17 @@ def phase_serve(torch, device, seed: int) -> dict:
     n_groups = cfg.n_layers // cfg.attn_every
     per_prefill = {"flash_attention_fwd": n_groups,
                    "ssd_scan": cfg.n_layers - n_groups}
-    # every bf16 prefill launch of flash takes the tensor-core route
+    # every bf16 prefill launch of flash and of the SSD scan takes the
+    # tensor-core route
     routes_per_prefill = {"tensor_core": n_groups, "simt": 0}
+    ssd_routes_per_prefill = {"tensor_core": cfg.n_layers - n_groups,
+                              "simt": 0}
 
     def reset_counts():
         ops.reset_launch_counts()
-        for r in kf.ROUTES:
-            kf.ROUTES[r] = 0
+        for routes in (kf.ROUTES, ks.ROUTES):
+            for r in routes:
+                routes[r] = 0
 
     def prefill(toks, max_seq):
         return lm.prefill_fn(cfg, model, {"tokens": toks}, max_seq)
@@ -1194,12 +1209,15 @@ def phase_serve(torch, device, seed: int) -> dict:
         sync()
         first_ms = (time.perf_counter() - t) * 1e3
         counts = {k: ops.launch_counts()[k] for k in LM_KERNELS}
-        routes = dict(kf.ROUTES)
+        routes, ssd_routes = dict(kf.ROUTES), dict(ks.ROUTES)
         if cuda and counts != per_prefill:
             fail(f"one prefill launched {counts}, expected {per_prefill}")
         if cuda and routes != routes_per_prefill:
             fail(f"one bf16 prefill took flash routes {routes}, expected "
                  f"{routes_per_prefill}")
+        if cuda and ssd_routes != ssd_routes_per_prefill:
+            fail(f"one bf16 prefill took ssd routes {ssd_routes}, expected "
+                 f"{ssd_routes_per_prefill}")
         if not (logits.shape == (b, 1, cfg.vocab)
                 and bool(torch.isfinite(logits).all())):
             fail(f"prefill logits {tuple(logits.shape)} not finite")
@@ -1234,7 +1252,8 @@ def phase_serve(torch, device, seed: int) -> dict:
               f"plain rel {rel(logits, logits_plain):.4g}, decode vs full "
               f"forward rel {rel(first_dec, full):.4g}; launches per "
               f"prefill {json.dumps(counts)}, flash routes "
-              f"{json.dumps(routes)}", flush=True)
+              f"{json.dumps(routes)}, ssd routes {json.dumps(ssd_routes)}",
+              flush=True)
         if cuda and b == LM_BATCH:
             traced(torch, device, f"phase 5: one prefill, {b} x {s}",
                    lambda: prefill(toks, max_seq))
@@ -1258,13 +1277,17 @@ def phase_serve(torch, device, seed: int) -> dict:
               f"({b * new / gen_s:.1f} new tokens/s incl. prefill); first "
               f"tokens {out[0, :8].tolist()}", flush=True)
     launches = {k: ops.launch_counts()[k] for k in LM_KERNELS}
-    routes = dict(kf.ROUTES)
+    routes, ssd_routes = dict(kf.ROUTES), dict(ks.ROUTES)
     want = {k: v * len(REQUESTS) for k, v in per_prefill.items()}
     want_routes = {k: v * len(REQUESTS) for k, v in routes_per_prefill.items()}
+    want_ssd = {k: v * len(REQUESTS)
+                for k, v in ssd_routes_per_prefill.items()}
     if cuda and launches != want:
         fail(f"generate launched {launches}, expected {want}")
     if cuda and routes != want_routes:
         fail(f"generate took flash routes {routes}, expected {want_routes}")
+    if cuda and ssd_routes != want_ssd:
+        fail(f"generate took ssd routes {ssd_routes}, expected {want_ssd}")
     if cuda:
         print(f"phase 5: peak device memory serving bf16 "
               f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
@@ -1291,7 +1314,8 @@ def phase_serve(torch, device, seed: int) -> dict:
             fail(f"float32 consistency beyond {CONSISTENCY_REL}: kernels vs "
                  f"plain {r_plain}, decode vs full forward {r_dec}")
     print(f"phase 5: main-path launches {json.dumps(launches)}, flash "
-          f"routes {json.dumps(routes)}", flush=True)
+          f"routes {json.dumps(routes)}, ssd routes {json.dumps(ssd_routes)}",
+          flush=True)
     del model
     return launches
 

@@ -39,7 +39,7 @@ SIGNATURES = {
     "group": ("shark_group_reduce", [_vp, _vp, _ll, _i, _ll, _vp, _vp]),
     "radix": ("shark_radix", [_vp, _ll, ctypes.c_uint, _vp, _vp, _i, _vp]),
     "decode": ("shark_decode",
-               [_i, _vp, _vp, _i, _ll, _i, _i, _i, _vp, _ll, _i, _vp]),
+               [_vp, _vp, _vp, _ll, _ll, ctypes.c_ulonglong, _vp]),
     "train": ("shark_train_grad",
               [_vp, _i, _vp, _vp, _ll, _i, _i, _vp, _i, _vp, _vp]),
     "topk": ("shark_topk",
@@ -48,8 +48,8 @@ SIGNATURES = {
               [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i]
               + [_ll] * 12 + [_vp]),
     "ssd": ("shark_ssd_scan",
-            [_vp, _i, _ll, _ll, _vp, _vp, _vp, _ll, _ll, _vp, _ll, _ll,
-             _i, _i, _i, _i, _i, _vp, _vp, _vp]),
+            [_vp, _i, _i, _ll, _ll, _vp, _vp, _vp, _vp, _ll, _ll, _vp, _ll,
+             _ll, _i, _i, _i, _i, _i, _vp, _vp, _vp]),
 }
 
 # dtype codes of the C interfaces (enum DType in every source)

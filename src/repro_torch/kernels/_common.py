@@ -53,3 +53,41 @@ def count_launch(launches: dict, name: str) -> None:
     (wrappers run on executor threads, so the increment takes a lock)."""
     with _COUNT_LOCK:
         launches[name] += 1
+
+
+# cuda.h's CUgraphNodeType, by name
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty"}
+
+
+def graph_nodes(fn) -> dict:
+    """The work one warm `fn()` puts on the card, as the nodes of a CUDA
+    graph captured around the call, counted by type through libcuda's
+    cuGraphGetNodes: a call that runs one kernel and nothing else is
+    {"kernel": 1}.  (On the card torch.profiler has missed a kernel's
+    record late in a long run; the graph sees every launch.)"""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    rc = cu.cuGraphGetNodes(handle, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    rc = rc or cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    kinds = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rc = rc or cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                         ctypes.byref(kind))
+        name = GRAPH_NODE_TYPES.get(kind.value, f"type {kind.value}")
+        kinds[name] = kinds.get(name, 0) + 1
+    del graph
+    torch.cuda.synchronize()
+    if rc:
+        raise RuntimeError(f"reading a CUDA graph's nodes failed: CUresult "
+                           f"{rc}")
+    return kinds

@@ -22,9 +22,20 @@ and `csrc/scan.cu` with its DictGather policy (fused_decode_scan, which
 replaces repro/kernels/dictdecode.py:fused_decode_scan: the int32 codes
 stream from HBM, the dictionary stays in L1, and the decoded filter column
 never exists).  On CPU tensors they run the `*_plain` versions.
+
+The three decodes run on the training path once per encoded block and
+step, thousands of times a fit, where the host's cost per call is most of
+the call: a call checks only what the C side cannot (dtypes, ranks,
+contiguity, one device), makes one allocation and one ctypes call of
+seven arguments (input, table, output, n, table length, the plan word
+`decode_plan` computed once per size, the stream), as groupby_sum's.
+decode.cu validates what it can and returns an error code, which raises.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,10 +46,53 @@ from .colscan import colscan_plain, launch_scan
 LAUNCHES = {"fused_decode_scan": 0, "dict_decode": 0, "bitpack_decode": 0,
             "rle_decode": 0}
 KERNEL_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
+# decode.cu's dtype codes of a table (dictionary, run values) and its output
+_TABLE_CODES = {t: i for i, t in enumerate(KERNEL_DTYPES)}
 MAX_BIT_WIDTH = 16          # compression.BITPACK_MAX_BITS
 SMEM_BYTES = 48 * 1024      # static shared memory a block may stage
+# rows a dict_decode thread decodes over its grid-stride loop: two 4-code
+# steps, of one, two and four the least device time at phase 3's 156,250
+# codes on an H100 (scripts/kernel_probe.py decode); bitpack_decode and
+# rle_decode, one row a thread a step, keep grid_blocks(n)'s 4
+ROWS_PER_THREAD = 8
 
 _OP_DICT, _OP_BITPACK, _OP_RLE = 0, 1, 2
+
+
+class DecodePlan(NamedTuple):
+    blocks: int        # grid of the launch: a function of n only
+    staged: bool       # dict_decode stages the dictionary in shared memory
+
+    def word(self, op: int, dtype_code: int = 0, bit_width: int = 0,
+             bias: int = 0) -> int:
+        """decode.cu's 64-bit plan word: op bits 0-1, table dtype 2-3,
+        staging bit 4, bit width 5-10, blocks 11-22, the int32 bias as
+        bits 32-63."""
+        return (op | dtype_code << 2 | int(self.staged) << 4
+                | bit_width << 5 | self.blocks << 11
+                | (int(bias) & 0xFFFFFFFF) << 32)
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(n: int, d: int, itemsize: int) -> DecodePlan:
+    """The launch of a decode of n rows from a table of d values of
+    `itemsize` bytes: blocks for ROWS_PER_THREAD rows a thread (a function
+    of n only), and the dictionary staged in shared memory when it fits in
+    SMEM_BYTES and has no more values than the rows one block decodes
+    (otherwise staging would read more than the gather does)."""
+    blocks = grid_blocks(n, ROWS_PER_THREAD)
+    rows_per_block = -(-int(n) // blocks)
+    staged = 0 < d * itemsize <= SMEM_BYTES and d <= rows_per_block
+    return DecodePlan(blocks, staged)
+
+
+@functools.lru_cache(maxsize=4096)
+def _word(op: int, n: int, d: int, dtype: torch.dtype, bit_width: int = 0,
+          bias: int = 0) -> int:
+    """The plan word of one call, computed once per size and dtype."""
+    plan = (decode_plan(n, d, dtype.itemsize) if op == _OP_DICT
+            else DecodePlan(grid_blocks(n), False))
+    return plan.word(op, _TABLE_CODES[dtype], bit_width, bias)
 
 
 # ---------------------------------------------------------------- plain
@@ -89,11 +143,9 @@ def fused_decode_scan_plain(codes: torch.Tensor, dictionary: torch.Tensor,
 
 def _check_table(t: torch.Tensor, name: str) -> None:
     check_cuda_operand(t, name)
-    if t.dtype not in KERNEL_DTYPES:
+    if t.dtype not in _TABLE_CODES:
         raise TypeError(f"{name} must be int32, int64, float32 or float64, "
                         f"got {t.dtype}")
-    if t.shape[0] < 1:
-        raise ValueError(f"{name} is empty")
 
 
 def _check_int32(t: torch.Tensor, name: str) -> None:
@@ -102,37 +154,45 @@ def _check_int32(t: torch.Tensor, name: str) -> None:
         raise TypeError(f"{name} must be int32, got {t.dtype}")
 
 
-def _launch_decode(name: str, op: int, idx: torch.Tensor, table, bit_width,
-                   bias, use_smem: bool, out: torch.Tensor, n: int) -> None:
+def _launch_decode(name: str, idx: torch.Tensor, table, out: torch.Tensor,
+                   n: int, table_len: int, word: int) -> None:
+    """One call of decode.cu's entry point; its error code raises."""
     rc = _build.kernel_fn("decode")(
-        op, idx.data_ptr(),
-        table.data_ptr() if table is not None else None,
-        _build.dtype_code(table) if table is not None else 0,
-        int(table.shape[0]) if table is not None else 0,
-        int(bit_width), int(bias), int(use_smem), out.data_ptr(), int(n),
-        grid_blocks(n), _build.stream_handle(out.device))
-    _build.check_launch(name, rc)
+        idx.data_ptr(), table.data_ptr() if table is not None else None,
+        out.data_ptr(), n, table_len, word, _build.stream_handle(out.device))
+    if rc:
+        _build.check_launch(name, rc)
     count_launch(LAUNCHES, name)
+
+
+def _check_dict(codes: torch.Tensor, dictionary: torch.Tensor) -> None:
+    """What decode.cu cannot see: dtypes, ranks, contiguity, one device."""
+    if codes.dtype != torch.int32 or dictionary.dtype not in _TABLE_CODES:
+        raise TypeError(f"dict_decode takes int32 codes and an int32, int64, "
+                        f"float32 or float64 dictionary; got {codes.dtype}, "
+                        f"{dictionary.dtype}")
+    if codes.dim() != 1 or dictionary.dim() != 1 \
+            or not (codes.is_contiguous() and dictionary.is_contiguous()):
+        raise ValueError("codes and dictionary must be 1-D and contiguous")
+    if codes.get_device() != dictionary.get_device():
+        raise ValueError(f"dict_decode operands on two devices: "
+                         f"{codes.device}, {dictionary.device}")
 
 
 def dict_decode(codes: torch.Tensor, dictionary: torch.Tensor
                 ) -> torch.Tensor:
-    if on_cpu(codes, dictionary):
+    # the card's test first: cheaper than on_cpu on this per-block path
+    # (on_cpu raises on a CPU / CUDA mix)
+    if not (codes.is_cuda and dictionary.is_cuda) \
+            and on_cpu(codes, dictionary):
         return dict_decode_plain(codes, dictionary)
-    _check_int32(codes, "codes")
-    _check_table(dictionary, "dictionary")
-    n = int(codes.shape[0])
-    out = torch.empty(n, dtype=dictionary.dtype, device=codes.device)
-    if n == 0:
-        return out
-    d = int(dictionary.shape[0])
-    # stage the dictionary in shared memory when it fits and is small
-    # beside the rows one block decodes (4 per thread, grid_blocks)
-    rows_per_block = -(-n // grid_blocks(n))
-    use_smem = (d * dictionary.element_size() <= SMEM_BYTES
-                and d <= rows_per_block)
-    _launch_decode("dict_decode", _OP_DICT, codes, dictionary, 0, 0,
-                   use_smem, out, n)
+    _check_dict(codes, dictionary)
+    dtype = dictionary.dtype
+    n, d = codes.shape[0], dictionary.shape[0]
+    out = torch.empty(n, dtype=dtype, device=codes.device)
+    if n:     # an empty dictionary is decode.cu's to refuse
+        _launch_decode("dict_decode", codes, dictionary, out, n, d,
+                       _word(_OP_DICT, n, d, dtype))
     return out
 
 
@@ -151,10 +211,11 @@ def bitpack_decode(words: torch.Tensor, bit_width: int, bias: int,
     if not -2 ** 31 <= int(bias) < 2 ** 31:
         raise ValueError(f"bias {bias} is not an int32")
     out = torch.empty(int(n), dtype=torch.int32, device=words.device)
-    if n == 0:
-        return out
-    _launch_decode("bitpack_decode", _OP_BITPACK, words, None, bit_width,
-                   bias, False, out, int(n))
+    if n:
+        _launch_decode("bitpack_decode", words, None, out, int(n),
+                       words.shape[0],
+                       _word(_OP_BITPACK, int(n), 0, torch.int32,
+                             int(bit_width), int(bias)))
     return out
 
 
@@ -169,10 +230,10 @@ def rle_decode(run_values: torch.Tensor, run_ends: torch.Tensor,
                          f"{run_ends.shape[0]} run ends")
     out = torch.empty(int(n), dtype=run_values.dtype,
                       device=run_values.device)
-    if n == 0:
-        return out
-    _launch_decode("rle_decode", _OP_RLE, run_ends, run_values, 0, 0, False,
-                   out, int(n))
+    if n:
+        r = run_values.shape[0]
+        _launch_decode("rle_decode", run_ends, run_values, out, int(n), r,
+                       _word(_OP_RLE, int(n), r, run_values.dtype))
     return out
 
 

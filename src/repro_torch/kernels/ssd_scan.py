@@ -16,14 +16,24 @@ and c are read in place: a (B, S, ...) view whose inner dims are dense
 (the in-projection's slices) needs no copy.
 
 The result does not depend on the chunk length except through rounding.
-`chunk` sets the plain version's chunk (as `ssd_chunked`'s); the kernel
-walks the sequence in tiles of 64 rows, the same function.
+`chunk` sets the plain version's chunk (as `ssd_chunked`'s); the kernels
+walk the sequence in chunks of 64 rows, the same function.
 
 On CUDA tensors the wrapper launches `csrc/ssd.cu` (it replaces
 repro/kernels/ssd_scan.py:ssd_scan and also writes the final state, which
 the TPU kernel kept in scratch and dropped; the design note is in the
-source).  On CPU tensors it runs `ssd_scan_plain`, which is
-`ssd_chunked`.
+source): one launch a call, which writes y in x's dtype with the D skip
+added, and nothing else runs.  Two routes, chosen by `ssd_route(dtype, p,
+n)` and counted in `ROUTES`:
+- `tensor_core`: bfloat16 at the (P, N) of the repo's configurations
+  (`TC_SHAPES`) runs the mma.sync kernel on the bf16 tensor cores, its
+  float32 operands (M, w o B, the carried state) split into bf16 hi + lo
+  pairs.  cp.async reads 16 bytes at a time: x, B and C need 16-byte
+  aligned bases and batch and sequence strides of a multiple of 8
+  elements, and the wrapper raises on anything else rather than copy.
+- `simt`: float32, and bfloat16 at any other P, N <= 128, run the
+  float32 FMA kernel on the CUDA cores.
+On CPU tensors it runs `ssd_scan_plain`, which is `ssd_chunked`.
 """
 
 from __future__ import annotations
@@ -36,8 +46,27 @@ from . import _build
 from ._common import count_launch, on_cpu
 
 LAUNCHES = {"ssd_scan": 0}
-MAX_STATE = 128         # N, ssd.cu's shared-memory tiles
+# launches per route (the tensor-core and the float32 SIMT kernel)
+ROUTES = {"tensor_core": 0, "simt": 0}
+_ROUTE_CODES = {"simt": 0, "tensor_core": 1}
+MAX_STATE = 128         # N, the kernels' shared-memory tiles
 MAX_HEADDIM = 128       # P
+# (P, N) the tensor-core kernel is compiled for: Zamba2-7B, Mamba2-370m and
+# their smoke variants (csrc/ssd.cu's launch_tc instantiations).  A new
+# configuration adds its (P, N) here and there; a CPU test fails until it
+# does (tests/test_torch_kernel_plans.py)
+TC_SHAPES = frozenset({(112, 64), (64, 128), (16, 16)})
+
+
+def ssd_route(dtype: torch.dtype, p: int, n: int) -> str:
+    """The kernel a CUDA call takes: `tensor_core` for bfloat16 at a (P, N)
+    of `TC_SHAPES`, `simt` for float32 and any other bfloat16 shape; raises
+    past P or N of 128, which neither kernel's tiles hold."""
+    if not (1 <= p <= MAX_HEADDIM and 1 <= n <= MAX_STATE):
+        raise ValueError(f"ssd kernels take 1 <= P <= {MAX_HEADDIM} and "
+                         f"1 <= N <= {MAX_STATE}; got P={p}, N={n}")
+    return ("tensor_core" if dtype == torch.bfloat16 and (p, n) in TC_SHAPES
+            else "simt")
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -57,7 +86,6 @@ def _check(x, dt, a, b, c, d) -> None:
                          f"got {tuple(x.shape)}, {tuple(b.shape)}, "
                          f"{tuple(c.shape)}")
     bsz, s, h, p = x.shape
-    n = b.shape[2]
     if b.shape[:2] != x.shape[:2] or dt.shape != (bsz, s, h) \
             or a.shape != (h,) or (d is not None and d.shape != (h,)):
         raise ValueError(f"ssd_scan shapes disagree: x {tuple(x.shape)}, dt "
@@ -67,17 +95,36 @@ def _check(x, dt, a, b, c, d) -> None:
             and x.dtype in (torch.bfloat16, torch.float32)):
         raise TypeError(f"x, b, c must share bfloat16 or float32, got "
                         f"{x.dtype}, {b.dtype}, {c.dtype}")
-    if dt.dtype != torch.float32 or a.dtype != torch.float32:
-        raise TypeError("dt and a must be float32")
-    if not (1 <= p <= MAX_HEADDIM and 1 <= n <= MAX_STATE and s >= 1):
-        raise ValueError(f"ssd kernel takes P <= {MAX_HEADDIM}, N <= "
-                         f"{MAX_STATE}, S >= 1; got P={p}, N={n}, S={s}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32 \
+            or (d is not None and d.dtype != torch.float32):
+        raise TypeError("dt, a and d must be float32")
+    if s < 1:
+        raise ValueError("ssd_scan needs S >= 1")
     if x.stride(3) != 1 or x.stride(2) != p:
         raise ValueError("x's (H, P) dims must be dense")
     if b.stride(2) != 1 or c.stride(2) != 1:
         raise ValueError("b's and c's state dim must be contiguous")
-    if not (dt.is_contiguous() and a.is_contiguous()):
-        raise ValueError("dt and a must be contiguous")
+    if not (dt.is_contiguous() and a.is_contiguous()
+            and (d is None or d.is_contiguous())):
+        raise ValueError("dt, a and d must be contiguous")
+
+
+def _check_tc(x, b, c) -> None:
+    """cp.async's rules on the tensor-core route: 16-byte aligned bases,
+    and in the batch and sequence dims, where longer than 1, strides of a
+    positive multiple of 8 elements (16 bytes)."""
+    for t, name in ((x, "x"), (b, "b"), (c, "c")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} starts at an address that is not "
+                             f"16-byte aligned; the tensor-core route reads "
+                             f"it 16 bytes at a time")
+        for dim in range(2):
+            st = t.stride(dim)
+            if t.shape[dim] > 1 and (st <= 0 or st % 8):
+                raise ValueError(
+                    f"{name}'s stride {st} in dim {dim} is not a positive "
+                    f"multiple of 8 elements; the tensor-core route reads "
+                    f"it 16 bytes at a time")
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -92,16 +139,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _check(x, dt, a, b, c, d)
     bsz, s, h, p = (int(v) for v in x.shape)
     n = int(b.shape[2])
-    y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
+    route = ssd_route(x.dtype, p, n)
+    if route == "tensor_core":
+        _check_tc(x, b, c)
+    y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32,
                         device=x.device)
     rc = _build.kernel_fn("ssd")(
-        x.data_ptr(), _build.dtype_code(x), x.stride(0), x.stride(1),
-        dt.data_ptr(), a.data_ptr(), b.data_ptr(), b.stride(0), b.stride(1),
-        c.data_ptr(), c.stride(0), c.stride(1), bsz, s, h, p, n,
+        x.data_ptr(), _build.dtype_code(x), _ROUTE_CODES[route], x.stride(0),
+        x.stride(1), dt.data_ptr(), a.data_ptr(),
+        d.data_ptr() if d is not None else None, b.data_ptr(), b.stride(0),
+        b.stride(1), c.data_ptr(), c.stride(0), c.stride(1), bsz, s, h, p, n,
         y.data_ptr(), state.data_ptr(), _build.stream_handle(x.device))
     _build.check_launch("ssd_scan", rc)
     count_launch(LAUNCHES, "ssd_scan")
-    if d is not None:
-        y += x.float() * d.float()[:, None]
-    return y.to(x.dtype), state
+    count_launch(ROUTES, route)
+    return y, state

@@ -2,18 +2,23 @@
 
 The flash wrapper picks one of two CUDA kernels by dtype and head dim
 (`flash_route`) and checks TMA's alignment rules before the tensor-core
-route (`_check_tma`); the group wrapper sizes its one launch of
-csrc/group.cu with `group_plan`.  The kernels themselves run only on the
-card (tests/test_torch_kernels.py, `cuda` marker); what is tested here is
-pure Python that the CPU reaches.
+route (`_check_tma`); the SSD wrapper picks one of two by dtype and (P, N)
+(`ssd_route`) and checks cp.async's alignment rules before its tensor-core
+route (`_check_tc`); the group wrapper sizes its one launch of
+csrc/group.cu with `group_plan`, the decode wrappers theirs with
+`decode_plan`.  The kernels themselves run only on the card
+(tests/test_torch_kernels.py, `cuda` marker); what is tested here is pure
+Python that the CPU reaches.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import dictdecode as tdd
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import groupby_mxu as tgb
+from repro_torch.kernels import ssd_scan as tss
 
 BLOCK_SMEM_LIMIT = 232448      # 227 KB, the most an H100 block may have
 
@@ -158,11 +163,15 @@ def test_dtype_codes_keyed_by_torch_dtype():
 
 
 def test_build_signatures_match_the_wrappers():
-    """The bound argument counts of the two redesigned entry points: flash
+    """The bound argument counts of the redesigned entry points: flash
     takes a route code; group takes codes, values, n, G, its plan word,
-    the output (scratch follows it) and the stream."""
+    the output (scratch follows it) and the stream; ssd takes a route code
+    and a nullable D; decode takes input, table, output, n, table length,
+    its plan word and the stream."""
     assert len(_build.SIGNATURES["flash"][1]) == 25
     assert len(_build.SIGNATURES["group"][1]) == 7
+    assert len(_build.SIGNATURES["ssd"][1]) == 22
+    assert len(_build.SIGNATURES["decode"][1]) == 7
 
 
 @pytest.mark.parametrize("n,g,mm", [(1, 1, False), (93_750, 50, False),
@@ -196,3 +205,265 @@ def test_groupby_sum_mixed_devices_raise():
     with pytest.raises(ValueError):
         tgb.groupby_sum(c, torch.zeros(4, dtype=torch.float64,
                                        device="meta"), 2)
+
+
+def test_decode_signature_takes_the_word_as_an_unsigned_64_bit_value():
+    """decode.cu's shark_decode(idx, table, out, n, table_len, word,
+    stream): pointers as c_void_p, sizes as c_longlong, and the plan word
+    as c_ulonglong, since a negative bias sets its top bit."""
+    ct = _build.ctypes
+    assert _build.SIGNATURES["decode"][1] == [
+        ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_longlong, ct.c_longlong,
+        ct.c_ulonglong, ct.c_void_p]
+    word = tdd.decode_plan(156_250, 0, 4).word(1, 0, 4, -7)
+    assert word >= 2 ** 63
+    assert ct.c_ulonglong(word).value == word
+
+
+def test_build_signatures_pass_every_pointer_as_a_pointer():
+    """The ssd entry point's pointers (x, dt, a, d, b, c, y, state, stream)
+    are c_void_p, its strides c_longlong: ctypes would cut either to 32
+    bits as an int."""
+    args = _build.SIGNATURES["ssd"][1]
+    vp, ll = _build.ctypes.c_void_p, _build.ctypes.c_longlong
+    assert [i for i, t in enumerate(args) if t is vp] == [0, 5, 6, 7, 8, 11,
+                                                          19, 20, 21]
+    assert [i for i, t in enumerate(args) if t is ll] == [3, 4, 9, 10, 12,
+                                                          13]
+
+
+# -- the SSD scan's routes and checks -------------------------------------
+
+
+@pytest.mark.parametrize("p,n", [(112, 64), (64, 128), (16, 16)])
+def test_ssd_route_bf16_config_shapes_take_tensor_cores(p, n):
+    """Zamba2-7B (112 x 64), Mamba2-370m (64 x 128) and their smoke
+    variants (16 x 16): every (P, N) the repo's configurations use."""
+    assert tss.ssd_route(torch.bfloat16, p, n) == "tensor_core"
+
+
+@pytest.mark.parametrize("p,n", [(112, 64), (64, 128), (16, 16), (1, 1),
+                                 (128, 128), (48, 40)])
+def test_ssd_route_float32_takes_simt(p, n):
+    assert tss.ssd_route(torch.float32, p, n) == "simt"
+
+
+@pytest.mark.parametrize("p,n", [(1, 1), (128, 128), (64, 64), (112, 128),
+                                 (48, 40), (100, 64)])
+def test_ssd_route_bf16_other_shapes_take_simt(p, n):
+    assert tss.ssd_route(torch.bfloat16, p, n) == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p,n", [(129, 64), (64, 129), (256, 256), (0, 64),
+                                 (64, 0)])
+def test_ssd_route_raises_past_the_tiles(dtype, p, n):
+    with pytest.raises(ValueError, match="P"):
+        tss.ssd_route(dtype, p, n)
+
+
+def test_ssd_every_configured_shape_has_a_tensor_core_kernel():
+    """Every (P, N) of a registered SSM or hybrid configuration, and of its
+    smoke variant, is in TC_SHAPES, so its bf16 prefill runs on the tensor
+    cores: a configuration at another (P, N) needs a launch_tc
+    instantiation in csrc/ssd.cu and its TC_SHAPES entry, or its bf16 scan
+    would run the SIMT kernel."""
+    from repro_torch.configs.registry import REGISTRY, smoke_variant
+    shapes = {}
+    for cfg in REGISTRY.values():
+        if cfg.ssm is not None:
+            for c in (cfg, smoke_variant(cfg)):
+                shapes[c.name] = (c.ssm.headdim, c.ssm.d_state)
+    assert {"mamba2-370m", "zamba2-7b"} <= set(shapes)
+    assert {name: s for name, s in shapes.items()
+            if s not in tss.TC_SHAPES} == {}
+
+
+def test_ssd_tc_shapes_fit_the_routes_rules():
+    """The tensor-core kernel's static rules (csrc/ssd.cu TcShape): P and N
+    multiples of 16, at most 128."""
+    for p, n in tss.TC_SHAPES:
+        assert p % 16 == 0 and n % 16 == 0
+        assert p <= tss.MAX_HEADDIM and n <= tss.MAX_STATE
+
+
+def _in_proj_slices(b, s, h, p, n, dtype=torch.bfloat16):
+    """x, B, C as the model hands them: slices of one (B, S, H P + 2 N)
+    conv output, viewed without a copy."""
+    xbc = torch.zeros(b, s, h * p + 2 * n, dtype=dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    return x, xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+
+
+@pytest.mark.parametrize("p,n", [(112, 64), (64, 128), (16, 16)])
+def test_ssd_check_tc_takes_the_models_slices(p, n):
+    x, bm, cm = _in_proj_slices(2, 10, 4, p, n)
+    assert x.data_ptr() != bm.data_ptr()        # views of one buffer
+    tss._check_tc(x, bm, cm)
+
+
+def test_ssd_check_tc_raises_on_a_sequence_stride_off_eight():
+    x, bm, cm = _in_proj_slices(2, 10, 4, 112, 64)
+    wide = torch.zeros(2, 10, 64 + 4, dtype=torch.bfloat16)
+    odd = wide[..., :64]                        # row stride 68
+    with pytest.raises(ValueError, match="stride"):
+        tss._check_tc(x, odd, cm)
+    with pytest.raises(ValueError, match="stride"):
+        tss._check_tc(x, bm, odd)
+
+
+def test_ssd_check_tc_raises_on_a_batch_stride_off_eight():
+    x = torch.zeros(2 * 10 * 4 * 112 + 4, dtype=torch.bfloat16)
+    at = (-x.data_ptr() % 16) // 2
+    xv = x[at:].as_strided((2, 10, 4, 112), (10 * 448 + 4, 448, 112, 1))
+    _, bm, cm = _in_proj_slices(2, 10, 4, 112, 64)
+    with pytest.raises(ValueError, match="dim 0"):
+        tss._check_tc(xv, bm, cm)
+
+
+def test_ssd_check_tc_raises_on_an_unaligned_base():
+    flat = torch.zeros(2 * 10 * 64 + 16, dtype=torch.bfloat16)
+    at = (-flat.data_ptr() % 16) // 2          # first 16-byte aligned index
+    aligned = flat[at:at + 2 * 10 * 64].view(2, 10, 64)
+    x, _, _ = _in_proj_slices(2, 10, 4, 112, 64)
+    tss._check_tc(x, aligned, aligned)
+    shifted = flat[at + 1:at + 1 + 2 * 10 * 64].view(2, 10, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        tss._check_tc(x, shifted, aligned)
+
+
+def test_ssd_check_tc_ignores_strides_of_length_one_dims():
+    """A batch of one, or a single row, may have any stride there."""
+    x, bm, cm = _in_proj_slices(1, 1, 4, 112, 64)
+    odd = x.as_strided(x.shape, (3, 5, 112, 1))
+    tss._check_tc(odd, bm, cm)
+
+
+def test_ssd_check_raises_on_non_dense_heads_and_float_types():
+    x, bm, cm = _in_proj_slices(1, 8, 4, 16, 16)
+    dt = torch.zeros(1, 8, 4)
+    a = torch.zeros(4)
+    tss._check(x, dt, a, bm, cm, torch.ones(4))
+    with pytest.raises(ValueError, match="dense"):
+        tss._check(x[:, :, :, :8], dt, a, bm[..., :16], cm[..., :16], None)
+    with pytest.raises(TypeError, match="float32"):
+        tss._check(x, dt, a, bm, cm, torch.ones(4, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        tss._check(x, dt, a, bm, cm, torch.ones(8)[::2])
+
+
+def test_ssd_routes_are_counted_only_on_the_card():
+    """CPU tensors run the plain version: no launch and no route counted."""
+    before, launches = dict(tss.ROUTES), dict(tss.LAUNCHES)
+    x, bm, cm = _in_proj_slices(1, 5, 2, 16, 16)
+    tss.ssd_scan(x, torch.ones(1, 5, 2), -torch.ones(2), bm, cm, 4,
+                 d=torch.ones(2))
+    assert tss.ROUTES == before and tss.LAUNCHES == launches
+    assert set(tss.ROUTES) == {"tensor_core", "simt"}
+
+
+# -- the decode plan ------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1023, 1024, 1025, 4097, 156_250,
+                               10 ** 6, 10 ** 8])
+def test_decode_plan_grid_is_a_function_of_n_only(n):
+    """Blocks depend on n alone (not on the table or its dtype), 8 rows a
+    thread, at most MAX_BLOCKS, and never past the word's 12 bits."""
+    grids = {tdd.decode_plan(n, d, size).blocks
+             for d in (0, 1, 11, 4000, 10 ** 5) for size in (4, 8)}
+    assert len(grids) == 1
+    blocks = grids.pop()
+    assert blocks == tdd.grid_blocks(n, tdd.ROWS_PER_THREAD)
+    assert 1 <= blocks <= 1056 < 2 ** 12         # the word's 12 bits
+    assert blocks * 256 * 8 >= n or blocks == 1056
+
+
+@pytest.mark.parametrize("n,d,size,staged", [
+    (156_250, 4000, 8, False),     # phase 3's DICT block: 4,000 > 2,030 rows
+    (156_250, 2030, 8, True), (156_250, 2031, 8, False),
+    (156_250, 11, 8, True),
+    (1, 1, 4, True), (1, 2, 4, False),
+    (10 ** 8, 6144, 8, True),      # 48 KB exactly
+    (10 ** 8, 6145, 8, False),     # past 48 KB
+    (10 ** 8, 12288, 4, True), (10 ** 8, 12289, 4, False),
+    (10 ** 6, 2045, 8, True), (10 ** 6, 2046, 8, False),
+    (10, 0, 8, False),
+])
+def test_decode_plan_staging_rule(n, d, size, staged):
+    """The dictionary is staged in shared memory when it fits in 48 KB and
+    has no more values than the rows one block decodes."""
+    plan = tdd.decode_plan(n, d, size)
+    rows = -(-n // plan.blocks)
+    assert plan.staged == staged
+    assert plan.staged == (0 < d * size <= tdd.SMEM_BYTES and d <= rows)
+
+
+@pytest.mark.parametrize("op", [0, 1, 2])
+@pytest.mark.parametrize("n,d", [(1, 1), (156_250, 11), (156_250, 4000),
+                                 (10 ** 9, 3)])
+@pytest.mark.parametrize("width,bias", [(0, 0), (4, -7), (16, 2 ** 31 - 1),
+                                        (1, -2 ** 31)])
+def test_decode_plan_word_round_trips(op, n, d, width, bias):
+    """decode.cu's Plan reads op (bits 0-1), dtype (2-3), staging (4),
+    bit width (5-10), blocks (11-22) and the int32 bias (32-63) back."""
+    plan = tdd.decode_plan(n, d, 8)
+    for code in range(4):
+        w = plan.word(op, code, width, bias)
+        assert 0 <= w < 2 ** 64
+        assert w & 3 == op and (w >> 2) & 3 == code
+        assert (w >> 4) & 1 == int(plan.staged)
+        assert (w >> 5) & 63 == width and (w >> 11) & 4095 == plan.blocks
+        assert (w >> 23) & (2 ** 9 - 1) == 0
+        hi = w >> 32
+        assert (hi - 2 ** 32 if hi >= 2 ** 31 else hi) == bias
+
+
+def test_decode_word_bitpack_and_rle_keep_four_rows_a_thread():
+    """Only dict_decode's kernel steps 4 codes at a time; bit-pack and RLE
+    decode one row a thread a step over grid_blocks(n)."""
+    n = 156_250
+    for op, dtype in ((tdd._OP_BITPACK, torch.int32),
+                      (tdd._OP_RLE, torch.float64)):
+        w = tdd._word(op, n, 7, dtype, 4 if op == tdd._OP_BITPACK else 0)
+        assert (w >> 11) & 4095 == tdd.grid_blocks(n) == 153
+        assert (w >> 4) & 1 == 0
+    w = tdd._word(tdd._OP_DICT, n, 7, torch.float64)
+    assert (w >> 11) & 4095 == tdd.decode_plan(n, 7, 8).blocks == 77
+
+
+def test_decode_word_is_cached_per_size_and_dtype():
+    """One lru_cache lookup a call: the same sizes give the same word
+    object's value, another dtype another code."""
+    w64 = tdd._word(tdd._OP_DICT, 156_250, 4000, torch.float64)
+    w32 = tdd._word(tdd._OP_DICT, 156_250, 4000, torch.float32)
+    assert w64 == tdd.decode_plan(156_250, 4000, 8).word(0, 3)
+    assert w32 == tdd.decode_plan(156_250, 4000, 4).word(0, 2)
+    info = tdd._word.cache_info()
+    tdd._word(tdd._OP_DICT, 156_250, 4000, torch.float64)
+    assert tdd._word.cache_info().hits == info.hits + 1
+
+
+def test_dict_decode_raises_on_what_the_c_side_cannot_check():
+    """dtypes, rank and contiguity are the wrapper's to check; the rest
+    (an empty dictionary, alignment, the plan) decode.cu's."""
+    codes = torch.zeros(8, dtype=torch.int32)
+    dic = torch.zeros(4, dtype=torch.float64)
+    tdd._check_dict(codes, dic)
+    with pytest.raises(TypeError):
+        tdd._check_dict(codes.long(), dic)
+    with pytest.raises(TypeError):
+        tdd._check_dict(codes, dic.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        tdd._check_dict(codes[::2], dic)
+    with pytest.raises(ValueError, match="1-D"):
+        tdd._check_dict(codes.view(2, 4), dic)
+
+
+def test_dict_decode_mixed_devices_raise():
+    """As groupby_sum's: a CPU / other-device mix reaches on_cpu, which
+    raises."""
+    codes = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tdd.dict_decode(codes, torch.zeros(4, dtype=torch.float64,
+                                           device="meta"))

@@ -27,6 +27,7 @@ try:
 except ImportError:      # a GPU host without JAX runs the cuda test alone
     jax = jops = radix_partition_ref = None
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels._common import graph_nodes
 from repro_torch.kernels import colscan as tcolscan
 from repro_torch.kernels import dictdecode as tdd
 from repro_torch.kernels import flash_attention as tfa
@@ -620,3 +621,129 @@ def test_cuda_group_kernels_one_launch_match_plain(g, code_dtype, n):
     np.testing.assert_allclose(got[sums, 0], want[sums, 0], rtol=1e-12,
                                atol=1e-9)
     assert np.array_equal(np.isnan(got[:, 0]), ~sums)
+
+
+def _ssd_inputs_cuda(rng, b, s, h, p, n, dtype=torch.bfloat16):
+    """x, B, C as the model hands them (slices of one conv output, no
+    copy), dt after softplus, a < 0 and D, on the card."""
+    xbc = _t(rng.normal(size=(b, s, h * p + 2 * n))).to(dtype).cuda()
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(
+        _t(rng.normal(size=(b, s, h))).float()).cuda()
+    a = -torch.exp(_t(rng.normal(size=h)).float()).cuda()
+    d = _t(rng.normal(size=h)).float().cuda()
+    return x, dt, a, bm, cm, d
+
+
+def _ssd_within_tolerance(y, st, yp, sp, dtype):
+    """chip_smoke.py's SSD tolerance: y to atol 1e-3 and rtol 1e-3 (plus
+    one bf16 step for a bf16 y, which both sides round once), the final
+    state to rtol = atol = 1e-3."""
+    rtol = 1e-3 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    y, yp = y.float().cpu(), yp.float().cpu()
+    assert bool(torch.isfinite(y).all())
+    over_y = float(((y - yp).abs() - 1e-3 - rtol * yp.abs()).max())
+    over_s = float(((st.cpu() - sp.cpu()).abs() - 1e-3
+                    - 1e-3 * sp.cpu().abs()).max())
+    assert over_y <= 0 and over_s <= 0, (over_y, over_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 1000, 2048])
+@pytest.mark.parametrize("p,n", [(112, 64), (64, 128)])
+@pytest.mark.parametrize("with_d", [True, False])
+def test_cuda_ssd_tensor_core_route_matches_plain(s, p, n, with_d):
+    """The bf16 tensor-core SSD route against the plain version on the
+    card at ragged S, at Zamba2-7B's and Mamba2-370m's head geometry, with
+    and without the fused D skip: one launch on the tensor-core route, y
+    in bf16 in (B, S, H, P), the state float32 in (B, H, P, N)."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(s * 31 + p + n)
+    x, dt, a, bm, cm, d = _ssd_inputs_cuda(rng, 2, s, 6, p, n)
+    d = d if with_d else None
+    before, launches = dict(tss.ROUTES), tss.LAUNCHES["ssd_scan"]
+    y, st = tss.ssd_scan(x, dt, a, bm, cm, 256, d=d)
+    assert tss.ROUTES["tensor_core"] == before["tensor_core"] + 1
+    assert tss.ROUTES["simt"] == before["simt"]
+    assert tss.LAUNCHES["ssd_scan"] == launches + 1
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert y.is_contiguous()
+    assert st.dtype == torch.float32 and st.shape == (2, 6, p, n)
+    yp, sp = tss.ssd_scan_plain(x, dt, a, bm, cm, 256, d=d)
+    _ssd_within_tolerance(y, st, yp, sp, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_ssd_one_device_kernel_per_call(dtype):
+    """One ssd_scan call is one device kernel on either route: no float32
+    y, no D-skip or cast pass in the wrapper."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(5)
+    x, dt, a, bm, cm, d = _ssd_inputs_cuda(rng, 2, 300, 4, 112, 64,
+                                           getattr(torch, dtype))
+    route = "tensor_core" if dtype == "bfloat16" else "simt"
+    before = tss.ROUTES[route]
+    assert graph_nodes(
+        lambda: tss.ssd_scan(x, dt, a, bm, cm, 256, d=d)) == {"kernel": 1}
+    assert tss.ROUTES[route] == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_dict_decode_one_device_kernel_per_call():
+    _cuda_or_skip()
+    codes = torch.arange(156_250, dtype=torch.int32, device="cuda") % 4000
+    dic = torch.arange(4000, dtype=torch.float64, device="cuda")
+    assert graph_nodes(lambda: tdd.dict_decode(codes, dic)) == {"kernel": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_raises_on_what_the_tensor_core_route_cannot_take():
+    """An unaligned base or a sequence stride off 8 elements raises on the
+    tensor-core route; the wrapper never copies nor switches routes."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(6)
+    x, dt, a, bm, cm, d = _ssd_inputs_cuda(rng, 1, 64, 2, 112, 64)
+    before = dict(tss.ROUTES)
+    flat = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(1, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        tss.ssd_scan(x, dt, a, shifted, cm, 256, d=d)
+    wide = torch.zeros(1, 64, 68, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="stride"):
+        tss.ssd_scan(x, dt, a, wide[..., :64], cm, 256, d=d)
+    assert tss.ROUTES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4097, 156_250])
+@pytest.mark.parametrize("dtype", ["int32", "int64", "float32", "float64"])
+def test_cuda_dict_decode_exact(n, dtype):
+    """dict_decode on the card equals its plain version exactly: negative
+    and out-of-range codes (jnp's rule), each table dtype, codes seen
+    through a view that does not start on 16 bytes, and both staging plans
+    (a small dictionary staged in shared memory, a large one read through
+    the read-only path)."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(n + len(dtype))
+    for d in (1, 11, 4000):
+        dic = _t((rng.normal(size=d) * 1000).astype(dtype)).cuda()
+        plan = tdd.decode_plan(n, d, dic.element_size())
+        assert plan.staged == (d <= -(-n // plan.blocks))
+        raw = _t(rng.integers(-d - 3, d + 3, n + 3).astype(np.int32)).cuda()
+        for off in (0, 1, 2, 3):       # 16-byte aligned, then not
+            codes = raw[off:off + n]
+            got = tdd.dict_decode(codes, dic)
+            assert got.dtype == dic.dtype and got.shape == (n,)
+            assert torch.equal(got.cpu(), tdd.dict_decode_plain(
+                codes.cpu(), dic.cpu()))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_rejects_what_the_c_side_checks():
+    """An empty dictionary reaches decode.cu, whose error code raises."""
+    _cuda_or_skip()
+    codes = torch.zeros(5, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="dict_decode"):
+        tdd.dict_decode(codes, torch.zeros(0, device="cuda"))
