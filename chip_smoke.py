@@ -10,9 +10,10 @@ on the card, at the main paths' sizes and at ragged sizes (flash on both
 of its routes: bf16 on the tensor cores, float32 and odd head dims on the
 SIMT kernel; the SSD scan on both of its routes: bf16 on the tensor
 cores, float32 on the SIMT kernel), checks that one
-`groupby_sum`, one `segmented_merge`, one `dict_decode` and one bf16
-`ssd_scan` call each put exactly one kernel on the device (the nodes of a
-CUDA graph captured around the call), and times each
+`groupby_sum`, one `segmented_merge`, one `dict_decode`, one
+`train_grad`, one batched bit-pack decode of a phase-3 partition and one
+bf16 `ssd_scan` call each put exactly one kernel on the device (the nodes
+of a CUDA graph captured around the call), and times each
 kernel, its plain version and, where one PyTorch call computes the same
 function, that call, each with the host's cost (`ms`) and as a CUDA graph
 (`device_ms`; flash and the SSD scan at Zamba2-7B's prefill shapes, with
@@ -29,7 +30,8 @@ paper's billion rows on 100 nodes), 12 feature columns that load as
 BITPACK, DICT, RLE and PLAIN blocks and an int64 label; a logistic
 regression and a k-means fit, 10 iterations each, checked against a numpy
 replay of the same updates.  Its launches must show the three decode
-kernels and `train_grad`.
+kernels and `train_grad`, and one bit-pack launch a partition step; it
+prints the device ops and port kernel launches of one warm iteration.
 Phase 4 searches: a `docs` table of 1,000,000 rows with a 64-lane float32
 embedding in 64 partitions of 15,625, and `similarity_join` with and
 without a filter below it, ids checked exactly against numpy.  Its
@@ -176,7 +178,7 @@ class Timer:
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             for _ in range(calls):
                 fn()
         graph.replay()
@@ -192,10 +194,11 @@ class Timer:
 
 
 def traced(torch, device, label: str, fn) -> None:
-    """Run `fn()` once under torch.profiler and print one JSON line: the
-    wall time (the profiler's own cost per op included), the device's busy
-    time (the union of its kernels' and copies' spans) and idle share, the
-    device ops by time and the host ops by their own CPU time."""
+    """Run `fn()` once under torch.profiler, print one JSON line and return
+    it: the wall time (the profiler's own cost per op included), the
+    device's busy time (the union of its kernels' and copies' spans) and
+    idle share, the count of device ops (kernels and copies), the device
+    ops by time and the host ops by their own CPU time."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities):    # the tracer's start-up,
@@ -225,11 +228,13 @@ def traced(torch, device, label: str, fn) -> None:
                     )[:12]:
         host.append([e.key[:60], e.count, e.self_cpu_time_total / 1e3])
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
-    print(json.dumps({"trace": label, "wall_ms": wall,
-                      "device_busy_ms": busy / 1e3,
-                      "device_idle_share": 1.0 - busy / 1e3 / wall,
-                      "device_ops_ms": [[k, c, ms] for k, (c, ms) in top],
-                      "host_self_ms": host}), flush=True)
+    rec = {"trace": label, "wall_ms": wall, "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / 1e3 / wall,
+           "device_ops": len(spans),
+           "device_ops_ms": [[k, c, ms] for k, (c, ms) in top],
+           "host_self_ms": host}
+    print(json.dumps(rec), flush=True)
+    return rec
 
 
 def one_kernel(name: str, fn) -> None:
@@ -423,10 +428,33 @@ def exact(name: str, got, want) -> float:
     return 0.0
 
 
+def bitpack_encs(rng, n: int, widths) -> list:
+    """BITPACK blocks of n rows at the given bit widths, each using its
+    full width (past one row): int64 blocks with biases outside int32
+    (either sign), int32 blocks with a negative bias."""
+    from repro_torch.core.compression import Encoding, encode
+    encs = []
+    for j, width in enumerate(widths):
+        if j % 2:
+            lo, dt = (-(2 ** 40) if j % 4 == 1 else 2 ** 35 + 7), np.int64
+        else:
+            lo, dt = -(1 << (width - 1)) - 3, np.int32
+        vals = (lo + rng.integers(0, 1 << width, n)).astype(dt)
+        vals[:2] = [lo + (1 << width) - 1, lo][:n]
+        enc = encode(vals, Encoding.BITPACK)
+        if n > 1 and (enc.bit_width != width or enc.bias != lo):
+            fail(f"bitpack block of width {width} encoded as "
+                 f"{enc.bit_width}, bias {enc.bias}")
+        encs.append(enc)
+    return encs
+
+
 def phase_kernels_analytics(torch, device, seed: int) -> dict:
     """The analytics kernels (decode, top-k, gradient) against their plain
     versions on the device at ragged sizes; then each timed at the shape
     phases 3 and 4 give it."""
+    from repro_torch.core.compression import (Encoding, bitpack_block,
+                                              decode_torch, encode)
     from repro_torch.kernels import dictdecode as kd
     from repro_torch.kernels import topk_similarity as kt
     from repro_torch.kernels import train_grad as kg
@@ -479,21 +507,45 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
                 ps, pi = kt.topk_similarity_plain(xt, q, k)
                 exact("topk_similarity", gi, pi)
                 exact("topk_similarity", gs, ps)
-    # gradient: both kinds, float32 and float64 x; sums to rtol 1e-12
-    for n in (1, 1023, TRAIN_ROWS):
-        for d in (1, 12, 130):
-            for dt in ("float32", "float64"):
-                x = t((rng.normal(size=(n, d)) * 2).astype(dt))
-                y = t((rng.uniform(size=n) < 0.5).astype(dt))
-                w = t(rng.normal(size=d).astype(dt))
-                for kind in kg.KINDS:
-                    got = kg.train_grad(x, y, w, kind).cpu().numpy()
-                    want = kg.train_grad_plain(x, y, w, kind).cpu().numpy()
-                    if not np.allclose(got, want, rtol=1e-12, atol=1e-9):
-                        fail(f"train_grad {kind} ({n}, {d}, {dt}) differs: "
-                             f"{np.max(np.abs(got - want))}")
-                    err["train_grad"] = max(err["train_grad"], float(
-                        np.max(np.abs(got - want))))
+    # batched bit-pack: widths 1-16 and a 1-bit label into the columns of a
+    # row-major x and into y, int32 and int64 blocks with biases outside
+    # int32, float32 and float64 outputs: each column equal to
+    # decode_torch(enc).to(dt) on the device and the plain chain on the CPU
+    for n in (1, 1023, TRAIN_ROWS + 1):
+        encs = bitpack_encs(rng, n, list(range(1, 17)) + [1])
+        blocks = [bitpack_block(e, dev) for e in encs]
+        for dt in (torch.float32, torch.float64):
+            buf = torch.full((n * 17,), -1, dtype=dt, device=dev)
+            dests = [buf[:n * 16].view(n, 16)[:, j] for j in range(16)] \
+                + [buf[n * 16:]]
+            kd.bitpack_decode_into(blocks, dests, n)
+            for e, dst in zip(encs, dests):
+                exact("bitpack_decode_into", dst,
+                      decode_torch(e, dev).to(dt))
+                exact("bitpack_decode_into", dst,
+                      decode_torch(e, "cpu").to(dt))
+    # gradient: both kinds, float32 and float64 x, both routes (d = 31, 32
+    # and 33 either side of the register route's limit; 64, 130 and 2048
+    # chunked); sums to rtol 1e-12, and the same bits on a second call
+    shapes = [(n, d) for n in (1, 1023, TRAIN_ROWS)
+              for d in (1, 12, 31, kg.REG_MAX_DIMS, 33, 64, 130)]
+    for n, d in shapes + [(1023, 2048)]:
+        for dt in ("float32", "float64"):
+            x = t((rng.normal(size=(n, d)) * 2).astype(dt))
+            y = t((rng.uniform(size=n) < 0.5).astype(dt))
+            w = t(rng.normal(size=d).astype(dt))
+            for kind in kg.KINDS:
+                g = kg.train_grad(x, y, w, kind)
+                if not torch.equal(g, kg.train_grad(x, y, w, kind)):
+                    fail(f"train_grad {kind} ({n}, {d}, {dt}) differs "
+                         f"between two calls")
+                got = g.cpu().numpy()
+                want = kg.train_grad_plain(x, y, w, kind).cpu().numpy()
+                if not np.allclose(got, want, rtol=1e-12, atol=1e-9):
+                    fail(f"train_grad {kind} ({n}, {d}, {dt}) differs: "
+                         f"{np.max(np.abs(got - want))}")
+                err["train_grad"] = max(err["train_grad"], float(
+                    np.max(np.abs(got - want))))
     if device.type == "cuda":
         torch.cuda.synchronize()
     print(f"phase 1: 5 analytics kernels match their plain versions, max "
@@ -550,8 +602,30 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
             4.0 * n * dims + 4.0 * n + 4.0 * dims + 8.0 * dims,
             4.0 * n * dims),
     }
+    # the batched bit-pack call of one phase-3 partition: its 8 BITPACK
+    # features (1-4 bits) into float32 x (n, 12) and its 1-bit label into
+    # y, against the per-column sequence it replaced (bitpack_decode's
+    # int32 lanes, the int64 bias, the casts, the stack)
+    pencs = [encode(rng.integers(0, span, n).astype(np.int64),
+                    Encoding.BITPACK) for span in INT_SPANS + (2,)]
+    pblocks = [bitpack_block(e, dev) for e in pencs]
+    pbuf = torch.empty(n * (dims + 1), dtype=torch.float32, device=dev)
+    px = pbuf[:n * dims].view(n, dims)
+    pdests = [px[:, j] for j in range(len(INT_SPANS))] + [pbuf[n * dims:]]
+
+    def per_column():
+        cols = [(kd.bitpack_decode(b.words, b.bit_width, 0, n)
+                 .to(torch.int64) + b.bias).to(b.dtype).to(torch.float32)
+                for b in pblocks]
+        return torch.stack(cols[:-1], dim=1), cols[-1]
+
+    batched = (lambda: kd.bitpack_decode_into(pblocks, pdests, n))
+    batch_bytes = sum(4.0 * b.words.shape[0] for b in pblocks) \
+        + 4.0 * n * len(pblocks)
     if device.type == "cuda":
         one_kernel("dict_decode", cases["dict_decode"][0])
+        one_kernel("train_grad", cases["train_grad"][0])
+        one_kernel("batched bitpack_decode", batched)
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
         b_ms, b_by = bound(nbytes, ops)
@@ -566,6 +640,15 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
             "library_device_ms": (timer.graphed(lib) if lib is not None
                                   else None),
         }
+    b_ms, b_by = bound(batch_bytes, 3.0 * n * len(pblocks))
+    out["bitpack_decode"]["batched"] = {
+        "columns": len(pblocks), "rows": n, "launches": 0,
+        "ms": timer(batched), "device_ms": timer.graphed(batched),
+        "plain_ms": timer(lambda: kd.bitpack_decode_into_plain(
+            pblocks, pdests, n), reps=10, warmup=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "per_column_ms": timer(per_column),
+        "per_column_device_ms": timer.graphed(per_column)}
     return out
 
 
@@ -800,16 +883,26 @@ def phase_train(torch, device, rows: int, seed: int) -> dict:
         launches = ops.launch_counts()
         decoded = DECODE_COUNTERS["numeric_blocks"] - decodes
         if device.type == "cuda":
-            # where a warm iteration's time goes
+            # where a warm iteration's time goes, and what it launches
             from repro_torch.ml import IterativeTrainer
             feats = sess.table("points").to_features(FEATURES, "label")
             feats.cache()
             tr = IterativeTrainer(feats, "trace")
             tr.gradient_iteration(clf.w, "logistic")       # fills the cache
-            traced(torch, device, "phase 3: one warm logistic iteration",
-                   lambda: tr.gradient_iteration(clf.w, "logistic"))
-            traced(torch, device, "phase 3: one warm k-means iteration",
-                   lambda: tr.kmeans_iteration(km.centroids))
+            for label, step in (
+                    ("logistic", lambda: tr.gradient_iteration(clf.w,
+                                                               "logistic")),
+                    ("k-means", lambda: tr.kmeans_iteration(km.centroids))):
+                ops.reset_launch_counts()
+                step()
+                torch.cuda.synchronize()
+                ours = {k: v for k, v in ops.launch_counts().items() if v}
+                rec = traced(torch, device,
+                             f"phase 3: one warm {label} iteration", step)
+                print(f"phase 3: one warm {label} iteration: "
+                      f"{rec['device_ops']} device ops "
+                      f"({rec['device_ops'] / PARTITIONS:.2f} a partition), "
+                      f"port kernel launches {json.dumps(ours)}", flush=True)
     finally:
         sess.shutdown()
     print(f"phase 3: main-path launches {json.dumps(launches)}", flush=True)
@@ -829,6 +922,11 @@ def phase_train(torch, device, rows: int, seed: int) -> dict:
         for it in clf.metrics.train_iterations:
             if it["routes"] != {"train_grad": PARTITIONS}:
                 fail(f"logistic iteration took routes {it['routes']}")
+        # one batched bit-pack launch a partition and step
+        steps = PARTITIONS * (LR_ITERS + KM_ITERS)
+        if launches["bitpack_decode"] != steps:
+            fail(f"bitpack_decode launched {launches['bitpack_decode']} "
+                 f"times, not once a partition step ({steps})")
 
     # the numpy replay of both fits, over the generated arrays
     x32 = np.stack([data[c] for c in FEATURES], axis=1).astype(np.float32)
@@ -1362,6 +1460,8 @@ def main() -> int:
             fail(f"kernels never launched on their main path: {idle}")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
+    kernels["bitpack_decode"]["batched"]["launches"] = \
+        launches["bitpack_decode"]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     if device.type == "cuda":
         dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the redesigned kernels spend their time, on one GPU.
 
-    python3 scripts/kernel_probe.py [flash] [group] [ssd] [decode]
-                                                       # default: all
+    python3 scripts/kernel_probe.py [flash] [group] [ssd] [decode] [train]
+                                    [bitpack]          # default: all
 
 1. flash: flash attention's tensor-core route at Zamba2-7B's prefill
    shape ((4, 32, 2048, 112) bf16, causal, in the model's (B, S, H, hd)
@@ -32,6 +32,28 @@
    float64 values): device time under one, two (its plan) and four 4-code
    steps a thread, and its `ms`, host cost included, against
    `dictionary[codes]` in turns.
+
+5. train: `train_grad` at phase 3's partition (156,250 x 12 float32,
+   logistic): device time of one call on its register route under grids
+   of twice, once (its plan), a half, a quarter and an eighth its blocks,
+   and of copies that undo one design choice each (the two-branch
+   sigmoid; no register cap; 2 rows a lane a step in place of 4)
+   under three of them, each with the rows a lane takes and the blocks an
+   SM holds at once (the occupancy API); beside them, in turns, the
+   chunked route at the same shape, the linear residual and the library's
+   `x.T @ (sigmoid(x @ w) - y)`; per-block timestamps of an instrumented
+   copy (when blocks start, end their loop and their partial row, and the
+   fold's span); ptxas's registers and spills of the d <= 16 float32
+   kernels.
+6. bitpack: the batched bit-pack decode of a phase-3 partition (8 BITPACK
+   features of 1-4 bits into float32 x (n, 12), a 1-bit label into y)
+   against the per-column sequence it replaced (bitpack_decode's int32
+   lanes, the int64 bias, the casts, the stack), `ms` and device time in
+   turns in one process; the same batched call into 9 contiguous vectors
+   (stride 1); copies of the kernel that undo one design choice each (the
+   columns' constants read from the parameter bank; tiles of 64 rows in
+   place of 128); per-block timestamps of an instrumented copy (start
+   after the constants' staging, end).
 
 Each line of output is one JSON object.  Needs a CUDA device and `nvcc`.
 """
@@ -280,6 +302,13 @@ def ptxas_report(src: Path) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
+            tmpl = re.search(r"(grad_registers|grad_chunked)I([fd])"
+                             r"(?:Li(\d+)E)?Lb(\d)E", name)
+            if tmpl:
+                kind, t, dpad, logistic = tmpl.groups()
+                name = (f"{kind}<{'float' if t == 'f' else 'double'}"
+                        f"{',' + dpad if dpad else ''},"
+                        f"{'logistic' if logistic == '1' else 'linear'}>")
             for short in ("ssd_fwd_tc", "ssd_fwd"):
                 if short in name:
                     tmpl = re.search(r"ILi(\d+)ELi(\d+)E", name)
@@ -326,10 +355,111 @@ SSD_VARIANTS = {
 def patched(src: str, pairs) -> str:
     for old, new in pairs:
         if src.count(old) != 1:
-            raise SystemExit(f"csrc/ssd.cu changed: {old!r} not found once; "
-                             f"update kernel_probe.py")
+            raise SystemExit(f"a csrc/ source changed: {old!r} not found "
+                             f"once; update kernel_probe.py")
         src = src.replace(old, new)
     return src
+
+
+# per-block timestamps (the global nanosecond timer) for the train and
+# bit-pack probes: g_ts[4 b .. 4 b + 3] = block start, end of its main
+# phase, end of its last phase, its SM; g_fold = the fold's start and end
+TIMESTAMPS = (
+    "\n__device__ unsigned long long g_ts[4 * 4096];\n"
+    "__device__ unsigned long long g_fold[2];\n"
+    "__device__ __forceinline__ unsigned long long gtime() {\n"
+    "  unsigned long long t;\n"
+    "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+    "  return t;\n}\n"
+    "__device__ __forceinline__ unsigned smid() {\n"
+    "  unsigned s;\n  asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(s));\n"
+    "  return s;\n}\n"
+    "#define STAMP_BLOCK(a, b) if (threadIdx.x == 0 && blockIdx.x < 4096) "
+    "{ g_ts[4 * blockIdx.x] = (a); g_ts[4 * blockIdx.x + 1] = (b); "
+    "g_ts[4 * blockIdx.x + 2] = gtime(); g_ts[4 * blockIdx.x + 3] = "
+    "smid(); }\n")
+TIMESTAMP_READER = (
+    "\nextern \"C\" int shark_ts_read(unsigned long long* ts, "
+    "unsigned long long* fold) {\n"
+    "  int rc = cudaMemcpyFromSymbol(ts, g_ts, sizeof(g_ts));\n"
+    "  return rc ? rc : cudaMemcpyFromSymbol(fold, g_fold, "
+    "sizeof(g_fold));\n}\n")
+# the occupancy query the train probe adds to each copy of train.cu it
+# builds: blocks of the plan word's kernel one SM holds at once (the
+# compiler's registers and the shared memory allow)
+TRAIN_OCCUPANCY = """
+extern "C" int shark_train_occupancy(unsigned long long word, int d) {
+  const Plan pl(word);
+  const void* kernel =
+      pl.f64 ? pick_kernel<double>(pl) : pick_kernel<float>(pl);
+  if (kernel == nullptr || d < 1 || d > kMaxDims) return -1;
+  int blocks = 0;
+  const size_t smem = pl.width_class == 0 ? chunked_smem(d) : 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+"""
+TRAIN_STAMPS = (
+    ("constexpr int kMaxDims = 2048;\n", "constexpr int kMaxDims = 2048;\n"
+     + TIMESTAMPS),
+    ("  if (!s_last) return;\n", "  if (!s_last) return;\n"
+     "  const unsigned long long tf0 = gtime();\n"),
+    ("  if (t == 0) *ticket = 0u;", "  if (t == 0) { g_fold[0] = tf0; "
+     "g_fold[1] = gtime(); }\n  if (t == 0) *ticket = 0u;"),
+    ("  __shared__ double s_warp[kWarps][D];\n  const int t = threadIdx.x;\n",
+     "  __shared__ double s_warp[kWarps][D];\n  const int t = threadIdx.x;\n"
+     "  const unsigned long long ts0 = gtime();\n"),
+    ("  // lanes that own the same chunk add across the warp",
+     "  const unsigned long long ts1 = gtime();\n"
+     "  // lanes that own the same chunk add across the warp"),
+    ("    partials[static_cast<long long>(blockIdx.x) * d + t] = s;\n  }\n"
+     "  fold_if_last(",
+     "    partials[static_cast<long long>(blockIdx.x) * d + t] = s;\n  }\n"
+     "  STAMP_BLOCK(ts0, ts1);\n  fold_if_last("),
+)
+BITPACK_STAMPS = (
+    ("constexpr int kTileRows = 128;\n", "constexpr int kTileRows = 128;\n"
+     + TIMESTAMPS),
+    ("  __syncthreads();\n  for (int r0 = blockIdx.x * kTileRows; r0 < n;",
+     "  __syncthreads();\n  const unsigned long long ts0 = gtime();\n"
+     "  for (int r0 = blockIdx.x * kTileRows; r0 < n;"),
+    ("          orig_cast<O>(static_cast<long long>(lane) + cc.bias, "
+     "cc.odt);\n    }\n  }\n",
+     "          orig_cast<O>(static_cast<long long>(lane) + cc.bias, "
+     "cc.odt);\n    }\n  }\n  STAMP_BLOCK(ts0, ts0);\n"),
+)
+# the bit-pack kernel's design choices, undone one at a time: its loop
+# reading each column's constants from the parameter bank (the shipped
+# kernel stages them in shared memory), and 64-row tiles in place of 128
+BITPACK_VARIANTS = {
+    "columns read from the parameter bank": (
+        ("      const ColConst& cc = s_col[c];",
+         "      const ColConst cc = col_const(batch.col[c]);"),),
+    "64-row tiles": (
+        ("constexpr int kTileRows = 128;", "constexpr int kTileRows = 64;"),),
+}
+
+
+def block_timeline(np, ts, fold, blocks: int) -> dict:
+    """Microseconds from the first block's start: when blocks start and end
+    their main phase and their last, and the fold's span."""
+    ts = np.asarray(ts[:4 * blocks], np.float64).reshape(blocks, 4)
+    t0 = ts[:, 0].min()
+    main = (ts[:, 1] - ts[:, 0]) / 1e3
+    rest = (ts[:, 2] - ts[:, 1]) / 1e3
+    out = {"blocks": blocks, "sms_used": int(len(set(ts[:, 3]))),
+           "last_block_start_us": float((ts[:, 0].max() - t0) / 1e3),
+           "main_phase_us": [float(np.percentile(main, q))
+                             for q in (0, 50, 100)],
+           "last_phase_us": [float(np.percentile(rest, q))
+                             for q in (0, 50, 100)],
+           "last_block_end_us": float((ts[:, 2].max() - t0) / 1e3)}
+    if fold[1]:
+        out["fold_us"] = [float((fold[0] - t0) / 1e3),
+                          float((fold[1] - t0) / 1e3)]
+    return out
 
 
 def probe_ssd(torch, np) -> None:
@@ -462,6 +592,224 @@ def probe_decode(torch, np) -> None:
                       "ms_in_turns": ms}), flush=True)
 
 
+# the register route's choices, undone one at a time: the sigmoid's two
+# branches (a warp whose rows differ in sign ran both), no cap on the
+# registers a thread (the linear residual then took 122, 2 blocks an SM),
+# and 2 rows a lane a step in place of 4
+TRAIN_VARIANTS = {
+    "two-branch sigmoid": (
+        ("  const double e = exp(-fabs(z));\n"
+         "  return (z >= 0.0 ? 1.0 : e) / (1.0 + e);",
+         "  if (z >= 0.0) return 1.0 / (1.0 + exp(-z));\n"
+         "  const double e = exp(z);\n  return e / (1.0 + e);"),),
+    "no register cap": (
+        ("__global__ void __launch_bounds__(kThreads, 3)\ngrad_registers(",
+         "__global__ void __launch_bounds__(kThreads)\ngrad_registers("),),
+    "2 rows a lane a step": (
+        ("  constexpr int kRows = 4;", "  constexpr int kRows = 2;"),),
+}
+
+
+def probe_train(torch, np) -> None:
+    """train_grad's register route at phase 3's partition under five
+    grids, and copies that undo one design choice each under three, with
+    the occupancy each gets; the chunked route, the linear residual and the
+    library call beside them, in turns; per-block timestamps."""
+    import chip_smoke
+    from repro_torch.kernels import _build, train_grad as kg
+    n, d, sms = 156_250, 12, torch.cuda.get_device_properties(0) \
+        .multi_processor_count
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).cuda()
+    y = torch.from_numpy((rng.uniform(size=n) < 0.5).astype(np.float32)) \
+        .cuda()
+    w = torch.from_numpy(rng.normal(size=d).astype(np.float32)).cuda()
+    want = kg.train_grad_plain(x, y, w).cpu().numpy()
+    ticket = kg._ticket(x.device, _build.stream_handle(x.device))
+    timer = chip_smoke.Timer(torch, torch.device("cuda"))
+    plan = kg.train_plan(n, d, torch.float32)
+    src = (_build.CSRC / "train.cu").read_text()
+    libs = nvcc_build_all(dict(
+        {"train_ts": patched(src, TRAIN_STAMPS) + TIMESTAMP_READER,
+         "shipped": src + TRAIN_OCCUPANCY},
+        **{name: patched(src, pairs) + TRAIN_OCCUPANCY
+           for name, pairs in TRAIN_VARIANTS.items()}))
+    entries = {}
+    for name in ["shipped", *TRAIN_VARIANTS]:
+        f, occ = libs[name].shark_train_grad, libs[name].shark_train_occupancy
+        f.argtypes = _build.SIGNATURES["train"][1]
+        occ.argtypes = [ctypes.c_ulonglong, ctypes.c_int]
+        entries[name] = (f, occ)
+
+    def call_of(entry, width_class, blocks, logistic=True):
+        fn, occupancy = entries[entry]
+        word = kg.TrainPlan("", width_class, blocks).word(False, logistic)
+        buf = torch.empty(d + blocks * d, dtype=torch.float64,
+                          device="cuda")
+
+        def call():
+            rc = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(), n, d, word,
+                    buf.data_ptr(), ticket.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"train probe failed: cudaError {rc}")
+            return buf[:d]
+        return call, occupancy(word, d)
+
+    # lanes a row on the register route: d padded, over 4 float32 a chunk
+    tpr = (2 << plan.width_class) // 4
+    variants, info = {}, {}
+    grids = (2 * plan.blocks, plan.blocks, -(-plan.blocks // 2),
+             -(-plan.blocks // 4), -(-plan.blocks // 8))
+    for entry in entries:
+        for blocks in (grids if entry == "shipped" else grids[1:4]):
+            name = f"{entry}, {blocks} blocks"
+            variants[name], resident = call_of(entry, plan.width_class,
+                                               blocks)
+            info[name] = {"rows_a_lane": n / (blocks * 256 / tpr),
+                          "resident_blocks_per_sm": resident,
+                          "waves": blocks / (resident * sms)}
+    name = f"chunked, {plan.blocks} blocks"
+    variants[name], resident = call_of("shipped", 0, plan.blocks)
+    info[name] = {"resident_blocks_per_sm": resident}
+    for name, call in variants.items():
+        got = call().cpu().numpy()
+        if not np.allclose(got, want, rtol=1e-12, atol=1e-9):
+            raise SystemExit(f"train probe {name!r} differs from plain")
+    variants["shipped, linear residual"] = call_of(
+        "shipped", plan.width_class, plan.blocks, logistic=False)[0]
+    variants["library x.T @ (sigmoid(x @ w) - y)"] = \
+        lambda: x.T @ (torch.sigmoid(x @ w) - y)
+    device_ms = {}
+    for name in list(variants) + list(reversed(list(variants))):
+        device_ms.setdefault(name, []).append(timer.graphed(variants[name]))
+    # where one call's time goes: per-block timestamps of an instrumented
+    # copy at the plan's grid
+    lib = libs["train_ts"]
+    f = lib.shark_train_grad
+    f.argtypes = _build.SIGNATURES["train"][1]
+    buf = torch.empty(d + plan.blocks * d, dtype=torch.float64,
+                      device="cuda")
+    word = plan.word(False, True)
+    timeline = []
+    for _ in range(3):
+        rc = f(x.data_ptr(), y.data_ptr(), w.data_ptr(), n, d, word,
+               buf.data_ptr(), ticket.data_ptr(),
+               torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        ts = (ctypes.c_ulonglong * (4 * 4096))()
+        fold = (ctypes.c_ulonglong * 2)()
+        rc = rc or lib.shark_ts_read(ts, fold)
+        if rc:
+            raise SystemExit(f"train timestamps failed: {rc}")
+        timeline.append(block_timeline(np, ts, fold, plan.blocks))
+    if not np.allclose(buf[:d].cpu().numpy(), want, rtol=1e-12, atol=1e-9):
+        raise SystemExit("instrumented train_grad differs from plain")
+    ptxas = {k: v for k, v in ptxas_report(_build.CSRC / "train.cu").items()
+             if "float" in k}
+    print(json.dumps({"probe": "train_grad, 156,250 x 12 float32, logistic",
+                      "plan_blocks": plan.blocks, "sms": sms,
+                      "grids": info, "device_ms_in_turns": device_ms,
+                      "timeline_us": timeline, "ptxas": ptxas}),
+          flush=True)
+
+
+def probe_bitpack(torch, np) -> None:
+    """The batched bit-pack call of a phase-3 partition against the
+    per-column sequence it replaced, and into contiguous vectors."""
+    import chip_smoke
+    from repro_torch.core.compression import Encoding, bitpack_block, encode
+    from repro_torch.kernels import _build, dictdecode as kd
+    n, dims = 156_250, 12
+    rng = np.random.default_rng(0)
+    encs = [encode(rng.integers(0, span, n).astype(np.int64),
+                   Encoding.BITPACK) for span in chip_smoke.INT_SPANS + (2,)]
+    blocks = [bitpack_block(e, "cuda") for e in encs]
+    buf = torch.empty(n * (dims + 1), dtype=torch.float32, device="cuda")
+    x = buf[:n * dims].view(n, dims)
+    dests = [x[:, j] for j in range(len(blocks) - 1)] + [buf[n * dims:]]
+    flat = [torch.empty(n, dtype=torch.float32, device="cuda")
+            for _ in blocks]
+
+    def per_column():
+        cols = [(kd.bitpack_decode(b.words, b.bit_width, 0, n)
+                 .to(torch.int64) + b.bias).to(b.dtype).to(torch.float32)
+                for b in blocks]
+        return torch.stack(cols[:-1], dim=1), cols[-1]
+
+    src = (_build.CSRC / "decode.cu").read_text()
+    libs = nvcc_build_all(dict(
+        {"bitpack_ts": patched(src, BITPACK_STAMPS) + TIMESTAMP_READER},
+        **{name: patched(src, pairs)
+           for name, pairs in BITPACK_VARIANTS.items()}))
+    entry = {}
+    for name, lib in libs.items():
+        entry[name] = lib.shark_bitpack
+        entry[name].argtypes = _build.SIGNATURES["bitpack"][1]
+    descs = kd.pack_bitpack_descriptors(blocks, dests)
+
+    def raw(name):
+        tile = re.search(r"(\d+)-row tiles", name)
+        grid = re.search(r"(\d+) blocks", name)
+        word = kd.DecodePlan(-(-n // int(tile.group(1))) if tile
+                             else int(grid.group(1)) if grid
+                             else kd.bitpack_plan(n).blocks,
+                             False).word(kd._OP_BITPACK, 2)
+
+        def call():
+            rc = entry[name](descs.ctypes.data, len(blocks), n, word,
+                             torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"bitpack probe {name} failed: {rc}")
+        return call
+
+    calls = {"batched into x and y":
+             lambda: kd.bitpack_decode_into(blocks, dests, n),
+             "batched into contiguous vectors":
+             lambda: kd.bitpack_decode_into(blocks, flat, n),
+             "per-column sequence": per_column}
+    calls.update({name: raw(name) for name in BITPACK_VARIANTS})
+    calls["batched into x and y"]()
+    calls["batched into contiguous vectors"]()
+    xs, ys = per_column()
+    if not (torch.equal(x[:, :len(blocks) - 1], xs)
+            and torch.equal(buf[n * dims:], ys)
+            and all(torch.equal(f, dst) for f, dst in zip(flat, dests))):
+        raise SystemExit("bitpack probe: the batched call differs from the "
+                         "per-column sequence")
+    for name in BITPACK_VARIANTS:
+        x.zero_()
+        raw(name)()
+        if not torch.equal(x[:, :len(blocks) - 1], xs):
+            raise SystemExit(f"bitpack probe: variant {name!r} differs")
+    timer = chip_smoke.Timer(torch, torch.device("cuda"))
+    ms, device_ms = {name: [] for name in calls}, {name: [] for name in calls}
+    for r in range(4):
+        order = list(calls) if r % 2 == 0 else list(reversed(list(calls)))
+        for name in order:
+            ms[name].append(timer(calls[name], reps=200, warmup=20))
+            device_ms[name].append(timer.graphed(calls[name]))
+    timeline = []
+    for _ in range(3):
+        raw("bitpack_ts")()
+        torch.cuda.synchronize()
+        ts = (ctypes.c_ulonglong * (4 * 4096))()
+        fold = (ctypes.c_ulonglong * 2)()
+        if libs["bitpack_ts"].shark_ts_read(ts, fold):
+            raise SystemExit("bitpack timestamps failed")
+        timeline.append(block_timeline(np, ts, fold,
+                                       kd.bitpack_plan(n).blocks))
+    print(json.dumps({"probe": "bit-pack, phase 3's partition: 9 blocks of "
+                               "156,250 rows, 1-4 bits, float32",
+                      "widths": [b.bit_width for b in blocks],
+                      "plan_blocks": kd.bitpack_plan(n).blocks,
+                      "ms_in_turns": ms,
+                      "device_ms_in_turns": device_ms,
+                      "timeline_us": timeline,
+                      "ptxas": ptxas_report(_build.CSRC / "decode.cu")}),
+          flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -469,7 +817,8 @@ def main() -> int:
         print("kernel_probe: needs a CUDA device", file=sys.stderr)
         return 1
     probes = {"flash": probe_flash, "group": probe_group, "ssd": probe_ssd,
-              "decode": probe_decode}
+              "decode": probe_decode, "train": probe_train,
+              "bitpack": probe_bitpack}
     chosen = sys.argv[1:] or list(probes)
     unknown = set(chosen) - set(probes)
     if unknown:

@@ -320,8 +320,9 @@ def decode_torch(enc: Encoded, device="cpu"):
     memoized device streams and never the host decode, so
     `expr.DECODE_COUNTERS` stay still.  DICT, BITPACK and RLE blocks go
     through the `dict_decode`, `bitpack_decode` and `rle_decode` kernels on
-    a CUDA device (their plain versions on the CPU); FOR is `codes + bias`
-    and PLAIN the stored array."""
+    a CUDA device (their plain versions on the CPU; bit-pack through
+    `bitpack_decode_into`, one launch); FOR is `codes + bias` and PLAIN the
+    stored array."""
     import torch
 
     from ..kernels import ops
@@ -343,12 +344,28 @@ def decode_torch(enc: Encoded, device="cpu"):
         return ops.rle_decode(s("run_values"), s("run_ends"),
                               enc.n).to(out_dtype)
     if enc.encoding == Encoding.BITPACK:
-        # the kernel's int32 lanes with bias 0 are exact (a lane holds at
-        # most BITPACK_MAX_BITS = 16 bits); the block's bias may not fit in
-        # int32, so it is added after widening to int64, as decode_np does
-        lanes = ops.bitpack_decode(s("words"), enc.bit_width, 0, enc.n)
-        return (lanes.to(torch.int64) + int(enc.bias)).to(out_dtype)
+        # one launch: each lane plus the int64 bias (which may not fit in
+        # int32), cast to the original dtype, as decode_np does; the
+        # kernel writes int32 or int64, so a narrower or unsigned block
+        # takes the exact int64 values and a cast
+        block = bitpack_block(enc, device)
+        if out_dtype not in (torch.int32, torch.int64):
+            block = block._replace(dtype=torch.int64)
+        out = torch.empty(enc.n, dtype=block.dtype, device=device)
+        ops.bitpack_decode_into([block], [out], enc.n)
+        return out.to(out_dtype)
     raise ValueError(enc.encoding)
+
+
+def bitpack_block(enc: Encoded, device):
+    """A BITPACK block as the bit-pack kernel's operand
+    (`dictdecode.BitpackBlock`), its words read from device memory."""
+    import torch
+
+    from ..kernels.dictdecode import BitpackBlock
+    return BitpackBlock(device_stream(enc, "words", device),
+                        int(enc.bit_width), int(enc.bias),
+                        torch.from_numpy(np.zeros(0, enc.orig_dtype)).dtype)
 
 
 def compression_ratio(enc: Encoded) -> float:

@@ -29,19 +29,20 @@ SOURCES = ("scan", "group", "radix", "decode", "train", "topk", "flash",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_vp, _i, _ll, _d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_double)
-# C entry point of each library and its argument types: every pointer and
-# the stream as c_void_p, so ctypes never truncates them to 32 bits
+_vp, _i, _ll, _d, _ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_double, ctypes.c_ulonglong)
+# C entry points and their argument types: every pointer and the stream as
+# c_void_p, so ctypes never truncates them to 32 bits.  An entry lives in
+# the library of its own name, or of the name LIBRARY gives it
 SIGNATURES = {
     "scan": ("shark_colscan",
              [_vp, _i, _vp, _ll, _vp, _i, _ll, _d, _d, _vp, _i, _vp, _vp]),
     "group": ("shark_group_reduce", [_vp, _vp, _ll, _i, _ll, _vp, _vp]),
     "radix": ("shark_radix", [_vp, _ll, ctypes.c_uint, _vp, _vp, _i, _vp]),
-    "decode": ("shark_decode",
-               [_vp, _vp, _vp, _ll, _ll, ctypes.c_ulonglong, _vp]),
+    "decode": ("shark_decode", [_vp, _vp, _vp, _ll, _ll, _ull, _vp]),
+    "bitpack": ("shark_bitpack", [_vp, _i, _ll, _ull, _vp]),
     "train": ("shark_train_grad",
-              [_vp, _i, _vp, _vp, _ll, _i, _i, _vp, _i, _vp, _vp]),
+              [_vp, _vp, _vp, _ll, _i, _ull, _vp, _vp, _vp]),
     "topk": ("shark_topk",
              [_vp, _i, _vp, _ll, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
     "flash": ("shark_flash_attention_fwd",
@@ -51,6 +52,8 @@ SIGNATURES = {
             [_vp, _i, _i, _ll, _ll, _vp, _vp, _vp, _vp, _ll, _ll, _vp, _ll,
              _ll, _i, _i, _i, _i, _i, _vp, _vp, _vp]),
 }
+
+LIBRARY = {"bitpack": "decode"}
 
 # dtype codes of the C interfaces (enum DType in every source)
 DTYPE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
@@ -111,19 +114,19 @@ def build_all() -> Dict[str, Path]:
 
 
 def kernel_fn(name: str):
-    """The bound C entry point of library `name`, building on first use."""
+    """The bound C entry point `name`, building on first use."""
     fn = _FUNCS.get(name)
     if fn is not None:
         return fn
     with _LOCK:
         if name not in _FUNCS:
-            paths = build_all()
-            for lib_name, path in paths.items():
-                symbol, argtypes = SIGNATURES[lib_name]
-                f = getattr(ctypes.CDLL(str(path)), symbol)
+            libs = {lib: ctypes.CDLL(str(path))
+                    for lib, path in build_all().items()}
+            for entry, (symbol, argtypes) in SIGNATURES.items():
+                f = getattr(libs[LIBRARY.get(entry, entry)], symbol)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-                _FUNCS[lib_name] = f
+                _FUNCS[entry] = f
         return _FUNCS[name]
 
 

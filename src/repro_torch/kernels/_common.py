@@ -68,10 +68,15 @@ def graph_nodes(fn) -> dict:
     record late in a long run; the graph sees every launch.)"""
     import ctypes
     cu = ctypes.CDLL("libcuda.so.1")
-    fn()
+    # warmed up on the stream that captures (train_grad's fold ticket is
+    # allocated per stream at its first call there)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         fn()
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)

@@ -1,6 +1,7 @@
-// Dictionary, bit-pack and run-length decode of one encoded column block —
+// Dictionary, bit-pack and run-length decode of encoded column blocks —
 // the Hopper kernels behind kernels/dictdecode.py's dict_decode,
-// bitpack_decode and rle_decode.
+// bitpack_decode_into (and its one-column case bitpack_decode) and
+// rle_decode.
 //
 // Replaces: repro/kernels/dictdecode.py:dict_decode (_dict_decode_kernel),
 //           repro/kernels/dictdecode.py:bitpack_decode (_bitpack_kernel)
@@ -10,15 +11,17 @@
 // pass that reads the encoded stream once and writes the decoded column
 // once (a DICT block of 156,250 int32 codes into float64 is 1.9 MB, about
 // 0.6 us at 3.35 TB/s); none does more than a few integer operations per
-// output, so at feature-partition sizes the launch dominates.
+// output, so at feature-partition sizes the launch dominates — and the
+// count of launches, which is why bit-pack decodes a partition's blocks in
+// one.
 //
 // Design:
-//   * one C entry point for all three, of seven arguments (input stream,
-//     table, output, n, table length, a 64-bit plan word, stream): the
-//     wrapper's plan (kernels/dictdecode.py, decode_plan) packs the op, the
-//     table's dtype, the shared-memory staging flag, the bit width, the
-//     grid and the bias into the word, and this side validates what it
-//     can (an error code, never a fallback);
+//   * dict and RLE share one C entry point of seven arguments (input
+//     stream, table, output, n, table length, a 64-bit plan word, stream):
+//     the wrapper's plan (kernels/dictdecode.py, decode_plan) packs the op,
+//     the table's dtype, the shared-memory staging flag and the grid into
+//     the word, and this side validates what it can (an error code, never
+//     a fallback);
 //   * dict_decode: each thread decodes 4 rows a step of a grid-stride loop
 //     (the grid a function of n only, two steps a thread at phase 3's
 //     156,250 rows): one 16-byte load of 4 int32 codes
@@ -31,9 +34,24 @@
 //     path (__ldg).  Codes outside [0, d) follow jnp indexing, as the
 //     reference's oracle does: a negative code counts from the end, then
 //     the index clamps to [0, d - 1];
-//   * bitpack_decode: one thread per output lane reads its uint32 word
-//     (passed as int32 bits), shifts and masks: 32 / w lanes per word, low
-//     lane first, as int32 plus an int32 bias — the TPU kernel's semantics;
+//   * bit-pack: one launch decodes up to 32 blocks of n rows each, every
+//     block described by 32 bytes passed by value in the kernel's
+//     parameters (a __grid_constant__ struct: no host-to-device copy, no
+//     synchronisation): its words (uint32 as int32 bits, 32 / w lanes a
+//     word, low lane first), bit width w in 1..16, an int64 bias, the
+//     block's original integer dtype, and a destination pointer with an
+//     element stride — a column of the train step's row-major x, its y,
+//     or a dense vector.  Each value is (lane + bias) in int64, cast to
+//     the original dtype, then to the output type (float32, float64,
+//     int32 or int64): the conversions of decode_torch(enc).to(dt).  A
+//     block takes tiles of 128 rows of every column, a row's columns by
+//     consecutive threads, so the 8 neighbouring BITPACK columns of a
+//     phase-3 row fill one or two 32-byte sectors (a thread a packed word
+//     writing its lanes down one column touched a sector a value, and
+//     took 0.032 ms of device time at phase 3's partition, H100).  The
+//     columns' constants are staged in shared memory once a block: read
+//     from the parameters by a column that differs across a warp, the
+//     constant bank serves one address at a time (0.025 ms, H100);
 //   * rle_decode: one thread per position binary-searches the cumulative
 //     exclusive run ends for the number of ends <= position (side="right"),
 //     clamps it to r - 1 as the TPU kernel does, and gathers the run value.
@@ -47,7 +65,7 @@ namespace {
 constexpr int kThreads = 256;
 
 enum DType { kInt32 = 0, kInt64 = 1, kFloat32 = 2, kFloat64 = 3 };
-enum Op { kDict = 0, kBitpack = 1, kRle = 2 };
+enum Op { kDict = 0, kBitpack = 1, kRle = 2 };   // kBitpack: shark_bitpack
 
 __device__ __forceinline__ long long clamp_code(long long c, long long d) {
   if (c < 0) c += d;
@@ -121,18 +139,88 @@ dict_decode_kernel(const int32_t* __restrict__ codes,
   }
 }
 
+// one bit-packed block of a batched decode (kernels/dictdecode.py,
+// pack_bitpack_descriptors: four int64 words, little-endian)
+struct BitpackDesc {
+  const uint32_t* words;
+  void* dst;                  // element (row 0), of the launch's out type
+  long long bias;
+  int stride;                 // elements between rows of dst
+  unsigned char width;        // 1..16
+  unsigned char odt;          // enum OrigType
+  unsigned short pad;
+};
+static_assert(sizeof(BitpackDesc) == 32, "descriptor is 32 bytes");
+
+constexpr int kMaxBitpackCols = 32;
+struct BitpackBatch {
+  BitpackDesc col[kMaxBitpackCols];
+};
+
+// the original integer dtype of a block
+enum OrigType { kI8 = 0, kU8, kI16, kU16, kI32, kU32, kI64, kU64 };
+
+// v cast to the block's original dtype, then to the output type
+template <typename O>
+__device__ __forceinline__ O orig_cast(long long v, int odt) {
+  switch (odt) {
+    case kI8: return static_cast<O>(static_cast<int8_t>(v));
+    case kU8: return static_cast<O>(static_cast<uint8_t>(v));
+    case kI16: return static_cast<O>(static_cast<int16_t>(v));
+    case kU16: return static_cast<O>(static_cast<uint16_t>(v));
+    case kI32: return static_cast<O>(static_cast<int32_t>(v));
+    case kU32: return static_cast<O>(static_cast<uint32_t>(v));
+    case kU64: return static_cast<O>(static_cast<unsigned long long>(v));
+    default: return static_cast<O>(v);
+  }
+}
+
+constexpr int kTileRows = 128;
+
+// A column's constants, staged in shared memory once a block: the loop
+// indexes them by a column that differs across a warp, which shared
+// memory serves at once and the parameter (constant) bank one address at
+// a time.
+struct ColConst {
+  const uint32_t* words;
+  void* dst;
+  long long bias;
+  int stride, odt;
+  unsigned width, per_word;
+};
+
+__device__ __forceinline__ ColConst col_const(const BitpackDesc& dc) {
+  return {dc.words, dc.dst, dc.bias, dc.stride, dc.odt, dc.width,
+          32u / dc.width};
+}
+
+// A block takes tiles of kTileRows rows of every column; consecutive
+// threads take a row's columns in turn, so neighbouring columns of a
+// row-major x land in the same 32-byte sectors, and a word, read through
+// L1, serves the rows it packs.
+template <typename O>
 __global__ void __launch_bounds__(kThreads)
-bitpack_decode_kernel(const int32_t* __restrict__ words, int width, int bias,
-                      long long n, int32_t* __restrict__ out) {
-  const int per_word = 32 / width;
-  const uint32_t mask = (width == 32) ? 0xffffffffu : ((1u << width) - 1u);
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const uint32_t word = static_cast<uint32_t>(__ldg(words + i / per_word));
-    const int shift = static_cast<int>(i % per_word) * width;
-    out[i] = static_cast<int32_t>((word >> shift) & mask) + bias;
+bitpack_batch_kernel(const __grid_constant__ BitpackBatch batch, int count,
+                     int n) {
+  __shared__ ColConst s_col[kMaxBitpackCols];
+  if (threadIdx.x < count) s_col[threadIdx.x] = col_const(
+      batch.col[threadIdx.x]);
+  __syncthreads();
+  for (int r0 = blockIdx.x * kTileRows; r0 < n;
+       r0 += gridDim.x * kTileRows) {
+    const int rows = n - r0 < kTileRows ? n - r0 : kTileRows;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < count * rows; e += kThreads) {
+      const int r = e / count, c = e % count;
+      const ColConst& cc = s_col[c];
+      const unsigned row = static_cast<unsigned>(r0 + r);
+      const unsigned q = row / cc.per_word;
+      const uint32_t word = __ldg(cc.words + q);
+      const uint32_t lane = (word >> ((row - q * cc.per_word) * cc.width))
+                            & ((1u << cc.width) - 1u);
+      static_cast<O*>(cc.dst)[static_cast<long long>(row) * cc.stride] =
+          orig_cast<O>(static_cast<long long>(lane) + cc.bias, cc.odt);
+    }
   }
 }
 
@@ -160,13 +248,11 @@ rle_decode_kernel(const int32_t* __restrict__ ends, const T* __restrict__ vals,
 
 // the plan word's fields (kernels/dictdecode.py, DecodePlan.word)
 struct Plan {
-  int op, dtype, staged, width, blocks, bias;
+  int op, dtype, staged, blocks;
   explicit Plan(unsigned long long w)
       : op(static_cast<int>(w & 3)), dtype(static_cast<int>((w >> 2) & 3)),
         staged(static_cast<int>((w >> 4) & 1)),
-        width(static_cast<int>((w >> 5) & 63)),
-        blocks(static_cast<int>((w >> 11) & 4095)),
-        bias(static_cast<int32_t>(static_cast<uint32_t>(w >> 32))) {}
+        blocks(static_cast<int>((w >> 11) & 4095)) {}
 };
 
 constexpr long long kStageBytes = 48 * 1024;   // static shared memory
@@ -196,17 +282,15 @@ int launch_typed(const Plan& pl, const int32_t* idx, const T* table,
 
 }  // namespace
 
-// The entry point: one decode pass into `out` (n values), on `stream`.
+// Dict and RLE decode: one pass into `out` (n values), on `stream`.
 //   dict (op 0):    idx = int32 codes (n), table = dictionary (table_len)
 //                   of the word's dtype; out has the dictionary's dtype
 //                   and is 16-byte aligned.
-//   bitpack (op 1): idx = packed words as int32 bits (table_len words);
-//                   out int32 lanes of the word's bit width plus its bias.
 //   rle (op 2):     idx = cumulative exclusive run ends (table_len),
 //                   table = run values (table_len); out has their dtype.
 // `word`: bits 0-1 op, 2-3 dtype (int32, int64, float32, float64), 4 stage
-// the dictionary in shared memory, 5-10 bit width, 11-22 blocks, 32-63
-// bias.  Returns cudaGetLastError() after the launch (0 on success), or
+// the dictionary in shared memory, 11-22 blocks.  Returns
+// cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments it rejects.
 extern "C" int shark_decode(const int32_t* idx, const void* table,
                             void* out, long long n, long long table_len,
@@ -216,14 +300,6 @@ extern "C" int shark_decode(const int32_t* idx, const void* table,
       || (reinterpret_cast<uintptr_t>(idx) & 3) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  if (pl.op == kBitpack) {
-    if (pl.width < 1 || pl.width > 32
-        || n > table_len * static_cast<long long>(32 / pl.width))
-      return static_cast<int>(cudaErrorInvalidValue);
-    bitpack_decode_kernel<<<pl.blocks, kThreads, 0, stream>>>(
-        idx, pl.width, pl.bias, n, static_cast<int32_t*>(out));
-    return static_cast<int>(cudaGetLastError());
-  }
   if ((pl.op != kDict && pl.op != kRle) || table_len < 1 || table == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (pl.dtype) {
@@ -241,4 +317,53 @@ extern "C" int shark_decode(const int32_t* idx, const void* table,
       return launch_typed(pl, idx, static_cast<const double*>(table),
                           table_len, static_cast<double*>(out), n, stream);
   }
+}
+
+// Bit-pack decode of `count` blocks (1..32) of n < 2^31 rows each, one
+// launch: `descs` points to `count` host-side BitpackDesc (copied into the
+// kernel's parameters at the launch).  `word`: bits 2-3 the out type
+// (int32, int64, float32, float64), 11-22 the blocks (each walks 128-row
+// tiles).  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a descriptor it rejects (a width
+// outside 1..16, a null or misaligned pointer, a stride below 1, an
+// unknown dtype).
+extern "C" int shark_bitpack(const void* descs, int count, long long n,
+                             unsigned long long word, cudaStream_t stream) {
+  const Plan pl(word);
+  if (descs == nullptr || count < 1 || count > kMaxBitpackCols || n < 0
+      || n >= (1ll << 31) || pl.blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const size_t kOutSize[4] = {4, 8, 4, 8};
+  const size_t osize = kOutSize[pl.dtype];
+  BitpackBatch batch = {};
+  const BitpackDesc* src = static_cast<const BitpackDesc*>(descs);
+  for (int c = 0; c < count; ++c) {
+    const BitpackDesc& dsc = src[c];
+    if (dsc.width < 1 || dsc.width > 16 || dsc.odt > kU64 || dsc.stride < 1
+        || dsc.words == nullptr || dsc.dst == nullptr
+        || (reinterpret_cast<uintptr_t>(dsc.words) & 3) != 0
+        || (reinterpret_cast<uintptr_t>(dsc.dst) & (osize - 1)) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    batch.col[c] = dsc;
+  }
+  if (n == 0) return 0;
+  const int rows = static_cast<int>(n);
+  switch (pl.dtype) {
+    case kInt32:
+      bitpack_batch_kernel<int32_t><<<pl.blocks, kThreads, 0, stream>>>(
+          batch, count, rows);
+      break;
+    case kInt64:
+      bitpack_batch_kernel<long long><<<pl.blocks, kThreads, 0, stream>>>(
+          batch, count, rows);
+      break;
+    case kFloat32:
+      bitpack_batch_kernel<float><<<pl.blocks, kThreads, 0, stream>>>(
+          batch, count, rows);
+      break;
+    default:
+      bitpack_batch_kernel<double><<<pl.blocks, kThreads, 0, stream>>>(
+          batch, count, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

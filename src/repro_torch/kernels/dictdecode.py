@@ -7,7 +7,14 @@ decode fused into the filter + aggregate scan.
   * `bitpack_decode(words, bit_width, bias, n)` -> the first n int32 lanes
     of `32 // bit_width` lanes per uint32 word (low lane first), plus the
     int32 `bias`.  Words arrive as int32 bits (or int64 values): torch has
-    no CPU `>>` for uint32;
+    no CPU `>>` for uint32.  It is the one-column case of
+    `bitpack_decode_into(blocks, dests, n)`, which decodes any number of
+    bit-packed blocks of n rows (`BitpackBlock`: words,
+    width, an int64 bias, the block's original integer dtype) into
+    strided destinations of one dtype — the columns of a train step's
+    feature matrix — each value `(lane + bias)` in int64, cast to the
+    block's dtype, then to the destination's, as `decode_torch(enc).to(dt)`
+    gives it;
   * `rle_decode(run_values, run_ends, n)` -> position i takes
     `run_values[min(#{ends <= i}, r - 1)]`, run_ends cumulative exclusive;
   * `fused_decode_scan(codes, dictionary, agg_col, lo, hi)` is `colscan`
@@ -17,26 +24,31 @@ decode fused into the filter + aggregate scan.
 
 On CUDA tensors the wrappers launch `csrc/decode.cu` (the first three;
 they replace repro/kernels/dictdecode.py:dict_decode, bitpack_decode and
-rle_decode, each one pass bound by its bytes, see the note in the source)
+rle_decode, each one pass bound by its bytes, see the note in the source;
+a `bitpack_decode_into` call is one launch per MAX_BITPACK_COLUMNS
+blocks, their descriptors passed by value in the kernel's parameters)
 and `csrc/scan.cu` with its DictGather policy (fused_decode_scan, which
 replaces repro/kernels/dictdecode.py:fused_decode_scan: the int32 codes
 stream from HBM, the dictionary stays in L1, and the decoded filter column
 never exists).  On CPU tensors they run the `*_plain` versions.
 
-The three decodes run on the training path once per encoded block and
-step, thousands of times a fit, where the host's cost per call is most of
-the call: a call checks only what the C side cannot (dtypes, ranks,
-contiguity, one device), makes one allocation and one ctypes call of
-seven arguments (input, table, output, n, table length, the plan word
-`decode_plan` computed once per size, the stream), as groupby_sum's.
+The decodes run on the training path once per encoded block and step
+(bit-pack once per partition and step), thousands of times a fit, where
+the host's cost per call is most of the call: a call checks only what the
+C side cannot (dtypes, ranks, contiguity, one device, sizes), makes at
+most one allocation and one ctypes call of plain arguments (dict and RLE:
+input, table, output, n, table length, the plan word `decode_plan`
+computed once per size, the stream, as groupby_sum's; bit-pack: the
+packed descriptors, their count, n, its plan word, the stream).
 decode.cu validates what it can and returns an error code, which raises.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from . import _build
@@ -49,11 +61,19 @@ KERNEL_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
 # decode.cu's dtype codes of a table (dictionary, run values) and its output
 _TABLE_CODES = {t: i for i, t in enumerate(KERNEL_DTYPES)}
 MAX_BIT_WIDTH = 16          # compression.BITPACK_MAX_BITS
+MAX_BITPACK_COLUMNS = 32    # descriptors in one launch's parameters
+BITPACK_TILE_ROWS = 128     # rows of every column a block decodes at once
+BITPACK_MAX_BLOCKS = 2112   # 16 blocks on each of the H100's 132 SMs
+MAX_BITPACK_ROWS = 2 ** 31 - 1   # the kernel's row indices are 32-bit
+# a bit-packed block's original integer dtype (decode.cu's enum OrigType)
+BITPACK_ORIG_CODES = {t: i for i, t in enumerate(
+    (torch.int8, torch.uint8, torch.int16, torch.uint16, torch.int32,
+     torch.uint32, torch.int64, torch.uint64))}
 SMEM_BYTES = 48 * 1024      # static shared memory a block may stage
 # rows a dict_decode thread decodes over its grid-stride loop: two 4-code
 # steps, of one, two and four the least device time at phase 3's 156,250
-# codes on an H100 (scripts/kernel_probe.py decode); bitpack_decode and
-# rle_decode, one row a thread a step, keep grid_blocks(n)'s 4
+# codes on an H100 (scripts/kernel_probe.py decode); rle_decode, one row a
+# thread a step, keeps grid_blocks(n)'s 4 (bit-pack: BITPACK_TILE_ROWS)
 ROWS_PER_THREAD = 8
 
 _OP_DICT, _OP_BITPACK, _OP_RLE = 0, 1, 2
@@ -63,14 +83,11 @@ class DecodePlan(NamedTuple):
     blocks: int        # grid of the launch: a function of n only
     staged: bool       # dict_decode stages the dictionary in shared memory
 
-    def word(self, op: int, dtype_code: int = 0, bit_width: int = 0,
-             bias: int = 0) -> int:
-        """decode.cu's 64-bit plan word: op bits 0-1, table dtype 2-3,
-        staging bit 4, bit width 5-10, blocks 11-22, the int32 bias as
-        bits 32-63."""
-        return (op | dtype_code << 2 | int(self.staged) << 4
-                | bit_width << 5 | self.blocks << 11
-                | (int(bias) & 0xFFFFFFFF) << 32)
+    def word(self, op: int, dtype_code: int = 0) -> int:
+        """decode.cu's 64-bit plan word: op bits 0-1, the table's dtype
+        (bit-pack: the output's) 2-3, staging bit 4, blocks 11-22."""
+        return op | dtype_code << 2 | int(self.staged) << 4 \
+            | self.blocks << 11
 
 
 @functools.lru_cache(maxsize=4096)
@@ -87,12 +104,25 @@ def decode_plan(n: int, d: int, itemsize: int) -> DecodePlan:
 
 
 @functools.lru_cache(maxsize=4096)
-def _word(op: int, n: int, d: int, dtype: torch.dtype, bit_width: int = 0,
-          bias: int = 0) -> int:
-    """The plan word of one call, computed once per size and dtype."""
-    plan = (decode_plan(n, d, dtype.itemsize) if op == _OP_DICT
-            else DecodePlan(grid_blocks(n), False))
-    return plan.word(op, _TABLE_CODES[dtype], bit_width, bias)
+def bitpack_plan(n: int) -> DecodePlan:
+    """The grid of a bit-pack launch: a block a tile of BITPACK_TILE_ROWS
+    rows (of every column), at most BITPACK_MAX_BLOCKS blocks, which then
+    walk further tiles."""
+    return DecodePlan(max(1, min(BITPACK_MAX_BLOCKS,
+                                 -(-int(n) // BITPACK_TILE_ROWS))), False)
+
+
+@functools.lru_cache(maxsize=4096)
+def _word(op: int, n: int, d: int, dtype: torch.dtype) -> int:
+    """The plan word of one call, computed once per size and dtype (d: the
+    table's length)."""
+    if op == _OP_DICT:
+        plan = decode_plan(n, d, dtype.itemsize)
+    elif op == _OP_BITPACK:
+        plan = bitpack_plan(n)
+    else:
+        plan = DecodePlan(grid_blocks(n), False)
+    return plan.word(op, _TABLE_CODES[dtype])
 
 
 # ---------------------------------------------------------------- plain
@@ -116,6 +146,25 @@ def bitpack_decode_plain(words: torch.Tensor, bit_width: int, bias: int,
                           dtype=torch.int64) * bit_width
     lanes = (w[:, None] >> shifts[None, :]) & ((1 << bit_width) - 1)
     return (lanes.reshape(-1)[:n] + int(bias)).to(torch.int32)
+
+
+class BitpackBlock(NamedTuple):
+    """One bit-packed block to decode: its words (int32 bits; int64 values
+    on the CPU), bit width, int64 bias and original integer dtype."""
+    words: torch.Tensor
+    bit_width: int
+    bias: int
+    dtype: torch.dtype
+
+
+def bitpack_decode_into_plain(blocks: Sequence[BitpackBlock],
+                              dests: Sequence[torch.Tensor], n: int) -> None:
+    """Plain PyTorch version of the batched kernel (any device): per block,
+    the int32 lanes, the int64 bias, the cast to its dtype, and one
+    cast-and-place copy into its destination."""
+    for b, dst in zip(blocks, dests):
+        lanes = bitpack_decode_plain(b.words, b.bit_width, 0, n)
+        dst.copy_((lanes.to(torch.int64) + int(b.bias)).to(b.dtype))
 
 
 def rle_decode_plain(run_values: torch.Tensor, run_ends: torch.Tensor,
@@ -200,23 +249,101 @@ def bitpack_decode(words: torch.Tensor, bit_width: int, bias: int,
                    n: int) -> torch.Tensor:
     if on_cpu(words):
         return bitpack_decode_plain(words, bit_width, bias, n)
-    _check_int32(words, "words")
-    if not 1 <= int(bit_width) <= MAX_BIT_WIDTH:
-        raise ValueError(f"bitpack_decode takes bit widths 1..{MAX_BIT_WIDTH}"
-                         f", got {bit_width}")
-    per_word = 32 // int(bit_width)
-    if int(n) < 0 or int(n) > words.shape[0] * per_word:
-        raise ValueError(f"{n} lanes do not fit in {words.shape[0]} words "
-                         f"of {per_word} lanes")
     if not -2 ** 31 <= int(bias) < 2 ** 31:
         raise ValueError(f"bias {bias} is not an int32")
     out = torch.empty(int(n), dtype=torch.int32, device=words.device)
-    if n:
-        _launch_decode("bitpack_decode", words, None, out, int(n),
-                       words.shape[0],
-                       _word(_OP_BITPACK, int(n), 0, torch.int32,
-                             int(bit_width), int(bias)))
+    bitpack_decode_into([BitpackBlock(words, int(bit_width), int(bias),
+                                      torch.int32)], [out], int(n))
     return out
+
+
+def pack_bitpack_descriptors(blocks: Sequence[BitpackBlock],
+                             dests: Sequence[torch.Tensor]) -> np.ndarray:
+    """decode.cu's BitpackDesc of each block of one launch (at most
+    MAX_BITPACK_COLUMNS), as a row of four int64: the words' address, the
+    destination's address, the bias, and the destination's element stride
+    (bits 0-31), the bit width (32-39) and the original dtype's code
+    (40-47)."""
+    if not 1 <= len(blocks) <= MAX_BITPACK_COLUMNS:
+        raise ValueError(f"one bit-pack launch takes 1..{MAX_BITPACK_COLUMNS}"
+                         f" descriptors, got {len(blocks)}")
+    flat = []
+    for b, dst in zip(blocks, dests):
+        flat += (b.words.data_ptr(), dst.data_ptr(), b.bias,
+                 dst.stride(0) | b.bit_width << 32
+                 | BITPACK_ORIG_CODES[b.dtype] << 40)
+    return np.array(flat, dtype=np.int64).reshape(-1, 4)
+
+
+def _check_bitpack(blocks: Sequence[BitpackBlock],
+                   dests: Sequence[torch.Tensor], n: int) -> torch.dtype:
+    """What decode.cu cannot see: counts, dtypes, ranks, sizes, one
+    device; returns the destinations' dtype.  Each block's checks are a
+    few attribute reads: this runs once a partition and step."""
+    if len(blocks) != len(dests) or not blocks:
+        raise ValueError(f"bitpack_decode_into takes one or more blocks with "
+                         f"one destination each, got {len(blocks)} and "
+                         f"{len(dests)}")
+    out_dtype = dests[0].dtype
+    if out_dtype not in _TABLE_CODES:
+        raise TypeError(f"bit-pack destinations must be int32, int64, "
+                        f"float32 or float64, got {out_dtype}")
+    device = dests[0].get_device()
+    for b, dst in zip(blocks, dests):
+        words, width = b.words, b.bit_width
+        if words.dtype != torch.int32:
+            raise TypeError(f"words must be int32, got {words.dtype}")
+        if words.dim() != 1 or not words.is_contiguous():
+            raise ValueError("words must be 1-D and contiguous")
+        if not 1 <= width <= MAX_BIT_WIDTH:
+            raise ValueError(f"bitpack_decode takes bit widths "
+                             f"1..{MAX_BIT_WIDTH}, got {width}")
+        if not 0 <= n <= min(MAX_BITPACK_ROWS,
+                             words.shape[0] * (32 // width)):
+            raise ValueError(f"{n} lanes do not fit in {words.shape[0]} "
+                             f"words of {32 // width} lanes")
+        if b.dtype not in BITPACK_ORIG_CODES:
+            raise TypeError(f"bit-packed blocks decode to an integer dtype, "
+                            f"got {b.dtype}")
+        if not -2 ** 63 <= b.bias < 2 ** 63:
+            raise ValueError(f"bias {b.bias} is not an int64")
+        if dst.dtype != out_dtype or dst.dim() != 1 or dst.shape[0] != n \
+                or not 1 <= dst.stride(0) < 2 ** 31:
+            raise ValueError(f"each destination must be a ({n},) {out_dtype}"
+                             f" vector of positive stride, got "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+        if words.get_device() != device or dst.get_device() != device:
+            raise ValueError(f"bitpack_decode_into operands on two devices: "
+                             f"{words.device}, {dst.device}")
+    return out_dtype
+
+
+def bitpack_decode_into(blocks: Sequence[BitpackBlock],
+                        dests: Sequence[torch.Tensor], n: int) -> None:
+    """Decode each block's n rows into its destination (a strided (n,)
+    view, all of one dtype): on the card one launch per MAX_BITPACK_COLUMNS
+    blocks, each counted."""
+    n = int(n)
+    # the card's test first: cheaper than on_cpu on this per-step path
+    # (_check_bitpack checks one device; on_cpu raises on a CPU mix)
+    if not (all(d.is_cuda for d in dests)
+            and all(b.words.is_cuda for b in blocks)) \
+            and on_cpu(*(b.words for b in blocks), *dests):
+        bitpack_decode_into_plain(blocks, dests, n)
+        return
+    out_dtype = _check_bitpack(blocks, dests, n)
+    if n == 0:
+        return
+    word = _word(_OP_BITPACK, n, 0, out_dtype)
+    stream = _build.stream_handle(dests[0].device)
+    for i in range(0, len(blocks), MAX_BITPACK_COLUMNS):
+        part = slice(i, i + MAX_BITPACK_COLUMNS)
+        descs = pack_bitpack_descriptors(blocks[part], dests[part])
+        rc = _build.kernel_fn("bitpack")(descs.ctypes.data, len(descs), n,
+                                         word, stream)
+        if rc:
+            _build.check_launch("bitpack_decode", rc)
+        count_launch(LAUNCHES, "bitpack_decode")
 
 
 def rle_decode(run_values: torch.Tensor, run_ends: torch.Tensor,

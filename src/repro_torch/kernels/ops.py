@@ -75,6 +75,13 @@ def bitpack_decode(words, bit_width: int, bias: int, n: int) -> torch.Tensor:
     return _dd.bitpack_decode(words, bit_width, bias, n)
 
 
+def bitpack_decode_into(blocks, dests, n: int) -> None:
+    """Each `dictdecode.BitpackBlock`'s n rows, plus its int64 bias and cast
+    to its dtype, into its (n,) destination: one launch per
+    MAX_BITPACK_COLUMNS blocks."""
+    _dd.bitpack_decode_into(blocks, dests, n)
+
+
 def rle_decode(run_values, run_ends, n: int) -> torch.Tensor:
     """Runs expanded to n positions; run_ends cumulative exclusive."""
     return _dd.rle_decode(run_values, run_ends, n)
@@ -118,9 +125,10 @@ def flash_attention_fwd(q, k, v, causal: bool = True) -> torch.Tensor:
 
 
 def ssd_scan(x, dt, a, b, c, chunk: int = 128, d=None):
-    """(y, final_state) of the Mamba2 SSD scan with one B/C group: y in
-    x's dtype (plus the D skip when `d` is given), final_state (B, H, P, N)
-    float32 (every Mamba2 prefill)."""
+    """(y, final_state) of the Mamba2 SSD scan, b and c (B, S, N) or
+    (B, S, G, N) for G B/C groups: y in x's dtype (plus the D skip when
+    `d` is given), final_state (B, H, P, N) float32 (every Mamba2
+    prefill)."""
     return _ssd.ssd_scan(x, dt, a, b, c, chunk, d)
 
 

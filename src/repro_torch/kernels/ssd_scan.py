@@ -3,8 +3,10 @@
 
 `ssd_scan(x, dt, a, b, c, chunk, d=None)` returns `(y, final_state)` for
 x (B, S, H, P), dt (B, S, H) float32 after softplus, a (H,) float32
-(negative), and b, c (B, S, N) in x's dtype (ngroups = 1: one B and C for
-all heads).  Per (batch, head), with `cum` the running sum of `dt * a`:
+(negative), and b, c in x's dtype: (B, S, N), one B and C for all heads,
+or (B, S, G, N), G groups of H / G consecutive heads each (Mamba2's
+`ngroups`).  Per (batch, head), with `cum` the running sum of `dt * a` and
+B, C those of the head's group:
 
     y_i    = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
     state  = sum_j exp(cum_S - cum_j) dt_j B_j x_j^T        (P x N)
@@ -13,7 +15,10 @@ y is SSD(x) plus the D skip `x * d` when `d` (H,) is given, summed in
 float32 and cast once to x's dtype, as `models/mamba2.ssd_chunked` does;
 final_state is float32 in the reference's (B, H, P, N) layout.  x, dt, b
 and c are read in place: a (B, S, ...) view whose inner dims are dense
-(the in-projection's slices) needs no copy.
+(the in-projection's slices) needs no copy.  With G > 1 groups the card
+runs one launch per group on the group's heads (x, b and c are read in
+place; dt's columns are copied once into group order) and joins y and the
+states.
 
 The result does not depend on the chunk length except through rounding.
 `chunk` sets the plain version's chunk (as `ssd_chunked`'s); the kernels
@@ -73,11 +78,13 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor, chunk: int = 128,
                    d: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version (any device): `ssd_chunked` with one group."""
+    """Plain PyTorch version (any device): `ssd_chunked`."""
     from ..models.mamba2 import ssd_chunked
     if d is None:
         d = torch.zeros(x.shape[2], dtype=torch.float32, device=x.device)
-    return ssd_chunked(x, dt, a, b[:, :, None], c[:, :, None], d, chunk)
+    if b.dim() == 3:
+        b, c = b[:, :, None], c[:, :, None]
+    return ssd_chunked(x, dt, a, b, c, d, chunk)
 
 
 def _check(x, dt, a, b, c, d) -> None:
@@ -133,9 +140,33 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    grouped = b.dim() == 4
+    if grouped and (c.shape != b.shape or x.dim() != 4 or b.shape[2] < 1
+                    or x.shape[2] % b.shape[2]):
+        raise ValueError(f"ssd_scan takes b, c (B, S, G, N) with G dividing "
+                         f"x's H; got x {tuple(x.shape)}, b "
+                         f"{tuple(b.shape)}, c {tuple(c.shape)}")
     operands = (x, dt, a, b, c) + ((d,) if d is not None else ())
     if on_cpu(*operands):
         return ssd_scan_plain(x, dt, a, b, c, chunk, d)
+    if not grouped:
+        return _launch(x, dt, a, b, c, d)
+    g, h = int(b.shape[2]), int(x.shape[2])
+    if g == 1:
+        return _launch(x, dt, a, b[:, :, 0], c[:, :, 0], d)
+    hg = h // g
+    # dt (B, S, H) -> (G, B, S, H / G): each group's columns contiguous
+    dtg = dt.unflatten(2, (g, hg)).movedim(2, 0).contiguous()
+    outs = [_launch(x[:, :, k * hg:(k + 1) * hg], dtg[k],
+                    a[k * hg:(k + 1) * hg], b[:, :, k], c[:, :, k],
+                    d[k * hg:(k + 1) * hg] if d is not None else None)
+            for k in range(g)]
+    return (torch.cat([y for y, _ in outs], 2),
+            torch.cat([st for _, st in outs], 1))
+
+
+def _launch(x, dt, a, b, c, d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch: b and c (B, S, N), one group."""
     _check(x, dt, a, b, c, d)
     bsz, s, h, p = (int(v) for v in x.shape)
     n = int(b.shape[2])

@@ -5,8 +5,9 @@ directly — into a `FeatureRDD`: a narrow map on the same lineage graph
 whose partitions are NOT dense matrices but pass-through references to the
 source's encoded column blocks.  Training consumes them by decoding each
 block on the session's device, from streams copied there once and
-memoized on the block (`compression.decode_torch`: the `dict_decode`,
-`bitpack_decode` and `rle_decode` kernels on the GPU), stacking the
+memoized on the block (`compression.decode_torch`: the `dict_decode` and
+`rle_decode` kernels on the GPU, and one `bitpack_decode` launch for all
+of a partition's BITPACK blocks), writing each into its column of the
 feature matrix there and running the train step — so the host never
 materializes a feature column on the encoded path.  That claim is
 assertable: `expr.DECODE_COUNTERS["numeric_blocks"]` stays untouched
@@ -35,10 +36,11 @@ import numpy as np
 import torch
 
 from ..core.batch import PartitionBatch
-from ..core.compression import Encoding, decode_torch
+from ..core.compression import Encoding, bitpack_block, decode_torch
 from ..core.expr import ColumnVal, to_tensor, torch_dtype
 from ..core.frame import SharkFrame
 from ..core.rdd import OneToOneDependency, RDD, TaskContext
+from ..kernels import ops
 from ..kernels.train_grad import stable_sigmoid
 
 
@@ -166,6 +168,37 @@ def _decode_on_device(sig: tuple, args, device) -> torch.Tensor:
     return decode_torch(args[0], device)
 
 
+def _rows(sig: tuple, args) -> int:
+    return int(args[0].shape[0]) if sig[0] == "dense" else int(args[0].n)
+
+
+def _assemble(sigs: tuple, col_args, label_sig, label_args, dt, dev):
+    """(x (n, d), y (n,) or None) in `dt` on `dev`, in one allocation.  One
+    `bitpack_decode_into` call writes every BITPACK block, features and
+    label, straight into its column; every
+    other column is decoded as `decode_torch` does and placed with one
+    cast-and-copy.  The values are those of `decode_torch(enc).to(dt)`
+    stacked."""
+    n, d = _rows(sigs[0], col_args[0]), len(sigs)
+    buf = torch.empty(n * (d + (label_sig is not None)), dtype=dt,
+                      device=dev)
+    x = buf[:n * d].view(n, d)
+    y = buf[n * d:] if label_sig is not None else None
+    targets = [(s, a, x[:, j]) for j, (s, a) in enumerate(zip(sigs,
+                                                               col_args))]
+    if y is not None:
+        targets.append((label_sig, label_args, y))
+    packed = [(bitpack_block(a[0], dev), dst) for s, a, dst in targets
+              if s[0] == "bitpack"]
+    if packed:
+        blocks, dests = zip(*packed)
+        ops.bitpack_decode_into(blocks, dests, n)
+    for s, a, dst in targets:
+        if s[0] != "bitpack":
+            dst.copy_(_decode_on_device(s, a, dev))
+    return x, y
+
+
 def partition_recipes(batch: PartitionBatch,
                       feature_cols: Optional[Sequence[str]],
                       label_col: Optional[str], device):
@@ -200,9 +233,9 @@ _FUSED_CACHE: dict = {}
 
 def fused_train_step(kind: str, sigs: tuple, label_sig, dtype) -> Callable:
     """One step function per (estimator kind, partition signature): decode
-    every encoded column on the device of `params`, stack the feature
-    matrix, and run the train step there — the host never sees a decoded
-    column.
+    every encoded column on the device of `params` into the feature
+    matrix (`_assemble`: one call for all BITPACK blocks), and run the
+    train step there — the host never sees a decoded column.
 
     kinds: "logistic" / "linear" -> summed gradient (d,);
            "kmeans"              -> (per-centroid sums, counts, objective);
@@ -218,15 +251,13 @@ def fused_train_step(kind: str, sigs: tuple, label_sig, dtype) -> Callable:
 
     def step(params, col_args, label_args):
         dev = params.device
-        if dense_mat:
-            x = _decode_on_device(sigs[0], col_args[0], dev).to(dt)
-        elif sigs:
-            x = torch.stack([_decode_on_device(s, a, dev).to(dt)
-                             for s, a in zip(sigs, col_args)], dim=1)
+        if sigs and not dense_mat:
+            x, y = _assemble(sigs, col_args, label_sig, label_args, dt, dev)
         else:
-            x = torch.zeros((0, 0), dtype=dt, device=dev)
-        y = (_decode_on_device(label_sig, label_args, dev).to(dt)
-             if label_sig is not None else None)
+            x = (_decode_on_device(sigs[0], col_args[0], dev).to(dt)
+                 if dense_mat else torch.zeros((0, 0), dtype=dt, device=dev))
+            y = (_decode_on_device(label_sig, label_args, dev).to(dt)
+                 if label_sig is not None else None)
         if kind == "assemble":
             return x, y
         if kind in ("logistic", "linear"):

@@ -1,7 +1,8 @@
 """Mamba2 (SSD — state-space duality, arXiv:2405.21060) in PyTorch.
 
 Prefill runs the SSD scan through `kernels.ops.ssd_scan`: the hand-written
-kernel (`kernels/csrc/ssd.cu`) on the card, `ssd_chunked` on the CPU.
+kernel (`kernels/csrc/ssd.cu`, one launch per B/C group) on the card,
+`ssd_chunked` on the CPU.
 `ssd_chunked` is the chunked algorithm of the reference: within a chunk a
 masked (attention-like) matmul, across chunks a recurrence on the
 (H, P, N) state.  Decode is the linear recurrence
@@ -173,9 +174,6 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     di = cfg.d_inner(d_model)
     nh = cfg.n_heads(d_model)
     g, n = cfg.ngroups, cfg.d_state
-    if g != 1:
-        raise NotImplementedError("the SSD kernel takes ngroups = 1 (both "
-                                  "assigned SSM configs); see ROADMAP A.5")
     zxbcdt = x @ p.in_proj
     z, _, _, _, dt = _split_proj(zxbcdt, di, g, n, nh)
     xbc_raw = zxbcdt[..., di:2 * di + 2 * g * n]        # [x, B, C]
@@ -185,7 +183,8 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
     A = -torch.exp(p.A_log)
     y, state = ops.ssd_scan(xs.reshape(b, s, nh, cfg.headdim), dt, A,
-                            B, C, min(cfg.chunk, s), d=p.D)
+                            B.unflatten(-1, (g, n)), C.unflatten(-1, (g, n)),
+                            min(cfg.chunk, s), d=p.D)
     y = y.reshape(b, s, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p.norm_w)
     out = y @ p.out_proj

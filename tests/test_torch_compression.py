@@ -129,3 +129,20 @@ def test_decode_torch_widens_narrow_dictionaries():
     got = tc.decode_torch(tc.encode(v, tc.Encoding.DICT))
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), v)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8, np.int16, np.uint16,
+                                   np.int32, np.uint32, np.int64, np.uint64])
+def test_decode_torch_bitpack_keeps_every_integer_dtype(dtype):
+    """A BITPACK block of any integer dtype decodes to that dtype, equal to
+    the reference's host decode (a narrower or unsigned block through
+    exact int64 values and a cast)."""
+    info = np.iinfo(dtype)
+    lo = max(info.min, -1000) if info.min < 0 else 7
+    v = (lo + np.random.default_rng(3).integers(0, 300, 777)).astype(dtype)
+    a = jc.encode(v, jc.Encoding.BITPACK)
+    b = tc.encode(v, tc.Encoding.BITPACK)
+    assert_same_encoding(a, b)
+    got = tc.decode_torch(b)
+    assert got.dtype == torch.from_numpy(v).dtype
+    np.testing.assert_array_equal(got.numpy(), jc.decode_np(a))

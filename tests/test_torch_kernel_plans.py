@@ -6,11 +6,13 @@ route (`_check_tma`); the SSD wrapper picks one of two by dtype and (P, N)
 (`ssd_route`) and checks cp.async's alignment rules before its tensor-core
 route (`_check_tc`); the group wrapper sizes its one launch of
 csrc/group.cu with `group_plan`, the decode wrappers theirs with
-`decode_plan`.  The kernels themselves run only on the card
-(tests/test_torch_kernels.py, `cuda` marker); what is tested here is pure
-Python that the CPU reaches.
+`decode_plan` and `bitpack_plan` (and the batched bit-pack decode packs
+its block descriptors), the gradient its with `train_plan`.  The kernels
+themselves run only on the card (tests/test_torch_kernels.py, `cuda`
+marker); what is tested here is pure Python that the CPU reaches.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,6 +21,7 @@ from repro_torch.kernels import dictdecode as tdd
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import groupby_mxu as tgb
 from repro_torch.kernels import ssd_scan as tss
+from repro_torch.kernels import train_grad as ttg
 
 BLOCK_SMEM_LIMIT = 232448      # 227 KB, the most an H100 block may have
 
@@ -209,14 +212,17 @@ def test_groupby_sum_mixed_devices_raise():
 
 def test_decode_signature_takes_the_word_as_an_unsigned_64_bit_value():
     """decode.cu's shark_decode(idx, table, out, n, table_len, word,
-    stream): pointers as c_void_p, sizes as c_longlong, and the plan word
-    as c_ulonglong, since a negative bias sets its top bit."""
+    stream) and shark_bitpack(descs, count, n, word, stream): pointers as
+    c_void_p, sizes as c_longlong, and the plan word as c_ulonglong."""
     ct = _build.ctypes
     assert _build.SIGNATURES["decode"][1] == [
         ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_longlong, ct.c_longlong,
         ct.c_ulonglong, ct.c_void_p]
-    word = tdd.decode_plan(156_250, 0, 4).word(1, 0, 4, -7)
-    assert word >= 2 ** 63
+    assert _build.SIGNATURES["bitpack"][1] == [
+        ct.c_void_p, ct.c_int, ct.c_longlong, ct.c_ulonglong, ct.c_void_p]
+    assert _build.LIBRARY["bitpack"] == "decode"
+    word = tdd.decode_plan(10 ** 9, 0, 8).word(2, 3)
+    assert word >= 2 ** 11
     assert ct.c_ulonglong(word).value == word
 
 
@@ -362,6 +368,40 @@ def test_ssd_routes_are_counted_only_on_the_card():
     assert set(tss.ROUTES) == {"tensor_core", "simt"}
 
 
+def test_ssd_groups_are_the_one_group_scans_of_their_heads():
+    """b, c (B, S, G, N): head h reads group h // (H / G), so the scan is
+    the one-group scan of each group's heads on its B and C, joined along
+    the heads (what the card runs, one launch a group, on these views)."""
+    g, h, p, n = 2, 4, 16, 16
+    rng = np.random.default_rng(7)
+    xbc = torch.from_numpy(rng.normal(size=(2, 9, h * p + 2 * g * n))).float()
+    x = xbc[..., :h * p].reshape(2, 9, h, p)
+    bm = xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.normal(size=(2, 9, h))).float())
+    a = -torch.exp(torch.from_numpy(rng.normal(size=h)).float())
+    d = torch.from_numpy(rng.normal(size=h)).float()
+    y, st = tss.ssd_scan(x, dt, a, bm, cm, 4, d=d)
+    hg = h // g
+    for k in range(g):
+        hs = slice(k * hg, (k + 1) * hg)
+        yk, sk = tss.ssd_scan(x[:, :, hs], dt[:, :, hs].contiguous(), a[hs],
+                              bm[:, :, k], cm[:, :, k], 4, d=d[hs])
+        torch.testing.assert_close(y[:, :, hs], yk, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(st[:, hs], sk, rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_groups_must_divide_the_heads():
+    x = torch.zeros(1, 5, 3, 16)
+    bm = torch.zeros(1, 5, 2, 16)
+    with pytest.raises(ValueError, match="G dividing"):
+        tss.ssd_scan(x, torch.ones(1, 5, 3), -torch.ones(3), bm, bm, 4)
+    with pytest.raises(ValueError, match="G dividing"):
+        tss.ssd_scan(x[:, :, :2], torch.ones(1, 5, 2), -torch.ones(2), bm,
+                     bm[:, :, :1], 4)
+
+
 # -- the decode plan ------------------------------------------------------
 
 
@@ -402,32 +442,35 @@ def test_decode_plan_staging_rule(n, d, size, staged):
 @pytest.mark.parametrize("op", [0, 1, 2])
 @pytest.mark.parametrize("n,d", [(1, 1), (156_250, 11), (156_250, 4000),
                                  (10 ** 9, 3)])
-@pytest.mark.parametrize("width,bias", [(0, 0), (4, -7), (16, 2 ** 31 - 1),
-                                        (1, -2 ** 31)])
-def test_decode_plan_word_round_trips(op, n, d, width, bias):
-    """decode.cu's Plan reads op (bits 0-1), dtype (2-3), staging (4),
-    bit width (5-10), blocks (11-22) and the int32 bias (32-63) back."""
+@pytest.mark.parametrize("code", range(4))
+def test_decode_plan_word_round_trips(op, n, d, code):
+    """decode.cu's Plan reads op (bits 0-1), dtype (2-3), staging (4) and
+    blocks (11-22) back; no other bit is set (bit-pack's widths and biases
+    travel in its descriptors)."""
     plan = tdd.decode_plan(n, d, 8)
-    for code in range(4):
-        w = plan.word(op, code, width, bias)
-        assert 0 <= w < 2 ** 64
-        assert w & 3 == op and (w >> 2) & 3 == code
-        assert (w >> 4) & 1 == int(plan.staged)
-        assert (w >> 5) & 63 == width and (w >> 11) & 4095 == plan.blocks
-        assert (w >> 23) & (2 ** 9 - 1) == 0
-        hi = w >> 32
-        assert (hi - 2 ** 32 if hi >= 2 ** 31 else hi) == bias
+    w = plan.word(op, code)
+    assert 0 <= w < 2 ** 23
+    assert w & 3 == op and (w >> 2) & 3 == code
+    assert (w >> 4) & 1 == int(plan.staged)
+    assert (w >> 5) & 63 == 0 and (w >> 11) & 4095 == plan.blocks
 
 
 def test_decode_word_bitpack_and_rle_keep_four_rows_a_thread():
-    """Only dict_decode's kernel steps 4 codes at a time; bit-pack and RLE
-    decode one row a thread a step over grid_blocks(n)."""
+    """Only dict_decode's kernel steps 4 codes at a time; RLE decodes one
+    row a thread a step over grid_blocks(n), and bit-pack a 128-row tile
+    of every column a block (phase 3's partition: 1,221 blocks), at most
+    BITPACK_MAX_BLOCKS, whatever the widths."""
     n = 156_250
-    for op, dtype in ((tdd._OP_BITPACK, torch.int32),
-                      (tdd._OP_RLE, torch.float64)):
-        w = tdd._word(op, n, 7, dtype, 4 if op == tdd._OP_BITPACK else 0)
-        assert (w >> 11) & 4095 == tdd.grid_blocks(n) == 153
-        assert (w >> 4) & 1 == 0
+    w = tdd._word(tdd._OP_RLE, n, 7, torch.float64)
+    assert (w >> 11) & 4095 == tdd.grid_blocks(n) == 153
+    assert (w >> 4) & 1 == 0
+    w = tdd._word(tdd._OP_BITPACK, n, 0, torch.float32)
+    assert (w >> 11) & 4095 == tdd.bitpack_plan(n).blocks == 1221
+    assert w & 3 == tdd._OP_BITPACK and (w >> 2) & 3 == 2
+    assert tdd.bitpack_plan(1).blocks == tdd.bitpack_plan(128).blocks == 1
+    assert tdd.bitpack_plan(129).blocks == 2
+    assert tdd.bitpack_plan(10 ** 9).blocks == tdd.BITPACK_MAX_BLOCKS \
+        == 2112 < 2 ** 12
     w = tdd._word(tdd._OP_DICT, n, 7, torch.float64)
     assert (w >> 11) & 4095 == tdd.decode_plan(n, 7, 8).blocks == 77
 
@@ -467,3 +510,258 @@ def test_dict_decode_mixed_devices_raise():
     with pytest.raises(ValueError):
         tdd.dict_decode(codes, torch.zeros(4, dtype=torch.float64,
                                            device="meta"))
+
+
+# -- train_grad's plan ----------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 156_250, 10 ** 8])
+@pytest.mark.parametrize("d", [1, 12, 32, 33, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_train_plan_word_round_trips(n, d, dtype):
+    """train.cu's Plan reads float64 (bit 0), logistic (1), the width class
+    (2-4) and the blocks (8-19) back."""
+    plan = ttg.train_plan(n, d, dtype)
+    for logistic in (False, True):
+        w = plan.word(dtype == torch.float64, logistic)
+        assert w & 1 == int(dtype == torch.float64)
+        assert (w >> 1) & 1 == int(logistic)
+        assert (w >> 2) & 7 == plan.width_class
+        assert (w >> 8) & 4095 == plan.blocks
+        assert w < 2 ** 20 and (w >> 5) & 7 == 0
+
+
+@pytest.mark.parametrize("d,route,pad", [
+    (1, "registers", 4), (4, "registers", 4), (5, "registers", 8),
+    (12, "registers", 16), (16, "registers", 16), (17, "registers", 32),
+    (31, "registers", 32), (32, "registers", 32), (33, "chunked", None),
+    (64, "chunked", None), (2048, "chunked", None)])
+def test_train_route_follows_d_at_the_limit(d, route, pad):
+    """d <= REG_MAX_DIMS keeps its accumulators in registers, padded to 4,
+    8, 16 or 32 (2 << width class); above it the chunked route."""
+    assert ttg.REG_MAX_DIMS == 32
+    for dtype in (torch.float32, torch.float64):
+        plan = ttg.train_plan(156_250, d, dtype)
+        assert plan.route == route
+        if pad is None:
+            assert plan.width_class == 0
+        else:
+            assert 2 << plan.width_class == pad
+
+
+@pytest.mark.parametrize("n", [0, 1, 511, 512, 513, 156_250, 10 ** 6,
+                               10 ** 9])
+def test_train_grid_is_a_function_of_n_only(n):
+    """The grid (and so the fold's order) depends on n alone: a block per
+    512 rows, at most MAX_BLOCKS blocks, within the word's 12 bits."""
+    grids = {ttg.train_plan(n, d, dt).blocks for d in (1, 12, 32, 33, 2048)
+             for dt in (torch.float32, torch.float64)}
+    assert grids == {tdd.grid_blocks(n, 2)}
+    assert 1 <= grids.pop() <= 1056 < 2 ** 12
+    assert ttg.train_plan(156_250, 12, torch.float32).blocks == 306
+
+
+def test_train_plan_raises_outside_its_columns_and_dtypes():
+    with pytest.raises(ValueError):
+        ttg.train_plan(10, 0, torch.float32)
+    with pytest.raises(ValueError):
+        ttg.train_plan(10, 2049, torch.float32)
+    with pytest.raises(TypeError):
+        ttg.train_plan(10, 4, torch.bfloat16)
+
+
+def test_train_launch_is_one_allocation_and_nine_plain_arguments():
+    """One float64 buffer: the output (d), then a partial row per block;
+    the C entry takes x, y, w, n, d, the plan word, the buffer, the ticket
+    and the stream."""
+    route, word, size = ttg._launch(156_250, 12, torch.float32, True)
+    assert route == "registers" and size == 12 + 306 * 12
+    assert word == ttg.train_plan(156_250, 12, torch.float32).word(False,
+                                                                   True)
+    ct = _build.ctypes
+    assert _build.SIGNATURES["train"][1] == [
+        ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_longlong, ct.c_int,
+        ct.c_ulonglong, ct.c_void_p, ct.c_void_p, ct.c_void_p]
+
+
+def test_train_fold_ticket_is_one_word_per_device_and_stream(monkeypatch):
+    """Calls on one stream share its ticket (they run in order); another
+    stream gets its own, so overlapping calls never share one; none is
+    allocated inside a graph capture."""
+    monkeypatch.setattr(ttg, "_TICKETS", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    dev = torch.device("cpu")
+    first = ttg._ticket(dev, 1)
+    assert first.dtype == torch.int32 and first.tolist() == [0]
+    assert ttg._ticket(dev, 1) is first
+    assert ttg._ticket(dev, 2) is not first
+    assert ttg._ticket(dev, 2).data_ptr() != first.data_ptr()
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    assert ttg._ticket(dev, 2) is ttg._ticket(dev, 2)
+    with pytest.raises(RuntimeError, match="before a CUDA graph capture"):
+        ttg._ticket(dev, 3)
+
+
+def test_train_routes_are_counted_only_on_the_card():
+    before, launches = dict(ttg.ROUTES), dict(ttg.LAUNCHES)
+    x = torch.ones(5, 3)
+    ttg.train_grad(x, torch.ones(5), torch.ones(3))
+    assert ttg.ROUTES == before and ttg.LAUNCHES == launches
+    assert set(ttg.ROUTES) == {"registers", "chunked"}
+
+
+# -- the batched bit-pack decode ------------------------------------------
+
+
+def _bitpack_block(n, width, bias, dtype, offset=0):
+    words = torch.arange(offset, offset + -(-n // (32 // width)),
+                         dtype=torch.int32)
+    return tdd.BitpackBlock(words, width, bias, dtype)
+
+
+def _unpack_descriptor(row) -> dict:
+    words, dst, bias, tail = (int(v) for v in row)
+    return {"words": words, "dst": dst, "bias": bias,
+            "stride": tail & 0xFFFFFFFF, "bit_width": (tail >> 32) & 0xFF,
+            "dtype_code": (tail >> 40) & 0xFF}
+
+
+@pytest.mark.parametrize("width", [1, 4, 16])
+@pytest.mark.parametrize("bias", [0, -7, 2 ** 40, -2 ** 63, 2 ** 63 - 1])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int16,
+                                   torch.uint16, torch.int32, torch.uint32,
+                                   torch.int64, torch.uint64])
+def test_bitpack_descriptors_pack_and_unpack(width, bias, dtype):
+    """Four int64 a block: words and destination addresses, the int64
+    bias, then stride | width << 32 | dtype code << 40 (decode.cu's
+    32-byte BitpackDesc, little-endian)."""
+    x = torch.zeros(100, 12, dtype=torch.float32)
+    y = torch.zeros(100, dtype=torch.float32)
+    blocks = [_bitpack_block(100, width, bias, dtype),
+              _bitpack_block(100, 16, -1, torch.int64)]
+    descs = tdd.pack_bitpack_descriptors(blocks, [x[:, 5], y])
+    assert descs.shape == (2, 4) and descs.dtype == np.int64
+    assert descs.nbytes == 2 * 32
+    got = _unpack_descriptor(descs[0])
+    assert got == {"words": blocks[0].words.data_ptr(),
+                   "dst": x.data_ptr() + 5 * 4, "bias": bias, "stride": 12,
+                   "bit_width": width,
+                   "dtype_code": tdd.BITPACK_ORIG_CODES[dtype]}
+    got = _unpack_descriptor(descs[1])
+    assert got["dst"] == y.data_ptr() and got["stride"] == 1
+    assert got["bit_width"] == 16 and got["bias"] == -1
+
+
+def test_bitpack_batch_raises_past_the_descriptor_limit():
+    """One launch's descriptors hold at most 32 blocks; the entry point
+    takes any number, one launch per 32."""
+    n = 64
+    x = torch.zeros(n, 40)
+    blocks = [_bitpack_block(n, 2, 0, torch.int64) for _ in range(40)]
+    dests = [x[:, j] for j in range(40)]
+    assert tdd.MAX_BITPACK_COLUMNS == 32
+    assert tdd.pack_bitpack_descriptors(blocks[:32], dests[:32]).shape \
+        == (32, 4)
+    with pytest.raises(ValueError, match="1..32"):
+        tdd.pack_bitpack_descriptors(blocks[:33], dests[:33])
+    with pytest.raises(ValueError, match="1..32"):
+        tdd.pack_bitpack_descriptors([], [])
+    tdd._check_bitpack(blocks, dests, n)
+    with pytest.raises(ValueError):
+        tdd._check_bitpack([], [], n)
+    with pytest.raises(ValueError):
+        tdd._check_bitpack(blocks[:2], dests[:3], n)
+
+
+def test_bitpack_batch_takes_more_blocks_than_one_launch_holds():
+    """40 blocks, past one launch's 32 descriptors: every destination gets
+    its column's values."""
+    rng = np.random.default_rng(11)
+    n, k = 300, 40
+    x = torch.zeros(n, k, dtype=torch.float64)
+    blocks, want = [], []
+    for j in range(k):
+        width, bias = 1 + j % 16, j * 1000 - 2 ** 35
+        vals = rng.integers(0, 1 << width, n).astype(np.uint32)
+        blocks.append(tdd.BitpackBlock(
+            torch.from_numpy(_pack_words(vals, width).view(np.int32)), width,
+            bias, torch.int64))
+        want.append(torch.from_numpy(vals.astype(np.int64) + bias).double())
+    tdd.bitpack_decode_into(blocks, [x[:, j] for j in range(k)], n)
+    for j in range(k):
+        assert torch.equal(x[:, j], want[j]), j
+
+
+@pytest.mark.parametrize("width", [0, 17, 32])
+def test_bitpack_batch_raises_on_widths_outside_1_to_16(width):
+    n = 64
+    block = tdd.BitpackBlock(torch.zeros(64, dtype=torch.int32), width, 0,
+                             torch.int64)
+    with pytest.raises(ValueError, match="bit widths"):
+        tdd._check_bitpack([block], [torch.zeros(n)], n)
+
+
+def test_bitpack_batch_raises_on_what_the_c_side_cannot_check():
+    n = 64
+    ok = _bitpack_block(n, 4, 0, torch.int64)
+    dst = torch.zeros(n)
+    assert tdd._check_bitpack([ok], [dst], n) == torch.float32
+    with pytest.raises(ValueError, match="do not fit"):
+        tdd._check_bitpack([ok], [torch.zeros(n + 8)], n + 8)
+    with pytest.raises(TypeError):
+        tdd._check_bitpack([ok._replace(words=ok.words.long())], [dst], n)
+    with pytest.raises(TypeError):
+        tdd._check_bitpack([ok._replace(dtype=torch.float32)], [dst], n)
+    with pytest.raises(TypeError):
+        tdd._check_bitpack([ok], [dst.to(torch.bfloat16)], n)
+    with pytest.raises(ValueError, match="vector"):
+        tdd._check_bitpack([ok, ok], [dst, dst.double()], n)
+    with pytest.raises(ValueError, match="vector"):
+        tdd._check_bitpack([ok], [torch.zeros(n - 1)], n)
+    with pytest.raises(ValueError, match="int64"):
+        tdd._check_bitpack([ok._replace(bias=2 ** 63)], [dst], n)
+
+
+def test_bitpack_batch_mixed_devices_raise():
+    n = 64
+    block = _bitpack_block(n, 4, 0, torch.int64)
+    with pytest.raises(ValueError):
+        tdd.bitpack_decode_into([block], [torch.zeros(n, device="meta")], n)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("out", [torch.float32, torch.float64, torch.int32])
+def test_bitpack_batch_plain_is_the_per_column_sequence(dtype, out):
+    """On the CPU the batched entry writes, into each strided destination,
+    exactly the int32 lanes widened, plus the int64 bias, cast to the
+    block's dtype and then to the destination's."""
+    rng = np.random.default_rng(3)
+    n = 1001
+    x = torch.full((n, 6), -1.0, dtype=out) if out.is_floating_point \
+        else torch.full((n, 6), -1, dtype=out)
+    blocks, want = [], []
+    for j, (width, bias) in enumerate(((1, 0), (3, -2 ** 33), (7, 2 ** 31),
+                                       (16, -5), (12, 2 ** 40 + 3))):
+        vals = rng.integers(0, 1 << width, n).astype(np.uint32)
+        words = _pack_words(vals, width)
+        blocks.append(tdd.BitpackBlock(torch.from_numpy(words.view(np.int32)),
+                                       width, bias, dtype))
+        want.append(torch.from_numpy(vals.astype(np.int64) + bias)
+                    .to(dtype).to(out))
+    tdd.bitpack_decode_into(blocks, [x[:, j] for j in range(5)], n)
+    for j in range(5):
+        assert torch.equal(x[:, j], want[j])
+    assert bool((x[:, 5] == -1).all())
+
+
+def _pack_words(vals, width):
+    per = 32 // width
+    nw = -(-len(vals) // per)
+    padded = np.zeros(nw * per, np.uint32)
+    padded[:len(vals)] = vals
+    words = np.zeros(nw, np.uint32)
+    for j in range(per):
+        words |= padded[j::per] << np.uint32(j * width)
+    return words

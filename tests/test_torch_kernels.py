@@ -691,6 +691,36 @@ def test_cuda_ssd_one_device_kernel_per_call(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,n", [("bfloat16", 16, 16),
+                                       ("bfloat16", 64, 128),
+                                       ("float32", 64, 128)])
+def test_cuda_ssd_two_groups_match_plain(dtype, p, n):
+    """ngroups = 2: b and c (B, S, 2, N), views of one conv output as the
+    model hands them, run one launch a group on the group's heads and match
+    `ssd_chunked` with two groups."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(p + n)
+    g, h, s = 2, 6, 300
+    xbc = _t(rng.normal(size=(2, s, h * p + 2 * g * n))).to(
+        getattr(torch, dtype)).cuda()
+    x = xbc[..., :h * p].reshape(2, s, h, p)
+    bm = xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+    dt = torch.nn.functional.softplus(
+        _t(rng.normal(size=(2, s, h))).float()).cuda()
+    a = -torch.exp(_t(rng.normal(size=h)).float()).cuda()
+    d = _t(rng.normal(size=h)).float().cuda()
+    route = "tensor_core" if dtype == "bfloat16" else "simt"
+    before, launches = tss.ROUTES[route], tss.LAUNCHES["ssd_scan"]
+    y, st = tss.ssd_scan(x, dt, a, bm, cm, 256, d=d)
+    assert tss.LAUNCHES["ssd_scan"] == launches + g
+    assert tss.ROUTES[route] == before + g
+    assert y.shape == x.shape and st.shape == (2, h, p, n)
+    yp, sp = tss.ssd_scan_plain(x, dt, a, bm, cm, 256, d=d)
+    _ssd_within_tolerance(y, st, yp, sp, getattr(torch, dtype))
+
+
+@pytest.mark.cuda
 def test_cuda_dict_decode_one_device_kernel_per_call():
     _cuda_or_skip()
     codes = torch.arange(156_250, dtype=torch.int32, device="cuda") % 4000
@@ -747,3 +777,204 @@ def test_cuda_decode_rejects_what_the_c_side_checks():
     codes = torch.zeros(5, dtype=torch.int32, device="cuda")
     with pytest.raises(RuntimeError, match="dict_decode"):
         tdd.dict_decode(codes, torch.zeros(0, device="cuda"))
+
+
+def _train_inputs_cuda(rng, n, d, dtype, offset=0):
+    """x (n, d) on the card, starting `offset` elements into its buffer (an
+    offset of 1 leaves its rows off 16 bytes: the scalar loads), y and w."""
+    flat = _t((rng.normal(size=n * d + offset) * 2).astype(dtype)).cuda()
+    x = flat[offset:].view(n, d)
+    y = _t((rng.uniform(size=n) < 0.5).astype(dtype)).cuda()
+    w = _t(rng.normal(size=d).astype(dtype)).cuda()
+    return x, y, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 5, 12, 16, 31, 32, 33, 64, 130])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_train_grad_routes_match_plain_and_repeat(d, dtype):
+    """Both routes (registers for d <= 32, padded to 4..32 columns; chunked
+    above) against the plain version to rtol 1e-12, with 16-byte and
+    scalar row loads; two calls give the same bits (the fold's order is a
+    function of n and d)."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(d)
+    route = ttg.train_plan(1, d, getattr(torch, dtype)).route
+    assert route == ("registers" if d <= 32 else "chunked")
+    for n in (1, 511, 1023, 156_250):
+        for offset in (0, 1):
+            x, y, w = _train_inputs_cuda(rng, n, d, dtype, offset)
+            for kind in ttg.KINDS:
+                before = ttg.ROUTES[route]
+                got = ttg.train_grad(x, y, w, kind)
+                assert ttg.ROUTES[route] == before + 1
+                again = ttg.train_grad(x, y, w, kind)
+                assert torch.equal(got, again)
+                assert got.dtype == torch.float64 and got.shape == (d,)
+                np.testing.assert_allclose(
+                    got.cpu().numpy(),
+                    ttg.train_grad_plain(x, y, w, kind).cpu().numpy(),
+                    rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_train_grad_widest_rows():
+    """d = 2048, the chunked route's most columns, at a ragged n."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(2048)
+    x, y, w = _train_inputs_cuda(rng, 1023, 2048, "float64")
+    got = ttg.train_grad(x, y, w, "logistic")
+    assert torch.equal(got, ttg.train_grad(x, y, w, "logistic"))
+    np.testing.assert_allclose(
+        got.cpu().numpy(), ttg.train_grad_plain(x, y, w).cpu().numpy(),
+        rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12, 64])
+def test_cuda_train_grad_one_device_kernel_per_call(d):
+    """One call is one kernel node: the fold runs in the same launch, and
+    the ticket needs no memset."""
+    _cuda_or_skip()
+    x, y, w = _train_inputs_cuda(np.random.default_rng(7), 156_250, d,
+                                 "float32")
+    assert graph_nodes(lambda: ttg.train_grad(x, y, w)) == {"kernel": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_train_grad_streams_keep_their_own_tickets():
+    """Calls on two streams fold with two tickets and give the default
+    stream's bits."""
+    _cuda_or_skip()
+    x, y, w = _train_inputs_cuda(np.random.default_rng(8), 156_250, 12,
+                                 "float32")
+    want = ttg.train_grad(x, y, w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [ttg.train_grad(x, y, w) for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want) for g in got)
+    dev = x.device
+    assert ttg._ticket(dev, side.cuda_stream).data_ptr() != ttg._ticket(
+        dev, torch.cuda.current_stream().cuda_stream).data_ptr()
+
+
+def _bitpack_encs(rng, n, widths):
+    """BITPACK blocks of n rows at the given widths: int64 columns with
+    biases outside int32 (either sign), int32 columns with a negative
+    bias."""
+    from repro_torch.core.compression import Encoding, encode
+    encs = []
+    for j, width in enumerate(widths):
+        if j % 2:
+            lo = -(2 ** 40) if j % 4 == 1 else 2 ** 35 + 7
+            dt = np.int64
+        else:
+            lo, dt = -(1 << (width - 1)) - 3, np.int32
+        vals = (lo + rng.integers(0, 1 << width, n)).astype(dt)
+        vals[:2] = [lo + (1 << width) - 1, lo][:n]     # the full width
+        enc = encode(vals, Encoding.BITPACK)
+        assert n == 1 or (enc.bit_width == width and enc.bias == lo)
+        encs.append(enc)
+    return encs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 156_251])
+@pytest.mark.parametrize("out", ["float32", "float64"])
+def test_cuda_bitpack_batch_equals_per_column_sequence(n, out):
+    """One batched call over widths 1..16 and a label, into the columns of
+    a row-major x and into y, equals `decode_torch(enc).to(dt)` per column
+    (on the card, and the plain version's on the CPU) bit for bit."""
+    from repro_torch.core.compression import bitpack_block, decode_torch
+    _cuda_or_skip()
+    rng = np.random.default_rng(n)
+    dt = getattr(torch, out)
+    encs = _bitpack_encs(rng, n, list(range(1, 17)) + [1])
+    d = 16
+    buf = torch.full((n * (d + 1),), -1, dtype=dt, device="cuda")
+    x, y = buf[:n * d].view(n, d), buf[n * d:]
+    dests = [x[:, j] for j in range(d)] + [y]
+    launches = tdd.LAUNCHES["bitpack_decode"]
+    tdd.bitpack_decode_into([bitpack_block(e, "cuda") for e in encs], dests,
+                            n)
+    assert tdd.LAUNCHES["bitpack_decode"] == launches + 1
+    for e, dst in zip(encs, dests):
+        want = decode_torch(e, "cuda").to(dt)
+        assert torch.equal(dst, want)
+        assert torch.equal(dst.cpu(), decode_torch(e, "cpu").to(dt))
+
+
+@pytest.mark.cuda
+def test_cuda_bitpack_batch_past_one_launch_takes_two():
+    """40 blocks, past one launch's 32 descriptors: two launches, and every
+    column equals `decode_torch(enc).to(dt)`."""
+    from repro_torch.core.compression import bitpack_block, decode_torch
+    _cuda_or_skip()
+    n, k = 5003, 40
+    encs = _bitpack_encs(np.random.default_rng(40), n,
+                         [1 + j % 16 for j in range(k)])
+    x = torch.full((n, k), -1.0, dtype=torch.float64, device="cuda")
+    launches = tdd.LAUNCHES["bitpack_decode"]
+    tdd.bitpack_decode_into([bitpack_block(e, "cuda") for e in encs],
+                            [x[:, j] for j in range(k)], n)
+    assert tdd.LAUNCHES["bitpack_decode"] == launches + 2
+    for j, e in enumerate(encs):
+        assert torch.equal(x[:, j], decode_torch(e, "cuda").double()), j
+
+
+@pytest.mark.cuda
+def test_cuda_bitpack_batch_one_device_kernel_per_call():
+    """Phase 3's partition (8 BITPACK features of 1-4 bits and a 1-bit
+    label, 156,250 rows, float32 x of 12 columns): one kernel node."""
+    from repro_torch.core.compression import bitpack_block
+    _cuda_or_skip()
+    n = 156_250
+    encs = _bitpack_encs(np.random.default_rng(3), n,
+                         [1, 2, 2, 3, 3, 4, 4, 4, 1])
+    blocks = [bitpack_block(e, "cuda") for e in encs]
+    buf = torch.empty(n * 13, dtype=torch.float32, device="cuda")
+    x, y = buf[:n * 12].view(n, 12), buf[n * 12:]
+    dests = [x[:, j] for j in range(8)] + [y]
+    assert graph_nodes(
+        lambda: tdd.bitpack_decode_into(blocks, dests, n)) == {"kernel": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_bitpack_one_column_api_keeps_its_contract():
+    """bitpack_decode(words, width, bias, n): int32 lanes plus an int32
+    bias, every width, through the batched entry."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(9)
+    for width in range(1, 17):
+        for n in (1, 1000, 156_250):
+            vals = rng.integers(0, 1 << width, n).astype(np.uint32)
+            words = _t(_pack(vals, width).view(np.int32))
+            got = tdd.bitpack_decode(words.cuda(), width, -2 ** 31 + 5, n)
+            assert got.dtype == torch.int32
+            assert torch.equal(got.cpu(), tdd.bitpack_decode_plain(
+                words, width, -2 ** 31 + 5, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int16", "uint16",
+                                   "uint32", "uint64"])
+def test_cuda_bitpack_narrow_and_unsigned_blocks(dtype):
+    """Blocks of every other integer dtype: decode_torch on the card and a
+    batched call into float32 equal the CPU's per-column decode."""
+    from repro_torch.core.compression import (Encoding, bitpack_block,
+                                              decode_torch, encode)
+    _cuda_or_skip()
+    info = np.iinfo(dtype)
+    lo = max(int(info.min), -1000) if info.min < 0 else 7
+    vals = (lo + np.random.default_rng(4).integers(0, 300, 5001)).astype(
+        dtype)
+    enc = encode(vals, Encoding.BITPACK)
+    got = decode_torch(enc, "cuda")
+    assert got.dtype == torch.from_numpy(vals).dtype
+    assert torch.equal(got.cpu(), decode_torch(enc, "cpu"))
+    out = torch.empty(5001, dtype=torch.float32, device="cuda")
+    tdd.bitpack_decode_into([bitpack_block(enc, "cuda")], [out], 5001)
+    assert torch.equal(out.cpu(), decode_torch(enc, "cpu").to(torch.float32))

@@ -43,15 +43,21 @@ VARIANTS = {
 }
 
 
-def _configs(variant):
+def _configs(variant, ngroups=1):
     name = "zamba2-7b-smoke" if variant == "zamba2-tail" else variant
     kw = VARIANTS[variant]
-    return (dataclasses.replace(jget_config(name), **kw),
-            dataclasses.replace(get_config(name), **kw))
+
+    def make(c):
+        c = dataclasses.replace(c, **kw)
+        if ngroups != 1:
+            c = dataclasses.replace(c, ssm=dataclasses.replace(
+                c.ssm, ngroups=ngroups))
+        return c
+    return make(jget_config(name)), make(get_config(name))
 
 
-def _models(variant, dtype, seed=0):
-    jcfg, cfg = _configs(variant)
+def _models(variant, dtype, seed=0, ngroups=1):
+    jcfg, cfg = _configs(variant, ngroups)
     params, _ = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
     if dtype == "float32":
         params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
@@ -118,6 +124,52 @@ def test_prefill_caches_and_decode_match_reference(variant, dtype):
                                       torch.from_numpy(tok)[:, None], caches,
                                       S + i)
         assert _rel(logits, want[i + 1][0]) < tol, i
+
+
+@pytest.mark.parametrize("variant", ["mamba2-370m-smoke", "zamba2-7b-smoke"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_group_prefill_and_decode_match_reference(variant, dtype,
+                                                      monkeypatch):
+    """ngroups = 2 (two B/C groups of heads): the prefill hands the SSD
+    wrapper B and C as (B, S, 2, N), and its logits, caches and one decode
+    step match the reference's, at the file's tolerances."""
+    from repro_torch.kernels import ssd_scan as tss
+    jcfg, cfg, params, model = _models(variant, dtype, seed=10, ngroups=2)
+    assert cfg.ssm.ngroups == 2 and cfg.ssm.n_heads(cfg.d_model) % 2 == 0
+    toks = _tokens(cfg, 11)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+
+    def jrun():
+        jl, jc = jlm.prefill_fn(jcfg, params, {"tokens": jnp.asarray(toks)},
+                                MAXS)
+        tok = jnp.argmax(jl[:, 0], -1).astype(jnp.int32)[:, None]
+        jd, _ = jlm.decode_fn(jcfg, params, tok, jc, jnp.int32(S))
+        return (jl, {k: np.asarray(v) for k, v in jc.items()}, np.array(tok),
+                jd)
+
+    if dtype == "float32":
+        jl, jc, tok, jd = jrun()
+    else:
+        with jax.disable_jit():
+            jl, jc, tok, jd = jrun()
+    groups = []
+
+    def plain(x, dt, a, b, c, chunk=128, d=None):
+        groups.append(tuple(b.shape[2:]))
+        return plain_scan(x, dt, a, b, c, chunk, d)
+
+    plain_scan = tss.ssd_scan_plain
+    monkeypatch.setattr(tss, "ssd_scan_plain", plain)
+    logits, caches = lm.prefill_fn(cfg, model,
+                                   {"tokens": torch.from_numpy(toks)}, MAXS)
+    assert groups and set(groups) == {(2, cfg.ssm.d_state)}
+    assert _rel(logits, jl) < tol
+    assert sorted(caches) == sorted(jc)
+    for k, v in jc.items():
+        assert tuple(caches[k].shape) == v.shape, k
+        assert _rel(caches[k], v) < tol, k
+    logits, _ = lm.decode_fn(cfg, model, torch.from_numpy(tok), caches, S)
+    assert _rel(logits, jd) < tol
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

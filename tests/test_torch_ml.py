@@ -28,7 +28,7 @@ from repro.ml import KMeans as JKMeans
 from repro.ml import LinearRegression as JLinearRegression
 from repro.ml import LogisticRegression as JLogisticRegression
 from repro_torch.core import DType, Schema, SharkSession
-from repro_torch.core.expr import DECODE_COUNTERS
+from repro_torch.core.expr import DECODE_COUNTERS, torch_dtype
 from repro_torch.core.pde import PDEConfig, decide_train_backend
 from repro_torch.kernels import ops
 from repro_torch.ml import (FeatureRDD, IterativeTrainer, KMeans,
@@ -357,6 +357,43 @@ def test_predict_and_loss_match_reference():
     # outside its engine), the port in float64: float32 rounding apart
     np.testing.assert_allclose(lr_t.predict(x, device="cpu"),
                                lr_j.predict(x), rtol=1e-5, atol=1e-6)
+    js.shutdown()
+    ts.shutdown()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_assembled_features_match_reference(dtype):
+    """fused_train_step("assemble") of every partition of the mixed table
+    (BITPACK int64 and int32 columns, the int32 one with a negative bias,
+    DICT, RLE, PLAIN and a BITPACK int64 label): the port's (x, y), its
+    BITPACK columns written by one batched decode, equal the reference's
+    exactly."""
+    from repro.core.expr import _x64
+    from repro.ml import featurize as jfz
+    from repro_torch.ml import featurize as tfz
+    js, ts = _both_sessions()
+    jparts = js.table("pts").to_features(FEATURES, "label",
+                                         dtype=dtype).collect()
+    tparts = ts.table("pts").to_features(FEATURES, "label",
+                                         dtype=dtype).collect()
+    assert len(jparts) == len(tparts) == 4
+    biases = set()
+    for jb, tb in zip(jparts, tparts):
+        sigs, args, lsig, largs = jfz.partition_recipes(jb, FEATURES, "label")
+        with _x64():
+            jx, jy = jfz.fused_train_step("assemble", sigs, lsig, dtype)(
+                np.zeros(5, dtype), args, largs)
+        sigs, args, lsig, largs = tfz.partition_recipes(tb, FEATURES, "label",
+                                                        "cpu")
+        assert [s[0] for s in sigs] == ["bitpack", "bitpack", "dict", "rle",
+                                        "plain"] and lsig[0] == "bitpack"
+        biases.add(int(args[1][0].bias))
+        tx, ty = tfz.fused_train_step("assemble", sigs, lsig, dtype)(
+            torch.zeros(5), args, largs)
+        assert tx.dtype == ty.dtype == torch_dtype(dtype)
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    assert min(biases) < 0
     js.shutdown()
     ts.shutdown()
 
