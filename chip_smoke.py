@@ -9,15 +9,21 @@ Phase 1 holds each of the twelve kernels against its plain PyTorch version
 on the card, at the main paths' sizes and at ragged sizes (flash on both
 of its routes: bf16 on the tensor cores, float32 and odd head dims on the
 SIMT kernel; the SSD scan on both of its routes: bf16 on the tensor
-cores, float32 on the SIMT kernel), checks that one
-`groupby_sum`, one `segmented_merge`, one `dict_decode`, one
-`train_grad`, one batched bit-pack decode of a phase-3 partition and one
-bf16 `ssd_scan` call each put exactly one kernel on the device (the nodes
-of a CUDA graph captured around the call), and times each
+cores, float32 on the SIMT kernel; top-k on both of its routes and
+through its lanes entry; RLE into strided columns of every dtype), checks
+that one `groupby_sum`, one `segmented_merge`, one `dict_decode`, one
+`train_grad`, one batched bit-pack decode of a phase-3 partition, one
+`rle_decode` and one `rle_decode_into` a column of x, one
+`topk_similarity` and one `topk_similarity_lanes` call at phase 4's
+partition and one bf16 `ssd_scan` call each put exactly one kernel on the
+device (the nodes of a CUDA graph captured around the call), and times
+each
 kernel, its plain version and, where one PyTorch call computes the same
 function, that call, each with the host's cost (`ms`) and as a CUDA graph
 (`device_ms`; flash and the SSD scan at Zamba2-7B's prefill shapes, with
-`scaled_dot_product_attention` as flash's yardstick).
+`scaled_dot_product_attention` as flash's yardstick), and, beside the
+calls they replaced, the batched bit-pack decode (row 7b), `rle_decode_into`
+a column of x (8b) and the lanes entry of top-k (9b).
 Phase 2 runs the SQL main path end to end: a `SharkSession` on the card
 loads a TPC-H `lineitem` table (6,000,000 rows, scale factor 1, in 64
 partitions of 93,750 rows, columns drawn from dbgen's domains with numpy
@@ -30,14 +36,16 @@ paper's billion rows on 100 nodes), 12 feature columns that load as
 BITPACK, DICT, RLE and PLAIN blocks and an int64 label; a logistic
 regression and a k-means fit, 10 iterations each, checked against a numpy
 replay of the same updates.  Its launches must show the three decode
-kernels and `train_grad`, and one bit-pack launch a partition step; it
-prints the device ops and port kernel launches of one warm iteration.
+kernels and `train_grad`, one bit-pack launch and one RLE launch a
+partition step; it prints the device ops and port kernel launches of one
+warm iteration.
 Phase 4 searches: a `docs` table of 1,000,000 rows with a 64-lane float32
 embedding in 64 partitions of 15,625, and `similarity_join` with and
-without a filter below it, ids checked exactly against numpy.  Its
-launches must show `topk_similarity`.  On the card, phases 3 and 4 each
-end with a torch.profiler trace of one warm step (a `trace` JSON line:
-device busy time and idle share, device and host ops).
+without a filter below it, ids checked exactly against numpy.  It must
+run exactly one `topk_similarity` launch, on its `fused` route over the
+lanes in place, per kernel-routed partition search.  On the card, phases
+3 and 4 each end with a torch.profiler trace of one warm step (a `trace`
+JSON line: device busy time and idle share, device and host ops).
 Phase 5 serves Zamba2-7B (arXiv:2411.15242 as the registry defines it: 81
 slots, d_model 3584, 5.88 B parameters, random bf16 weights drawn on the
 card from `--seed`) through `ServeEngine`: a batch of 4 prompts of 2,048
@@ -486,27 +494,46 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
             if not np.array_equal(got.cpu().numpy(),
                                   vals.astype(np.int32) - 7):
                 fail(f"bitpack_decode lanes differ (width {width})")
-        for runs in (1, max(1, n // 8), n):
-            lens = rng.multinomial(n - runs, np.ones(runs) / runs) + 1
+        # RLE: one run, runs of 8, runs of 1, zero-length runs, ends short
+        # of n; the vector and into a column of a row-major (n, 12) x of
+        # every dtype
+        zero = rng.integers(0, 3, n)
+        for lens in (np.array([n]), np.full(-(-n // 8), 8), np.ones(n, int),
+                     zero, np.full(max(1, n // 9), 8)):
             ends = t(np.cumsum(lens).astype(np.int32))
-            for dt in ("int64", "float64", "float32"):
+            runs = len(lens)
+            for dt in ("int32", "int64", "float64", "float32"):
                 vals = t((rng.normal(size=runs) * 100).astype(dt))
                 exact("rle_decode", kd.rle_decode(vals, ends, n),
                       kd.rle_decode_plain(vals, ends, n))
+                for odt in (torch.int32, torch.int64, torch.float32,
+                            torch.float64):
+                    col = torch.zeros((n, 12), dtype=odt, device=dev)[:, 7]
+                    want = torch.zeros(n, dtype=odt, device=dev)
+                    kd.rle_decode_into(vals, ends, n, col)
+                    kd.rle_decode_into_plain(vals, ends, n, want)
+                    exact("rle_decode_into", col, want)
     # top-k: ties (integer lanes), continuous lanes, all rows tied, tile
-    # edges +-1; k = 1, 100, n + 5.  Scores are summed lane by lane on both
-    # versions, so scores too must match to the bit
+    # edges +-1; k = 1, 100, the fused route's limit + 1 (route `rounds`)
+    # and n + 5.  Scores are summed lane by lane on both versions, so
+    # scores too must match to the bit; the lanes entry over x's columns
+    # matches the matrix entry
     for n in (1, 255, 256, 257, 1023, 1024, 1025, DOCS_ROWS):
         cases = (rng.integers(-3, 4, size=(n, 8)).astype(np.float64),
                  rng.normal(size=(n, EMB_DIM)).astype(np.float32),
                  np.ones((n, 6), np.float32))
         for x in cases:
-            xt, q = t(x), t(rng.normal(size=x.shape[1]))
-            for k in (1, TOP_K, n + 5):
+            w = rng.normal(size=x.shape[1])
+            xt, q = t(x), t(w)
+            lanes = [xt[:, j].contiguous() for j in range(x.shape[1])]
+            for k in (1, TOP_K, kt.FUSED_MAX_K + 1, n + 5):
                 gs, gi = kt.topk_similarity(xt, q, k)
                 ps, pi = kt.topk_similarity_plain(xt, q, k)
                 exact("topk_similarity", gi, pi)
                 exact("topk_similarity", gs, ps)
+                ls, li = kt.topk_similarity_lanes(lanes, w, k)
+                exact("topk_similarity_lanes", li, pi)
+                exact("topk_similarity_lanes", ls, ps)
     # batched bit-pack: widths 1-16 and a 1-bit label into the columns of a
     # row-major x and into y, int32 and int64 blocks with biases outside
     # int32, float32 and float64 outputs: each column equal to
@@ -622,10 +649,31 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
     batched = (lambda: kd.bitpack_decode_into(pblocks, pdests, n))
     batch_bytes = sum(4.0 * b.words.shape[0] for b in pblocks) \
         + 4.0 * n * len(pblocks)
+    # row 8b: the RLE column straight into a float32 column of x, beside
+    # the decode-then-cast-copy it replaced
+    rle_col = px[:, 10]
+    rle_into = (lambda: kd.rle_decode_into(run_vals, run_ends, n, rle_col))
+
+    def rle_copy():
+        rle_col.copy_(kd.rle_decode(run_vals, run_ends, n))
+
+    # row 9b: the search path's lanes read in place, beside the stack of
+    # its 64 lanes, the copy of q to the card and the matrix call
+    lanes = [emb[:, j].contiguous() for j in range(EMB_DIM)]
+    w_host = q.cpu().numpy()
+    lanes_call = (lambda: kt.topk_similarity_lanes(lanes, w_host, TOP_K))
+
+    def stacked_call(q_of=lambda: torch.from_numpy(w_host).to(dev)):
+        return kt.topk_similarity(torch.stack(lanes, dim=1), q_of(), TOP_K)
+
     if device.type == "cuda":
         one_kernel("dict_decode", cases["dict_decode"][0])
         one_kernel("train_grad", cases["train_grad"][0])
         one_kernel("batched bitpack_decode", batched)
+        one_kernel("rle_decode", cases["rle_decode"][0])
+        one_kernel("rle_decode_into", rle_into)
+        one_kernel("topk_similarity (fused)", cases["topk_similarity"][0])
+        one_kernel("topk_similarity_lanes", lanes_call)
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
         b_ms, b_by = bound(nbytes, ops)
@@ -649,6 +697,33 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
         "per_column_ms": timer(per_column),
         "per_column_device_ms": timer.graphed(per_column)}
+    b_ms, b_by = bound(12.0 * runs + 4.0 * n, n * log2_runs)
+    out["rle_decode"]["into"] = {
+        "dst": "float32 column of a row-major (n, 12) x", "rows": n,
+        "launches": 0, "ms": timer(rle_into),
+        "device_ms": timer.graphed(rle_into),
+        "plain_ms": timer(lambda: kd.rle_decode_into_plain(
+            run_vals, run_ends, n, rle_col), reps=10, warmup=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "decode_copy_ms": timer(rle_copy),
+        "decode_copy_device_ms": timer.graphed(rle_copy)}
+    b_ms, b_by = bound(4.0 * DOCS_ROWS * EMB_DIM + 16 * TOP_K,
+                       2.0 * DOCS_ROWS * EMB_DIM)
+    out["topk_similarity"]["kernel_route"] = kt.topk_plan(
+        DOCS_ROWS, EMB_DIM, TOP_K, torch.float32).route
+    out["topk_similarity"]["lanes"] = {
+        "lanes": EMB_DIM, "rows": DOCS_ROWS, "launches": 0,
+        "kernel_route": kt.topk_plan(DOCS_ROWS, EMB_DIM, TOP_K,
+                                     torch.float32, lanes=True).route,
+        "ms": timer(lanes_call), "device_ms": timer.graphed(lanes_call),
+        "plain_ms": timer(lambda: kt.topk_similarity_plain(
+            torch.stack(lanes, dim=1), q, TOP_K), reps=10, warmup=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # q's copy to the card is a pageable host-to-device copy, which a
+        # CUDA graph cannot capture: the graphed stack + call reads q from
+        # the card
+        "stacked_ms": timer(stacked_call),
+        "stacked_device_ms": timer.graphed(lambda: stacked_call(lambda: q))}
     return out
 
 
@@ -922,11 +997,16 @@ def phase_train(torch, device, rows: int, seed: int) -> dict:
         for it in clf.metrics.train_iterations:
             if it["routes"] != {"train_grad": PARTITIONS}:
                 fail(f"logistic iteration took routes {it['routes']}")
-        # one batched bit-pack launch a partition and step
+        # one batched bit-pack launch a partition and step, one RLE
+        # launch a partition step and RLE column (straight into x)
         steps = PARTITIONS * (LR_ITERS + KM_ITERS)
         if launches["bitpack_decode"] != steps:
             fail(f"bitpack_decode launched {launches['bitpack_decode']} "
                  f"times, not once a partition step ({steps})")
+        rle_steps = steps * encs["rle"] // PARTITIONS
+        if launches["rle_decode"] != rle_steps:
+            fail(f"rle_decode launched {launches['rle_decode']} times, not "
+                 f"once a partition step and RLE column ({rle_steps})")
 
     # the numpy replay of both fits, over the generated arrays
     x32 = np.stack([data[c] for c in FEATURES], axis=1).astype(np.float32)
@@ -970,6 +1050,7 @@ def phase_search(torch, device, rows: int, seed: int) -> dict:
     from repro_torch.core.functions import col
     from repro_torch.core.pde import PDEConfig
     from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_similarity as tk
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 4)
@@ -990,6 +1071,8 @@ def phase_search(torch, device, rows: int, seed: int) -> dict:
           f"partitions loaded in {time.perf_counter() - t0:.3f} s",
           flush=True)
 
+    routed = [0]          # kernel-routed partition searches (per run)
+
     def run(q, c):
         frame = sess.table("docs")
         if c is not None:
@@ -999,6 +1082,8 @@ def phase_search(torch, device, rows: int, seed: int) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
+        routed[0] += sess.metrics().segment_routes().get(
+            "topk_similarity", 0)
         s = scores @ q
         idx = np.nonzero(cat == c)[0] if c is not None else np.arange(rows)
         want = idx[np.argsort(-s[idx], kind="stable")[:TOP_K]]
@@ -1008,6 +1093,7 @@ def phase_search(torch, device, rows: int, seed: int) -> dict:
 
     try:
         ops.reset_launch_counts()
+        routes0 = dict(tk.ROUTES)
         for i in range(N_QUERIES):
             q = rng.normal(size=EMB_DIM)
             c = int(rng.integers(0, 4))
@@ -1025,6 +1111,18 @@ def phase_search(torch, device, rows: int, seed: int) -> dict:
             if routes.get("topk_similarity", 0) == 0:
                 fail(f"similarity search took routes {routes}")
         launches = ops.launch_counts()
+        searches = routed[0]
+        kroutes = {k: v - routes0[k] for k, v in tk.ROUTES.items()}
+        print(f"phase 4: {searches} kernel-routed partition searches, "
+              f"{launches['topk_similarity']} topk_similarity launches, "
+              f"routes {json.dumps(kroutes, sort_keys=True)}", flush=True)
+        if device.type == "cuda" and not (
+                launches["topk_similarity"] == searches
+                == kroutes["lanes"] == kroutes["fused"]
+                and kroutes["stacked"] == kroutes["rounds"] == 0):
+            fail(f"phase 4 ran {launches['topk_similarity']} topk launches "
+                 f"for {searches} kernel-routed partition searches, routes "
+                 f"{kroutes}: not one fused launch on the lanes each")
         if device.type == "cuda":
             traced(torch, device, "phase 4: one warm top-100 search",
                    lambda: run(q, None))
@@ -1462,6 +1560,9 @@ def main() -> int:
         rec["launches"] = launches[name]
     kernels["bitpack_decode"]["batched"]["launches"] = \
         launches["bitpack_decode"]
+    kernels["rle_decode"]["into"]["launches"] = launches["rle_decode"]
+    kernels["topk_similarity"]["lanes"]["launches"] = \
+        launches["topk_similarity"]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     if device.type == "cuda":
         dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

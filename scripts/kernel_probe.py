@@ -2,7 +2,7 @@
 """Where the redesigned kernels spend their time, on one GPU.
 
     python3 scripts/kernel_probe.py [flash] [group] [ssd] [decode] [train]
-                                    [bitpack]          # default: all
+                                    [bitpack] [topk] [rle]   # default: all
 
 1. flash: flash attention's tensor-core route at Zamba2-7B's prefill
    shape ((4, 32, 2048, 112) bf16, causal, in the model's (B, S, H, hd)
@@ -54,6 +54,23 @@
    columns' constants read from the parameter bank; tiles of 64 rows in
    place of 128); per-block timestamps of an instrumented copy (start
    after the constants' staging, end).
+7. topk: `topk_similarity` at phase 4's partition (15,625 x 64 float32,
+   k = 100): device time in turns of the fused route under its plan (62
+   blocks, the threshold fold), the rounds fold, grids of 31 and 16
+   blocks (several tiles a block), copies with 256-byte stage chunks, 128
+   bytes of lane loads in flight and 8-entry fold prefixes, the lanes
+   entry, the rounds route (the previous kernels), `topk(x @ q)` and a
+   one-element `fill_` (a launch that does nothing); per-block timestamps of an
+   instrumented copy (a block's start, its first tile scored, its sorts
+   and merges done, and the fold's span in the last block with the end
+   of each step of its fast path), for the matrix and the lanes entries;
+   ptxas's registers and spills.
+8. rle: `rle_decode` at phase 3's column (156,250 positions in runs of 8,
+   float64): `ms` and device time in turns of the shipped kernel, into a
+   float32 column of a row-major (n, 12) x, 2,048-position tiles, the
+   per-position search of all ends that it replaced, decode-then-`copy_`
+   and `repeat_interleave`; per-block timestamps (start, runs bounded,
+   runs staged, end).
 
 Each line of output is one JSON object.  Needs a CUDA device and `nvcc`.
 """
@@ -810,6 +827,330 @@ def probe_bitpack(torch, np) -> None:
           flush=True)
 
 
+# sub-phase timestamps: g_sub[i] = the global timer when thread 0 passes
+# point i (the fold's steps; RLE: each block's end of its run search)
+SUB_STAMPS = (
+    "__device__ unsigned long long g_sub[4096];\n"
+    "#define SUB(i) if (threadIdx.x == 0) g_sub[i] = gtime();\n")
+SUB_READER = (
+    "\nextern \"C\" int shark_sub_read(unsigned long long* sub) {\n"
+    "  return cudaMemcpyFromSymbol(sub, g_sub, sizeof(g_sub));\n}\n")
+# per-block timestamps of the fused top-k: a block's start, the end of its
+# first tile's scoring, the end of its tiles' sorts and merges; the fold's
+# span in the last block and its fast path's steps
+TOPK_STAMPS = (
+    ("constexpr int kSmemLimit = 232448 - 1024;  // dynamic; the rest is "
+     "static\n", "constexpr int kSmemLimit = 232448 - 1024;  // dynamic; the "
+     "rest is static\n" + TIMESTAMPS + SUB_STAMPS),
+    ("  int cur = 0, len = 0;\n",
+     "  int cur = 0, len = 0;\n  const unsigned long long ts0 = gtime();\n"
+     "  unsigned long long ts1 = 0;\n"),
+    ("      const double s = valid ? score_lanes<T>(l, d, first + t) : 0.0;\n",
+     "      const double s = valid ? score_lanes<T>(l, d, first + t) : 0.0;\n"
+     "      if (i == 0) ts1 = gtime();\n"),
+    ("      if (c == chunks - 1) {\n",
+     "      if (c == chunks - 1) {\n"
+     "        if (s == chunks - 1) ts1 = gtime();\n"),
+    ("  const double* ls = run_s + cur * m;\n",
+     "  STAMP_BLOCK(ts0, ts1);\n  const double* ls = run_s + cur * m;\n"),
+    ("  fold_lists(a, L, smem, g);\n",
+     "  const unsigned long long tf0 = gtime();\n  fold_lists(a, L, smem, g);\n"
+     "  if (t == 0) { g_fold[0] = tf0; g_fold[1] = gtime(); }\n"),
+    ("  const int j = __syncthreads_count(t < kPrefix && cj[t] < m) + 1;\n",
+     "  SUB(0);\n"
+     "  const int j = __syncthreads_count(t < kPrefix && cj[t] < m) + 1;\n"),
+    ("  // each list's prefix no worse than the bound, within the entries "
+     "read:\n",
+     "  SUB(1);\n  // each list's prefix no worse than the bound, within "
+     "the entries read:\n"),
+    ("  const int total = s_total;\n",
+     "  const int total = s_total;\n  SUB(2);\n"),
+    ("    a.out_r[t] = r;\n  }\n  return true;\n",
+     "    a.out_r[t] = r;\n  }\n  SUB(3);\n  return true;\n"),
+)
+FOLD_STEPS = ("prefixes read", "bound found", "survivors gathered",
+              "placed")
+# the fused route's choices, undone one at a time: stages of 256-byte row
+# chunks in place of 128, 128 bytes of lane loads in flight in place of 256
+TOPK_VARIANTS = {
+    "256-byte chunks": (
+        ("constexpr int kChunkBytes = 128; ",
+         "constexpr int kChunkBytes = 256; "),),
+    "128 lane bytes in flight": (
+        ("constexpr int kLaneBytes = 256; ",
+         "constexpr int kLaneBytes = 128; "),),
+    "8-entry prefixes": (
+        ("constexpr int kPrefix = 16; ", "constexpr int kPrefix = 8; "),),
+}
+
+
+def probe_topk(torch, np) -> None:
+    """topk_similarity at phase 4's partition (15,625 x 64 float32, k =
+    100): device time of the fused route under its plan (62 blocks, the
+    threshold fold) and under other grids, the rounds fold, copies that
+    undo one design choice each, the lanes entry, the rounds route (the
+    previous kernels) and `topk(x @ q)`, in turns; per-block timestamps of
+    an instrumented copy, for the matrix and the lanes entries."""
+    import chip_smoke
+    from repro_torch.kernels import _build, topk_similarity as kt
+    n, d, k = chip_smoke.DOCS_ROWS, chip_smoke.EMB_DIM, chip_smoke.TOP_K
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).cuda()
+    w = rng.normal(size=d)
+    q = torch.from_numpy(w).cuda()
+    q32 = q.float()
+    lanes = [x[:, j].contiguous() for j in range(d)]
+    desc = kt.pack_lane_descriptors(lanes, w)
+    want = kt.topk_similarity_plain(x, q, k)
+    src = (_build.CSRC / "topk.cu").read_text()
+    libs = nvcc_build_all(dict(
+        {"topk_ts": patched(src, TOPK_STAMPS) + TIMESTAMP_READER
+         + SUB_READER},
+        **{name: patched(src, pairs) for name, pairs in TOPK_VARIANTS.items()}))
+    entry = {"shipped": _build.kernel_fn("topk_fused")}
+    for name, lib in libs.items():
+        entry[name] = lib.shark_topk_fused
+        entry[name].argtypes = _build.SIGNATURES["topk_fused"][1]
+    ticket = kt._ticket(x.device)
+    plan = kt.topk_plan(n, d, k, torch.float32)
+    lplan = kt.topk_plan(n, d, k, torch.float32, lanes=True)
+
+    def raw(name, plan, lanes_entry=False):
+        buf = torch.empty(plan.buffer_words(), dtype=torch.int64,
+                          device="cuda")
+
+        def call():
+            rc = entry[name](
+                None if lanes_entry else x.data_ptr(),
+                desc.ctypes.data if lanes_entry else None, 2,
+                None if lanes_entry else q.data_ptr(), n, d, plan.m,
+                plan.word(), buf.data_ptr(), ticket.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"topk probe {name} failed: {rc}")
+            return buf[k:2 * k].view(torch.float64), buf[:k]
+        return call
+
+    rounds = kt.TopkPlan("rounds", k, plan.tiles, 0, "threshold")
+    one = torch.zeros(1, device="cuda")
+    calls = {
+        f"fused, {plan.blocks} blocks (plan), threshold fold":
+            raw("shipped", plan),
+        f"fused, {plan.blocks} blocks, rounds fold":
+            raw("shipped", plan._replace(fold="rounds")),
+        "fused, 31 blocks (2 tiles a block)":
+            raw("shipped", plan._replace(blocks=31)),
+        "fused, 16 blocks (4 tiles a block)":
+            raw("shipped", plan._replace(blocks=16)),
+        "lanes entry, 62 blocks": raw("shipped", lplan, True),
+        "rounds route (the previous kernels)": lambda: kt._launch(
+            rounds, x.data_ptr(), None, 2, q.data_ptr(), n, d, k, x.device),
+        "library topk(x @ q)": lambda: torch.topk(x @ q32, k),
+        "a one-element fill_ (one launch, no work)": lambda: one.fill_(1.0),
+    }
+    calls.update({f"{name}, {plan.blocks} blocks": raw(name, plan)
+                  for name in TOPK_VARIANTS})
+    calls["128 lane bytes in flight, lanes entry"] = raw(
+        "128 lane bytes in flight", lplan, True)
+    for name, call in calls.items():
+        if "library" in name or "fill_" in name:
+            continue
+        got = call()
+        if not (torch.equal(got[1], want[1]) and torch.equal(
+                got[0].view(torch.int64), want[0].view(torch.int64))):
+            raise SystemExit(f"topk probe {name!r} differs from plain")
+    timer = chip_smoke.Timer(torch, torch.device("cuda"))
+    device_ms = {name: [] for name in calls}
+    for r in range(4):
+        order = list(calls) if r % 2 == 0 else list(reversed(list(calls)))
+        for name in order:
+            device_ms[name].append(timer.graphed(calls[name]))
+    timeline = {}
+    for label, lanes_entry, pl in (("matrix", False, plan),
+                                   ("lanes", True, lplan)):
+        timeline[label] = []
+        for _ in range(3):
+            raw("topk_ts", pl, lanes_entry)()
+            torch.cuda.synchronize()
+            ts = (ctypes.c_ulonglong * (4 * 4096))()
+            fold = (ctypes.c_ulonglong * 2)()
+            sub = (ctypes.c_ulonglong * 4096)()
+            if libs["topk_ts"].shark_ts_read(ts, fold) \
+                    or libs["topk_ts"].shark_sub_read(sub):
+                raise SystemExit("topk timestamps failed")
+            rec = block_timeline(np, ts, fold, pl.blocks)
+            t0 = min(ts[4 * b] for b in range(pl.blocks))
+            rec["fold_steps_us"] = {
+                step: (sub[i] - t0) / 1e3 if sub[i] >= fold[0] else None
+                for i, step in enumerate(FOLD_STEPS)}
+            timeline[label].append(rec)
+    print(json.dumps({"probe": "topk_similarity, 15,625 x 64 float32, "
+                               "k = 100",
+                      "plan": plan._asdict(),
+                      "smem_bytes": kt.fused_smem(d, False, k, plan.blocks),
+                      "device_ms_in_turns": device_ms,
+                      "timeline_us": timeline,
+                      "ptxas": {key: v for key, v in ptxas_report(
+                          _build.CSRC / "topk.cu").items()
+                          if "fused" in key}}), flush=True)
+
+
+# per-block timestamps of rle_decode: a block's start, the end of its first
+# tile's run search (g_sub) and staging, its end
+RLE_STAMPS = (
+    ("constexpr int kRleStage = kRleTile;  // runs it stages\n",
+     "constexpr int kRleStage = kRleTile;  // runs it stages\n" + TIMESTAMPS
+     + SUB_STAMPS),
+    ("  const long long tiles = (n + kRleTile - 1) / kRleTile;\n",
+     "  const long long tiles = (n + kRleTile - 1) / kRleTile;\n"
+     "  const unsigned long long ts0 = gtime();\n"
+     "  unsigned long long ts1 = 0;\n"),
+    ("    bound_ends(ends, r, p0, p0 + pn - 1, &a0, &a1);   // (barriers "
+     "inside)\n",
+     "    bound_ends(ends, r, p0, p0 + pn - 1, &a0, &a1);   // (barriers "
+     "inside)\n"
+     "    if (tile == blockIdx.x && threadIdx.x == 0 && blockIdx.x < 4096) "
+     "g_sub[blockIdx.x] = gtime();\n"),
+    ("    const int last = static_cast<int>(r - 1 - a0);   // the clamp, "
+     "locally\n",
+     "    if (tile == blockIdx.x) ts1 = gtime();\n"
+     "    const int last = static_cast<int>(r - 1 - a0);   // the clamp, "
+     "locally\n"),
+    ("    __syncthreads();          // the stage is read before the next "
+     "tile's\n  }\n",
+     "    __syncthreads();          // the stage is read before the next "
+     "tile's\n  }\n  STAMP_BLOCK(ts0, ts1);\n"),
+)
+RLE_VARIANTS = {
+    "2048-position tiles": (
+        ("constexpr int kRleTile = 1024; ",
+         "constexpr int kRleTile = 2048; "),),
+}
+# the kernel this PR replaced, for its device time in the same process:
+# each position binary-searches all r ends in device memory
+RLE_SEARCH = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void rle_search(const int32_t* __restrict__ ends,
+                           const double* __restrict__ vals, long long r,
+                           long long n, double* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * 256;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n; i += stride) {
+    long long lo = 0, hi = r;
+    while (lo < hi) {
+      const long long mid = (lo + hi) >> 1;
+      if (static_cast<long long>(__ldg(ends + mid)) <= i) lo = mid + 1;
+      else hi = mid;
+    }
+    out[i] = __ldg(vals + (lo < r - 1 ? lo : r - 1));
+  }
+}
+extern "C" int shark_rle_search(const int32_t* ends, const double* vals,
+                                long long r, long long n, double* out,
+                                int blocks, cudaStream_t stream) {
+  rle_search<<<blocks, 256, 0, stream>>>(ends, vals, r, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def probe_rle(torch, np) -> None:
+    """rle_decode at phase 3's column (156,250 positions in runs of 8,
+    float64 values): device time of the shipped kernel, into a float32
+    column of a row-major (n, 12) x, with 1,024-position tiles, the
+    per-position search it replaced, decode-then-copy_ and
+    `repeat_interleave`, in turns; per-block timestamps."""
+    import chip_smoke
+    from repro_torch.kernels import _build, dictdecode as kd
+    n = chip_smoke.TRAIN_ROWS
+    runs = n // 8
+    rng = np.random.default_rng(0)
+    ends = torch.from_numpy(np.cumsum(np.full(runs, 8)).astype(np.int32)) \
+        .cuda()
+    lengths = torch.full((runs,), 8, dtype=torch.int64, device="cuda")
+    vals = torch.from_numpy(rng.normal(size=runs)).cuda()
+    x = torch.empty((n, 12), dtype=torch.float32, device="cuda")
+    out = torch.empty(n, dtype=torch.float64, device="cuda")
+    want = kd.rle_decode_plain(vals, ends, n)
+    src = (_build.CSRC / "decode.cu").read_text()
+    libs = nvcc_build_all(dict(
+        {"rle_ts": patched(src, RLE_STAMPS) + TIMESTAMP_READER + SUB_READER,
+         "rle_search": RLE_SEARCH},
+        **{name: patched(src, pairs) for name, pairs in RLE_VARIANTS.items()}))
+    search = libs["rle_search"].shark_rle_search
+    search.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+    def raw(name, tile=kd.RLE_TILE):
+        fn = getattr(libs[name], "shark_decode")
+        fn.argtypes = _build.SIGNATURES["decode"][1]
+        word = kd.DecodePlan(-(-n // tile), False).word(kd._OP_RLE, 3) \
+            | 3 << 23 | kd.RLE_KEEP << 25 | 1 << 32
+
+        def call():
+            rc = fn(ends.data_ptr(), vals.data_ptr(), out.data_ptr(), n, runs,
+                    word, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"rle probe {name} failed: {rc}")
+            return out
+        return call
+
+    def searched():
+        rc = search(ends.data_ptr(), vals.data_ptr(), runs, n,
+                    out.data_ptr(), -(-n // 1024),
+                    torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"rle search probe failed: {rc}")
+        return out
+
+    calls = {
+        f"rle_decode ({kd.rle_plan(n).blocks} blocks of {kd.RLE_TILE:,})":
+            lambda: kd.rle_decode(vals, ends, n),
+        "rle_decode_into a float32 column of x":
+            lambda: kd.rle_decode_into(vals, ends, n, x[:, 10]),
+        "decode then copy_ into the column":
+            lambda: x[:, 10].copy_(kd.rle_decode(vals, ends, n)),
+        "2048-position tiles": raw("2048-position tiles", 2048),
+        "per-position search of all ends (the previous kernel)": searched,
+        # its n is the runs' 156,248 positions (the kernels clamp the last
+        # two to the last run)
+        "library repeat_interleave": lambda: torch.repeat_interleave(
+            vals, lengths, output_size=8 * runs),
+    }
+    for name in (next(iter(calls)), "2048-position tiles",
+                 "per-position search of all ends (the previous kernel)"):
+        if not torch.equal(calls[name](), want):
+            raise SystemExit(f"rle probe {name!r} differs from plain")
+    timer = chip_smoke.Timer(torch, torch.device("cuda"))
+    ms, device_ms = {name: [] for name in calls}, {name: [] for name in calls}
+    for r in range(4):
+        order = list(calls) if r % 2 == 0 else list(reversed(list(calls)))
+        for name in order:
+            ms[name].append(timer(calls[name], reps=200, warmup=20))
+            device_ms[name].append(timer.graphed(calls[name]))
+    timeline = []
+    for _ in range(3):
+        raw("rle_ts")()
+        torch.cuda.synchronize()
+        ts = (ctypes.c_ulonglong * (4 * 4096))()
+        fold = (ctypes.c_ulonglong * 2)()
+        sub = (ctypes.c_ulonglong * 4096)()
+        if libs["rle_ts"].shark_ts_read(ts, fold) \
+                or libs["rle_ts"].shark_sub_read(sub):
+            raise SystemExit("rle timestamps failed")
+        blocks = kd.rle_plan(n).blocks
+        rec = block_timeline(np, ts, fold, blocks)
+        search = np.array([sub[b] - ts[4 * b] for b in range(blocks)]) / 1e3
+        rec["run_search_us"] = [float(np.percentile(search, q))
+                                for q in (0, 50, 100)]
+        timeline.append(rec)
+    print(json.dumps({"probe": "rle_decode, 156,250 positions in runs of 8, "
+                               "float64",
+                      "plan_blocks": kd.rle_plan(n).blocks,
+                      "ms_in_turns": ms, "device_ms_in_turns": device_ms,
+                      "timeline_us": timeline}), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -818,7 +1159,7 @@ def main() -> int:
         return 1
     probes = {"flash": probe_flash, "group": probe_group, "ssd": probe_ssd,
               "decode": probe_decode, "train": probe_train,
-              "bitpack": probe_bitpack}
+              "bitpack": probe_bitpack, "topk": probe_topk, "rle": probe_rle}
     chosen = sys.argv[1:] or list(probes)
     unknown = set(chosen) - set(probes)
     if unknown:

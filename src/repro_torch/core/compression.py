@@ -357,6 +357,20 @@ def decode_torch(enc: Encoded, device="cpu"):
     raise ValueError(enc.encoding)
 
 
+def rle_decode_into(enc: Encoded, dst, device) -> None:
+    """An RLE block decoded into `dst` (a strided (n,) view of int32,
+    int64, float32 or float64 on `device`): the values of
+    `dst.copy_(decode_torch(enc, device))`, in one `rle_decode` launch on a
+    CUDA device, each run value cast to the block's original dtype, then
+    to dst's."""
+    import torch
+
+    from ..kernels import ops
+    ops.rle_decode_into(device_stream(enc, "run_values", device),
+                        device_stream(enc, "run_ends", device), enc.n, dst,
+                        torch.from_numpy(np.zeros(0, enc.orig_dtype)).dtype)
+
+
 def bitpack_block(enc: Encoded, device):
     """A BITPACK block as the bit-pack kernel's operand
     (`dictdecode.BitpackBlock`), its words read from device memory."""

@@ -122,11 +122,16 @@ class StageRunner:
                              k: int) -> Optional[np.ndarray]:
         """Row indices of the top-k similarity candidates via the
         topk_similarity kernel, or None when the PDE routes this partition
-        to the host lexsort.  The lane columns are stacked on the runner's
-        device (block-backed lanes from their memoized device copies)."""
+        to the host lexsort.  The lane columns are the runner's device
+        tensors (block-backed lanes from their memoized device copies):
+        read in place by `topk_similarity_lanes` when they qualify
+        (`search_route` "lanes"), else stacked ("stacked"); the route is
+        counted in `topk_similarity.ROUTES`."""
         import torch
 
         from ..kernels import ops
+        from ..kernels import topk_similarity as tk
+        from ..kernels._common import count_launch
         d = decide_segment_backend(b.num_rows, "topk_similarity", None,
                                    ops.on_gpu(self.runner.device), self.cfg)
         if d.route != "topk_similarity":
@@ -136,14 +141,20 @@ class StageRunner:
         if any(c.is_string for c in cols):
             return None
         ts = [self.runner._tensor(c) for c in cols]
-        if not all(t.dtype == ts[0].dtype for t in ts) \
-                or ts[0].dtype not in (torch.float32, torch.float64):
-            # the kernel reads float32 or float64 lanes; other lanes widen
-            # exactly to float64 (integers below 2**53)
-            ts = [t.to(torch.float64) for t in ts]
-        x = torch.stack(ts, dim=1)
-        q = torch.from_numpy(np.asarray(weights, np.float64)).to(x.device)
-        _scores, idx = ops.topk_similarity(x, q, k)
+        route = tk.search_route(ts)
+        count_launch(tk.ROUTES, route)
+        if route == "lanes":
+            _scores, idx = tk.lanes_checked(ts, weights, k)
+        else:
+            if not all(t.dtype == ts[0].dtype for t in ts) \
+                    or ts[0].dtype not in (torch.float32, torch.float64):
+                # the kernel reads float32 or float64 lanes; other lanes
+                # widen exactly to float64 (integers below 2**53)
+                ts = [t.to(torch.float64) for t in ts]
+            x = torch.stack(ts, dim=1)
+            q = torch.from_numpy(np.asarray(weights, np.float64)).to(
+                x.device)
+            _scores, idx = ops.topk_similarity(x, q, k)
         self.runner._note_route("topk_similarity")
         return idx.cpu().numpy()
 

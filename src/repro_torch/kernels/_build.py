@@ -45,6 +45,8 @@ SIGNATURES = {
               [_vp, _vp, _vp, _ll, _i, _ull, _vp, _vp, _vp]),
     "topk": ("shark_topk",
              [_vp, _i, _vp, _ll, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
+    "topk_fused": ("shark_topk_fused",
+                   [_vp, _vp, _i, _vp, _ll, _i, _i, _ull, _vp, _vp, _vp]),
     "flash": ("shark_flash_attention_fwd",
               [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i]
               + [_ll] * 12 + [_vp]),
@@ -53,7 +55,7 @@ SIGNATURES = {
              _ll, _i, _i, _i, _i, _i, _vp, _vp, _vp]),
 }
 
-LIBRARY = {"bitpack": "decode"}
+LIBRARY = {"bitpack": "decode", "topk_fused": "topk"}
 
 # dtype codes of the C interfaces (enum DType in every source)
 DTYPE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,

@@ -48,6 +48,24 @@ def check_cuda_operand(t: torch.Tensor, name: str, n: int = None) -> None:
 _COUNT_LOCK = threading.Lock()
 
 
+def stream_ticket(tickets: dict, device: torch.device, stream: int,
+                  name: str) -> torch.Tensor:
+    """The fold ticket in `tickets` of `stream` (a raw handle) on `device`,
+    for a kernel whose last block folds the others' partials: one int32
+    zero, allocated at the first call on that stream (not inside a CUDA
+    graph capture: warm a call up on the capturing stream first); each
+    launch leaves it at 0 again.  Overlapping calls on two streams would
+    race on one shared word; calls on one stream run in order."""
+    key = (device.index, stream)
+    t = tickets.get(key)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}'s first call on a stream must come "
+                               f"before a CUDA graph capture on it")
+        t = tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
 def count_launch(launches: dict, name: str) -> None:
     """Add one to kernel `name`'s launch count in its module's `LAUNCHES`
     (wrappers run on executor threads, so the increment takes a lock)."""

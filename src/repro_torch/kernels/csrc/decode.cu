@@ -52,13 +52,34 @@
 //     columns' constants are staged in shared memory once a block: read
 //     from the parameters by a column that differs across a warp, the
 //     constant bank serves one address at a time (0.025 ms, H100);
-//   * rle_decode: one thread per position binary-searches the cumulative
-//     exclusive run ends for the number of ends <= position (side="right"),
-//     clamps it to r - 1 as the TPU kernel does, and gathers the run value.
+//   * rle_decode (and rle_decode_into, a strided destination of another
+//     dtype): position i takes run min(#{ends <= i}, r - 1), as the TPU
+//     kernel clamps.  A block decodes tiles of kRleTile consecutive
+//     positions.  For a tile it bounds the runs of its first and last
+//     position together, all threads at once: 256 samples of the ends
+//     split the interval left into 256 pieces, a __syncthreads_count
+//     picks the piece, until the ends between the two bounds fit in the
+//     stage (one dependent load at phase 3's 19,532 runs, where a search
+//     per position took about 15).  It stages those runs' ends and values
+//     in shared memory, and each thread finds the run of its 4
+//     consecutive positions there (for the first, a search that starts
+//     where evenly spread runs would put it: two loads at phase 3's runs
+//     of 8; a walk for the rest) and stores them 16 bytes at a time into
+//     a contiguous, aligned destination, one at a time otherwise.  A tile
+//     spans at most kRleTile runs of positive length, so only zero-length
+//     runs can outgrow the stage; such a tile searches the device-memory
+//     ends between its two bounds for every position instead.  The value
+//     is cast to the block's original dtype (an integer one; floats are
+//     exact in the values' dtype), then to the destination's, the
+//     conversions of decode_torch(enc).to(dt).  RLE keeps shark_decode's
+//     seven-argument entry: the destination's dtype, stride and the
+//     original dtype ride in the plan word's high bits.
 // No kernel allocates; each launches on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -224,60 +245,220 @@ bitpack_batch_kernel(const __grid_constant__ BitpackBatch batch, int count,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rle_decode_kernel(const int32_t* __restrict__ ends, const T* __restrict__ vals,
-                  long long r, long long n, T* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < n; i += stride) {
-    // number of ends <= i: the first index whose end exceeds i
-    long long lo = 0, hi = r;
-    while (lo < hi) {
-      const long long mid = (lo + hi) >> 1;
-      if (static_cast<long long>(__ldg(ends + mid)) <= i) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    out[i] = __ldg(vals + (lo < r - 1 ? lo : r - 1));
+constexpr int kRleTile = 1024;      // positions a block decodes at once
+constexpr int kRleStage = kRleTile;  // runs it stages
+
+// Bounds on #{i : ends[i] <= p} for p = p0 and p = p1 (non-decreasing
+// ends), by the whole block: each step samples the last end of 256 equal
+// pieces of the interval left, and __syncthreads_count of "sample <= p"
+// names the piece holding the answer.  It stops once the ends from the
+// first interval's start to the second's end fit in the stage (one step
+// at phase 3's 19,532 runs; none for up to kRleStage runs), or when both
+// answers are exact.  Every thread returns lo0 <= count(p0) and
+// hi1 >= count(p1).
+__device__ __forceinline__ void bound_ends(const int32_t* __restrict__ ends,
+                                           long long r, long long p0,
+                                           long long p1, long long* lo,
+                                           long long* hi) {
+  const int t = threadIdx.x;
+  long long lo0 = 0, hi0 = r, lo1 = 0, hi1 = r;   // answers in [lo, hi]
+  while (hi1 - lo0 >= kRleStage && (hi0 > lo0 || hi1 > lo1)) {
+    const long long st0 = (hi0 - lo0 + kThreads - 1) / kThreads;
+    const long long st1 = (hi1 - lo1 + kThreads - 1) / kThreads;
+    const long long s0 = st0 > 0 ? st0 : 1, s1 = st1 > 0 ? st1 : 1;
+    const long long i0 = lo0 + (t + 1) * s0 - 1, i1 = lo1 + (t + 1) * s1 - 1;
+    const bool f0 = i0 < hi0 && __ldg(ends + i0) <= p0;
+    const bool f1 = i1 < hi1 && __ldg(ends + i1) <= p1;
+    const long long n0 = __syncthreads_count(f0);
+    const long long n1 = __syncthreads_count(f1);
+    const long long h0 = lo0 + (n0 + 1) * s0 - 1;
+    const long long h1 = lo1 + (n1 + 1) * s1 - 1;
+    hi0 = h0 < hi0 ? h0 : hi0;
+    hi1 = h1 < hi1 ? h1 : hi1;
+    lo0 += n0 * s0;
+    lo1 += n1 * s1;
+  }
+  *lo = lo0;
+  *hi = hi1;
+}
+
+// a run value, cast to the block's original dtype, then to the output's
+template <typename V, typename O>
+__device__ __forceinline__ O rle_cast(V v, int odt) {
+  if constexpr (std::is_integral<V>::value) {
+    return orig_cast<O>(static_cast<long long>(v), odt);
+  } else {
+    return static_cast<O>(v);
   }
 }
 
-// the plan word's fields (kernels/dictdecode.py, DecodePlan.word)
+template <typename V, typename O>
+__global__ void __launch_bounds__(kThreads)
+rle_decode_kernel(const int32_t* __restrict__ ends, const V* __restrict__ vals,
+                  long long r, long long n, O* __restrict__ out,
+                  long long stride, int odt) {
+  __shared__ int32_t s_end[kRleStage];
+  __shared__ V s_val[kRleStage];
+  const int t = threadIdx.x;
+  const bool vec = stride == 1 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const long long tiles = (n + kRleTile - 1) / kRleTile;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long p0 = tile * kRleTile;
+    const long long pn = n - p0 < kRleTile ? n - p0 : kRleTile;
+    // runs a0 .. a1 hold the tile's positions: position p takes run
+    // min(a0 + #{ends[a0 .. a1] <= p}, r - 1)
+    long long a0, a1;
+    bound_ends(ends, r, p0, p0 + pn - 1, &a0, &a1);   // (barriers inside)
+    a0 = a0 < r - 1 ? a0 : r - 1;
+    a1 = a1 < r - 1 ? a1 : r - 1;
+    const int count = static_cast<int>(a1 - a0 + 1 < kRleStage + 1
+                                       ? a1 - a0 + 1 : kRleStage + 1);
+    const bool staged = count <= kRleStage;
+    if (staged) {
+      for (int i = t; i < count; i += kThreads) {
+        s_end[i] = __ldg(ends + a0 + i);
+        s_val[i] = __ldg(vals + a0 + i);
+      }
+    }
+    __syncthreads();
+    const int last = static_cast<int>(r - 1 - a0);   // the clamp, locally
+    for (int g = t; 4 * g < pn; g += kThreads) {
+      const long long p = p0 + 4 * g;
+      // runs of the group's positions, relative to a0
+      int idx[4];
+      if (staged) {
+        // #{staged ends <= p}: from the place runs spread evenly over the
+        // tile would give, galloping out, then a binary search between
+        int lo, hi;
+        const int guess = static_cast<int>((p - p0) * count / pn);
+        if (s_end[guess] <= p) {
+          lo = guess + 1;
+          hi = count;
+          for (int q = lo, step = 1; q < count; q += step, step <<= 1) {
+            if (s_end[q] > p) {
+              hi = q;
+              break;
+            }
+            lo = q + 1;
+          }
+        } else {
+          lo = 0;
+          hi = guess;
+          for (int q = guess - 1, step = 1; q >= 0; q -= step, step <<= 1) {
+            if (s_end[q] <= p) {
+              lo = q + 1;
+              break;
+            }
+            hi = q;
+          }
+        }
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (s_end[mid] <= p) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        idx[0] = lo;
+#pragma unroll
+        for (int u = 1; u < 4; ++u) {
+          while (lo < count && s_end[lo] <= p + u) ++lo;
+          idx[u] = lo;
+        }
+      } else {
+        const long long span = a1 - a0 + 1;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          long long lo = 0, hi = span;
+          while (lo < hi) {
+            const long long mid = (lo + hi) >> 1;
+            if (static_cast<long long>(__ldg(ends + a0 + mid)) <= p + u) {
+              lo = mid + 1;
+            } else {
+              hi = mid;
+            }
+          }
+          idx[u] = static_cast<int>(lo < last ? lo : last);
+        }
+      }
+      O o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = idx[u] < last ? idx[u] : last;
+        o[u] = rle_cast<V, O>(staged ? s_val[k] : __ldg(vals + a0 + k), odt);
+      }
+      if (vec && p + 4 <= n) {
+        store4(out + p, o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (p + u < n) out[(p + u) * stride] = o[u];
+      }
+    }
+    __syncthreads();          // the stage is read before the next tile's
+  }
+}
+
+// the plan word's fields (kernels/dictdecode.py, DecodePlan.word and, for
+// RLE, rle_word)
 struct Plan {
-  int op, dtype, staged, blocks;
+  int op, dtype, staged, blocks, out_dtype, odt;
+  long long stride;
   explicit Plan(unsigned long long w)
       : op(static_cast<int>(w & 3)), dtype(static_cast<int>((w >> 2) & 3)),
         staged(static_cast<int>((w >> 4) & 1)),
-        blocks(static_cast<int>((w >> 11) & 4095)) {}
+        blocks(static_cast<int>((w >> 11) & 4095)),
+        out_dtype(static_cast<int>((w >> 23) & 3)),
+        odt(static_cast<int>((w >> 25) & 7)),
+        stride(static_cast<long long>((w >> 32) & 0x7fffffffULL)) {}
 };
 
 constexpr long long kStageBytes = 48 * 1024;   // static shared memory
 
 template <typename T>
-int launch_typed(const Plan& pl, const int32_t* idx, const T* table,
-                 long long table_len, T* out, long long n,
-                 cudaStream_t stream) {
-  if (pl.op == kDict) {
-    if ((reinterpret_cast<uintptr_t>(out) & 15) != 0
-        || (pl.staged && table_len * static_cast<long long>(sizeof(T))
-                             > kStageBytes))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (pl.staged)
-      dict_decode_kernel<T, true><<<pl.blocks, kThreads,
-                                    table_len * sizeof(T), stream>>>(
-          idx, table, table_len, n, out);
-    else
-      dict_decode_kernel<T, false><<<pl.blocks, kThreads, 0, stream>>>(
-          idx, table, table_len, n, out);
-  } else {
-    rle_decode_kernel<T><<<pl.blocks, kThreads, 0, stream>>>(
+int launch_dict(const Plan& pl, const int32_t* idx, const T* table,
+                long long table_len, T* out, long long n,
+                cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(out) & 15) != 0
+      || (pl.staged && table_len * static_cast<long long>(sizeof(T))
+                           > kStageBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (pl.staged)
+    dict_decode_kernel<T, true><<<pl.blocks, kThreads,
+                                  table_len * sizeof(T), stream>>>(
         idx, table, table_len, n, out);
-  }
+  else
+    dict_decode_kernel<T, false><<<pl.blocks, kThreads, 0, stream>>>(
+        idx, table, table_len, n, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V, typename O>
+int launch_rle(const Plan& pl, const int32_t* ends, const void* vals,
+               long long r, void* out, long long n, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(vals) & (sizeof(V) - 1)) != 0
+      || (reinterpret_cast<uintptr_t>(out) & (sizeof(O) - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rle_decode_kernel<V, O><<<pl.blocks, kThreads, 0, stream>>>(
+      ends, static_cast<const V*>(vals), r, n, static_cast<O*>(out),
+      pl.stride, pl.odt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V>
+int launch_rle_to(const Plan& pl, const int32_t* ends, const void* vals,
+                  long long r, void* out, long long n, cudaStream_t stream) {
+  switch (pl.out_dtype) {
+    case kInt32:
+      return launch_rle<V, int32_t>(pl, ends, vals, r, out, n, stream);
+    case kInt64:
+      return launch_rle<V, long long>(pl, ends, vals, r, out, n, stream);
+    case kFloat32:
+      return launch_rle<V, float>(pl, ends, vals, r, out, n, stream);
+    default:
+      return launch_rle<V, double>(pl, ends, vals, r, out, n, stream);
+  }
 }
 
 }  // namespace
@@ -286,11 +467,14 @@ int launch_typed(const Plan& pl, const int32_t* idx, const T* table,
 //   dict (op 0):    idx = int32 codes (n), table = dictionary (table_len)
 //                   of the word's dtype; out has the dictionary's dtype
 //                   and is 16-byte aligned.
-//   rle (op 2):     idx = cumulative exclusive run ends (table_len),
-//                   table = run values (table_len); out has their dtype.
-// `word`: bits 0-1 op, 2-3 dtype (int32, int64, float32, float64), 4 stage
-// the dictionary in shared memory, 11-22 blocks.  Returns
-// cudaGetLastError() after the launch (0 on success), or
+//   rle (op 2):     idx = cumulative exclusive run ends (table_len, non-
+//                   decreasing), table = run values (table_len); out has
+//                   the word's out dtype and element stride.
+// `word`: bits 0-1 op, 2-3 dtype (int32, int64, float32, float64) of the
+// table, 4 stage the dictionary in shared memory, 11-22 blocks; RLE also
+// 23-24 the out dtype, 25-27 the values' original integer dtype (enum
+// OrigType; kI64 keeps the value) and 32-62 the out stride (>= 1).
+// Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments it rejects.
 extern "C" int shark_decode(const int32_t* idx, const void* table,
                             void* out, long long n, long long table_len,
@@ -302,20 +486,37 @@ extern "C" int shark_decode(const int32_t* idx, const void* table,
   if (n == 0) return 0;
   if ((pl.op != kDict && pl.op != kRle) || table_len < 1 || table == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (pl.op == kRle) {
+    if (pl.stride < 1) return static_cast<int>(cudaErrorInvalidValue);
+    switch (pl.dtype) {
+      case kInt32:
+        return launch_rle_to<int32_t>(pl, idx, table, table_len, out, n,
+                                      stream);
+      case kInt64:
+        return launch_rle_to<long long>(pl, idx, table, table_len, out, n,
+                                        stream);
+      case kFloat32:
+        return launch_rle_to<float>(pl, idx, table, table_len, out, n,
+                                    stream);
+      default:
+        return launch_rle_to<double>(pl, idx, table, table_len, out, n,
+                                     stream);
+    }
+  }
   switch (pl.dtype) {
     case kInt32:
-      return launch_typed(pl, idx, static_cast<const int32_t*>(table),
-                          table_len, static_cast<int32_t*>(out), n, stream);
+      return launch_dict(pl, idx, static_cast<const int32_t*>(table),
+                         table_len, static_cast<int32_t*>(out), n, stream);
     case kInt64:
-      return launch_typed(pl, idx, static_cast<const long long*>(table),
-                          table_len, static_cast<long long*>(out), n,
-                          stream);
+      return launch_dict(pl, idx, static_cast<const long long*>(table),
+                         table_len, static_cast<long long*>(out), n,
+                         stream);
     case kFloat32:
-      return launch_typed(pl, idx, static_cast<const float*>(table),
-                          table_len, static_cast<float*>(out), n, stream);
+      return launch_dict(pl, idx, static_cast<const float*>(table),
+                         table_len, static_cast<float*>(out), n, stream);
     default:
-      return launch_typed(pl, idx, static_cast<const double*>(table),
-                          table_len, static_cast<double*>(out), n, stream);
+      return launch_dict(pl, idx, static_cast<const double*>(table),
+                         table_len, static_cast<double*>(out), n, stream);
   }
 }
 

@@ -16,7 +16,15 @@ decode fused into the filter + aggregate scan.
     block's dtype, then to the destination's, as `decode_torch(enc).to(dt)`
     gives it;
   * `rle_decode(run_values, run_ends, n)` -> position i takes
-    `run_values[min(#{ends <= i}, r - 1)]`, run_ends cumulative exclusive;
+    `run_values[min(#{ends <= i}, r - 1)]`, run_ends cumulative exclusive
+    (any non-decreasing int32 ends: zero-length runs and n past the last
+    end included).  It is the one-column case of
+    `rle_decode_into(run_values, run_ends, n, dst, orig_dtype)`, which
+    writes the n values into a strided (n,) destination of int32, int64,
+    float32 or float64 — a column of a train step's feature matrix — each
+    run value cast to the block's original dtype (`orig_dtype`, default
+    the values' own), then to the destination's, as
+    `decode_torch(enc).to(dt)` gives it;
   * `fused_decode_scan(codes, dictionary, agg_col, lo, hi)` is `colscan`
     with the filter value of row i taken as `dictionary[codes[i]]`; a code
     outside [0, len(dictionary)) — the pad code d of the TPU kernel — reads
@@ -26,7 +34,9 @@ On CUDA tensors the wrappers launch `csrc/decode.cu` (the first three;
 they replace repro/kernels/dictdecode.py:dict_decode, bitpack_decode and
 rle_decode, each one pass bound by its bytes, see the note in the source;
 a `bitpack_decode_into` call is one launch per MAX_BITPACK_COLUMNS
-blocks, their descriptors passed by value in the kernel's parameters)
+blocks, their descriptors passed by value in the kernel's parameters; an
+`rle_decode_into` call one launch, tiles of RLE_TILE positions a block
+with their runs staged in shared memory)
 and `csrc/scan.cu` with its DictGather policy (fused_decode_scan, which
 replaces repro/kernels/dictdecode.py:fused_decode_scan: the int32 codes
 stream from HBM, the dictionary stays in L1, and the decoded filter column
@@ -37,8 +47,10 @@ The decodes run on the training path once per encoded block and step
 the host's cost per call is most of the call: a call checks only what the
 C side cannot (dtypes, ranks, contiguity, one device, sizes), makes at
 most one allocation and one ctypes call of plain arguments (dict and RLE:
-input, table, output, n, table length, the plan word `decode_plan`
-computed once per size, the stream, as groupby_sum's; bit-pack: the
+input, table, output, n, table length, the plan word `decode_plan` (RLE:
+`rle_word`, which adds the destination's dtype and stride and the
+original dtype) computed once per size, the stream, as groupby_sum's;
+bit-pack: the
 packed descriptors, their count, n, its plan word, the stream).
 decode.cu validates what it can and returns an error code, which raises.
 """
@@ -72,9 +84,17 @@ BITPACK_ORIG_CODES = {t: i for i, t in enumerate(
 SMEM_BYTES = 48 * 1024      # static shared memory a block may stage
 # rows a dict_decode thread decodes over its grid-stride loop: two 4-code
 # steps, of one, two and four the least device time at phase 3's 156,250
-# codes on an H100 (scripts/kernel_probe.py decode); rle_decode, one row a
-# thread a step, keeps grid_blocks(n)'s 4 (bit-pack: BITPACK_TILE_ROWS)
+# codes on an H100 (scripts/kernel_probe.py decode); bit-pack and RLE
+# take tiles (BITPACK_TILE_ROWS, RLE_TILE)
 ROWS_PER_THREAD = 8
+# positions (and staged runs) of an RLE tile, 4 a thread: 1,024 took the
+# least device time at phase 3's column on an H100, 2,048 more
+# (scripts/kernel_probe.py rle)
+RLE_TILE = 1024
+RLE_MAX_BLOCKS = 2112       # 16 blocks on each of the H100's 132 SMs
+# the conversion of a run value: its original integer dtype's code
+# (BITPACK_ORIG_CODES); int64's keeps the value, as floats are kept
+RLE_KEEP = BITPACK_ORIG_CODES[torch.int64]
 
 _OP_DICT, _OP_BITPACK, _OP_RLE = 0, 1, 2
 
@@ -113,6 +133,24 @@ def bitpack_plan(n: int) -> DecodePlan:
 
 
 @functools.lru_cache(maxsize=4096)
+def rle_plan(n: int) -> DecodePlan:
+    """The grid of an RLE launch: a block a tile of RLE_TILE positions, at
+    most RLE_MAX_BLOCKS blocks, which then walk further tiles."""
+    return DecodePlan(max(1, min(RLE_MAX_BLOCKS, -(-int(n) // RLE_TILE))),
+                      False)
+
+
+@functools.lru_cache(maxsize=4096)
+def rle_word(n: int, dtype: torch.dtype, out_dtype: torch.dtype,
+             odt: int = RLE_KEEP, stride: int = 1) -> int:
+    """decode.cu's plan word of an RLE call: rle_plan(n)'s, the values'
+    dtype, and bits 23-24 the destination's dtype, 25-27 the original
+    dtype's code, 32-62 the destination's element stride."""
+    return (rle_plan(n).word(_OP_RLE, _TABLE_CODES[dtype])
+            | _TABLE_CODES[out_dtype] << 23 | odt << 25 | stride << 32)
+
+
+@functools.lru_cache(maxsize=4096)
 def _word(op: int, n: int, d: int, dtype: torch.dtype) -> int:
     """The plan word of one call, computed once per size and dtype (d: the
     table's length)."""
@@ -121,7 +159,7 @@ def _word(op: int, n: int, d: int, dtype: torch.dtype) -> int:
     elif op == _OP_BITPACK:
         plan = bitpack_plan(n)
     else:
-        plan = DecodePlan(grid_blocks(n), False)
+        return rle_word(n, dtype, dtype)
     return plan.word(op, _TABLE_CODES[dtype])
 
 
@@ -173,6 +211,15 @@ def rle_decode_plain(run_values: torch.Tensor, run_ends: torch.Tensor,
     pos = torch.arange(n, device=run_ends.device, dtype=run_ends.dtype)
     idx = torch.searchsorted(run_ends, pos, right=True)
     return run_values[idx.clamp(max=run_values.shape[0] - 1)]
+
+
+def rle_decode_into_plain(run_values: torch.Tensor, run_ends: torch.Tensor,
+                          n: int, dst: torch.Tensor,
+                          orig_dtype: torch.dtype = None) -> None:
+    """Plain PyTorch version of the `into` kernel (any device): the values,
+    the cast to the original dtype, one cast-and-place copy."""
+    v = rle_decode_plain(run_values, run_ends, n)
+    dst.copy_(v if orig_dtype is None else v.to(orig_dtype))
 
 
 def fused_decode_scan_plain(codes: torch.Tensor, dictionary: torch.Tensor,
@@ -350,18 +397,63 @@ def rle_decode(run_values: torch.Tensor, run_ends: torch.Tensor,
                n: int) -> torch.Tensor:
     if on_cpu(run_values, run_ends):
         return rle_decode_plain(run_values, run_ends, n)
+    out = torch.empty(int(n), dtype=run_values.dtype,
+                      device=run_values.device)
+    rle_decode_into(run_values, run_ends, n, out)
+    return out
+
+
+def rle_odt(values_dtype: torch.dtype, orig_dtype: torch.dtype) -> int:
+    """decode.cu's code of the cast an RLE value takes before the
+    destination's: integer values to their original integer dtype; any
+    other original dtype (a float, bool) holds the values exactly, so they
+    keep them."""
+    if orig_dtype is None or values_dtype.is_floating_point:
+        return RLE_KEEP
+    return BITPACK_ORIG_CODES.get(orig_dtype, RLE_KEEP)
+
+
+def _check_rle(run_values: torch.Tensor, run_ends: torch.Tensor, n: int,
+               dst: torch.Tensor) -> None:
+    """What decode.cu cannot see: dtypes, ranks, contiguity, sizes, the
+    destination's stride, one device."""
     _check_table(run_values, "run_values")
     _check_int32(run_ends, "run_ends")
     if run_ends.shape[0] != run_values.shape[0]:
         raise ValueError(f"{run_values.shape[0]} run values but "
                          f"{run_ends.shape[0]} run ends")
-    out = torch.empty(int(n), dtype=run_values.dtype,
-                      device=run_values.device)
-    if n:
+    if dst.dtype not in _TABLE_CODES or dst.dim() != 1 \
+            or dst.shape[0] != n or not 1 <= dst.stride(0) < 2 ** 31:
+        raise ValueError(f"the destination must be a ({n},) int32, int64, "
+                         f"float32 or float64 vector of positive stride, got "
+                         f"{tuple(dst.shape)} {dst.dtype}")
+    if not n < 2 ** 31:
+        raise ValueError(f"rle_decode takes fewer than 2**31 positions, got "
+                         f"{n}")
+    if not (run_values.get_device() == run_ends.get_device()
+            == dst.get_device()):
+        raise ValueError(f"rle_decode operands on two devices: "
+                         f"{run_values.device}, {run_ends.device}, "
+                         f"{dst.device}")
+
+
+def rle_decode_into(run_values: torch.Tensor, run_ends: torch.Tensor, n: int,
+                    dst: torch.Tensor, orig_dtype: torch.dtype = None) -> None:
+    """Decode n positions into `dst` (a strided (n,) view of int32, int64,
+    float32 or float64): on the card one launch, counted as rle_decode."""
+    n = int(n)
+    # the card's test first: cheaper than on_cpu on this per-step path
+    if not (dst.is_cuda and run_values.is_cuda and run_ends.is_cuda) \
+            and on_cpu(run_values, run_ends, dst):
+        rle_decode_into_plain(run_values, run_ends, n, dst, orig_dtype)
+        return
+    _check_rle(run_values, run_ends, n, dst)
+    if n:     # no runs is decode.cu's to refuse
         r = run_values.shape[0]
-        _launch_decode("rle_decode", run_ends, run_values, out, int(n), r,
-                       _word(_OP_RLE, int(n), r, run_values.dtype))
-    return out
+        _launch_decode("rle_decode", run_ends, run_values, dst, n, r,
+                       rle_word(n, run_values.dtype, dst.dtype,
+                                rle_odt(run_values.dtype, orig_dtype),
+                                dst.stride(0)))
 
 
 def fused_decode_scan(codes: torch.Tensor, dictionary: torch.Tensor,

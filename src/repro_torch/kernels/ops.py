@@ -87,6 +87,13 @@ def rle_decode(run_values, run_ends, n: int) -> torch.Tensor:
     return _dd.rle_decode(run_values, run_ends, n)
 
 
+def rle_decode_into(run_values, run_ends, n: int, dst,
+                    orig_dtype=None) -> None:
+    """Runs expanded to n positions, cast to `orig_dtype` (default the
+    values' own), then into the (n,) destination `dst`: one launch."""
+    _dd.rle_decode_into(run_values, run_ends, n, dst, orig_dtype)
+
+
 def groupby_sum(codes, values, num_groups: int) -> torch.Tensor:
     """(num_groups, 2) per-group [sum, count]."""
     return _gb.groupby_sum(codes, values, num_groups)
@@ -110,6 +117,12 @@ def topk_similarity(x, q, k: int):
     `q` by dot product: scores descending, ties by ascending row, exactly
     `np.argsort(-scores, kind="stable")[:k]` (DESIGN.md §15.3)."""
     return _tk.topk_similarity(x, q, k)
+
+
+def topk_similarity_lanes(lanes, weights, k: int):
+    """`topk_similarity(torch.stack(lanes, 1), weights, k)`, its lane
+    columns read in place and its float64 weights a host sequence."""
+    return _tk.topk_similarity_lanes(lanes, weights, k)
 
 
 def train_grad(x, y, w, kind: str = "logistic") -> torch.Tensor:

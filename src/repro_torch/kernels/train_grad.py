@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from ._common import count_launch, grid_blocks, on_cpu
+from ._common import count_launch, grid_blocks, on_cpu, stream_ticket
 
 LAUNCHES = {"train_grad": 0}
 ROUTES = {"registers": 0, "chunked": 0}
@@ -89,19 +89,9 @@ _TICKETS = {}
 
 
 def _ticket(device: torch.device, stream: int) -> torch.Tensor:
-    """The fold ticket of `stream` (a raw handle) on `device`: one int32
-    zero, allocated at the first call on that stream (not inside a CUDA
-    graph capture: warm a call up on the capturing stream first); each
-    launch leaves it at 0 again.  Overlapping calls on two streams would
-    race on one shared word; calls on one stream run in order."""
-    key = (device.index, stream)
-    t = _TICKETS.get(key)
-    if t is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("train_grad's first call on a stream must "
-                               "come before a CUDA graph capture on it")
-        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return t
+    """The fold ticket of `stream` (a raw handle) on `device`
+    (`_common.stream_ticket`)."""
+    return stream_ticket(_TICKETS, device, stream, "train_grad")
 
 
 def stable_sigmoid(z: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from ..core.batch import PartitionBatch
-from ..core.compression import Encoding, bitpack_block, decode_torch
+from ..core.compression import (Encoding, bitpack_block, decode_torch,
+                                rle_decode_into)
 from ..core.expr import ColumnVal, to_tensor, torch_dtype
 from ..core.frame import SharkFrame
 from ..core.rdd import OneToOneDependency, RDD, TaskContext
@@ -175,10 +176,10 @@ def _rows(sig: tuple, args) -> int:
 def _assemble(sigs: tuple, col_args, label_sig, label_args, dt, dev):
     """(x (n, d), y (n,) or None) in `dt` on `dev`, in one allocation.  One
     `bitpack_decode_into` call writes every BITPACK block, features and
-    label, straight into its column; every
-    other column is decoded as `decode_torch` does and placed with one
-    cast-and-copy.  The values are those of `decode_torch(enc).to(dt)`
-    stacked."""
+    label, straight into its column, and one `rle_decode_into` call each
+    RLE block; every other column is decoded as `decode_torch` does and
+    placed with one cast-and-copy.  The values are those of
+    `decode_torch(enc).to(dt)` stacked."""
     n, d = _rows(sigs[0], col_args[0]), len(sigs)
     buf = torch.empty(n * (d + (label_sig is not None)), dtype=dt,
                       device=dev)
@@ -194,7 +195,9 @@ def _assemble(sigs: tuple, col_args, label_sig, label_args, dt, dev):
         blocks, dests = zip(*packed)
         ops.bitpack_decode_into(blocks, dests, n)
     for s, a, dst in targets:
-        if s[0] != "bitpack":
+        if s[0] == "rle":
+            rle_decode_into(a[0], dst, dev)
+        elif s[0] != "bitpack":
             dst.copy_(_decode_on_device(s, a, dev))
     return x, y
 

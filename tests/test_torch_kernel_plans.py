@@ -6,8 +6,10 @@ route (`_check_tma`); the SSD wrapper picks one of two by dtype and (P, N)
 (`ssd_route`) and checks cp.async's alignment rules before its tensor-core
 route (`_check_tc`); the group wrapper sizes its one launch of
 csrc/group.cu with `group_plan`, the decode wrappers theirs with
-`decode_plan` and `bitpack_plan` (and the batched bit-pack decode packs
-its block descriptors), the gradient its with `train_plan`.  The kernels
+`decode_plan`, `bitpack_plan` and `rle_plan` / `rle_word` (and the
+batched bit-pack decode packs its block descriptors), the gradient its
+with `train_plan`, the top-k its with `topk_plan` (and its lanes entry
+packs the lanes' addresses and weights).  The kernels
 themselves run only on the card (tests/test_torch_kernels.py, `cuda`
 marker); what is tested here is pure Python that the CPU reaches.
 """
@@ -21,6 +23,7 @@ from repro_torch.kernels import dictdecode as tdd
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import groupby_mxu as tgb
 from repro_torch.kernels import ssd_scan as tss
+from repro_torch.kernels import topk_similarity as ttk
 from repro_torch.kernels import train_grad as ttg
 
 BLOCK_SMEM_LIMIT = 232448      # 227 KB, the most an H100 block may have
@@ -456,14 +459,19 @@ def test_decode_plan_word_round_trips(op, n, d, code):
 
 
 def test_decode_word_bitpack_and_rle_keep_four_rows_a_thread():
-    """Only dict_decode's kernel steps 4 codes at a time; RLE decodes one
-    row a thread a step over grid_blocks(n), and bit-pack a 128-row tile
-    of every column a block (phase 3's partition: 1,221 blocks), at most
-    BITPACK_MAX_BLOCKS, whatever the widths."""
+    """Only dict_decode's kernel steps over its rows by a grid of n alone;
+    RLE decodes a 1,024-position tile a block, four positions a thread
+    (phase 3's column: 153 blocks), at most RLE_MAX_BLOCKS, and bit-pack a
+    128-row tile of every column a block (phase 3's partition: 1,221
+    blocks), at most BITPACK_MAX_BLOCKS, whatever the widths."""
     n = 156_250
     w = tdd._word(tdd._OP_RLE, n, 7, torch.float64)
-    assert (w >> 11) & 4095 == tdd.grid_blocks(n) == 153
+    assert (w >> 11) & 4095 == tdd.rle_plan(n).blocks == 153
     assert (w >> 4) & 1 == 0
+    assert tdd.RLE_TILE == 1024 == 4 * 256
+    assert tdd.rle_plan(1).blocks == tdd.rle_plan(1024).blocks == 1
+    assert tdd.rle_plan(1025).blocks == 2
+    assert tdd.rle_plan(2 ** 31 - 1).blocks == tdd.RLE_MAX_BLOCKS < 2 ** 12
     w = tdd._word(tdd._OP_BITPACK, n, 0, torch.float32)
     assert (w >> 11) & 4095 == tdd.bitpack_plan(n).blocks == 1221
     assert w & 3 == tdd._OP_BITPACK and (w >> 2) & 3 == 2
@@ -765,3 +773,249 @@ def _pack_words(vals, width):
     for j in range(per):
         words |= padded[j::per] << np.uint32(j * width)
     return words
+
+
+# -- the top-k's routes, grid and lanes operand -----------------------------
+
+
+@pytest.mark.parametrize("k,route", [(ttk.FUSED_MAX_K - 1, "fused"),
+                                     (ttk.FUSED_MAX_K, "fused"),
+                                     (ttk.FUSED_MAX_K + 1, "rounds")])
+@pytest.mark.parametrize("lanes", [False, True])
+def test_topk_route_at_the_fused_limit(k, route, lanes):
+    """Route `fused` keeps m = min(k, n) <= FUSED_MAX_K rows a block list;
+    one more takes the tiles-plus-rounds kernels.  A k above the limit
+    over fewer rows is still fused: m counts, not k."""
+    plan = ttk.topk_plan(10 ** 6, 64, k, torch.float32, lanes)
+    assert plan.route == route and plan.m == k
+    assert (plan.blocks >= 1) == (route == "fused")
+    assert ttk.topk_plan(1000, 64, k, torch.float32, lanes).route == "fused"
+
+
+@pytest.mark.parametrize("n,tiles,blocks", [(1, 1, 1), (256, 1, 1),
+                                            (15_625, 62, 62),
+                                            (15_872, 62, 62)])
+def test_topk_grid_is_one_block_a_tile_up_to_the_fold(n, tiles, blocks):
+    """Phase 4's partition (15,625 rows) is 62 tiles of 256, one block
+    each; one tile is one block, which writes its list out itself."""
+    plan = ttk.topk_plan(n, 64, 100, torch.float32)
+    assert (plan.tiles, plan.blocks, plan.m) == (tiles, blocks, min(100, n))
+    assert plan.word() == blocks    # the threshold fold: bit 12 clear
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+@pytest.mark.parametrize("m", [1, 100, 1000, ttk.FUSED_MAX_K])
+def test_topk_grid_past_the_fold_takes_several_tiles_a_block(lanes, m):
+    """With G + 1 tiles the grid stays at G, the most blocks whose lists
+    one block folds in shared memory (at most one an SM); one block then
+    walks two tiles.  The launch's shared memory fits a block."""
+    g = ttk.max_fused_blocks(64, lanes, m)
+    assert 1 <= g <= ttk.FUSED_MAX_BLOCKS
+    assert ttk.fused_smem(64, lanes, m, g) <= ttk.SMEM_LIMIT \
+        < BLOCK_SMEM_LIMIT
+    assert g == ttk.FUSED_MAX_BLOCKS \
+        or ttk.fused_smem(64, lanes, m, g + 1) > ttk.SMEM_LIMIT
+    plan = ttk.topk_plan((g + 1) * 256, 64, m, torch.float32, lanes)
+    assert (plan.tiles, plan.blocks) == (g + 1, g)
+    plan = ttk.topk_plan(g * 256, 64, m, torch.float32, lanes)
+    assert (plan.tiles, plan.blocks) == (g, g)
+
+
+def test_topk_shared_memory_follows_topk_cu_layout():
+    """fused_smem is topk.cu's Layout: at phase 4's plan the scoring part
+    (q, two 36 KB stages, a tile's scores, sort exchange and list, two
+    lists of 100) is 84,832 bytes; the fold, the larger of the fast path
+    (16-entry prefixes of 62 lists, their subset, 256 survivor slots) and
+    the merge rounds (62 lists, 31 for their output), then lengths,
+    counts and offsets, 112,412, which a block asks for."""
+    score = 8 * 64 + 2 * 256 * 144 + 32 * 256 + 24 * 100
+    fast = 32 * 62 * 16 + 24 * 256
+    rounds = 12 * 62 * 100 + 12 * 31 * 100
+    fold = max(fast, rounds) + 4 * (3 * 62 + 1) + 4 * 16
+    assert (score, fast, rounds, fold) == (84_832, 37_888, 111_600, 112_412)
+    assert ttk.fused_smem(64, False, 100, 62) == fold
+    # the lanes entry stages nothing: one block's tile and lists outweigh
+    # its fold
+    assert ttk.fused_smem(64, True, 100, 1) == 32 * 256 + 24 * 100
+    # a wide x stages the same ring: q grows, the stages do not
+    assert ttk.fused_smem(4096, False, 1, 1) == 8 * 4096 + 2 * 256 * 144 \
+        + 32 * 256 + 24
+
+
+@pytest.mark.parametrize("fold", ttk.FOLDS)
+@pytest.mark.parametrize("n,k", [(1, 1), (15_625, 100), (10 ** 6, 2048),
+                                 (10 ** 6, 5000)])
+def test_topk_word_and_buffer_round_trip(fold, n, k):
+    """topk.cu reads G from bits 0-11 and the fold from bit 12; the one
+    allocation holds out_r, out_s, then G lists of m float64 scores and m
+    int32 rows (fused), or four lists of tiles * min(m, 256) entries
+    (rounds)."""
+    plan = ttk.topk_plan(n, 64, k, torch.float64)._replace(fold=fold)
+    m = min(n, k)
+    if plan.route == "fused":
+        w = plan.word()
+        assert w & 4095 == plan.blocks and (w >> 12) == ttk.FOLDS.index(fold)
+        assert 0 <= plan.buffer_words() * 8 - (16 * m + 12 * plan.blocks * m) \
+            < 8
+    else:
+        assert plan.buffer_words() == 2 * m + 4 * plan.tiles * 256
+
+
+def test_topk_plan_raises_outside_its_lanes_rows_and_dtypes():
+    with pytest.raises(TypeError):
+        ttk.topk_plan(10, 4, 3, torch.bfloat16)
+    with pytest.raises(ValueError):
+        ttk.topk_plan(10, ttk.MAX_DIMS + 1, 3, torch.float32)
+    with pytest.raises(ValueError):
+        ttk.topk_plan(10, ttk.MAX_LANES + 1, 3, torch.float32, lanes=True)
+    with pytest.raises(ValueError):
+        ttk.topk_plan(2 ** 31 - 1, 4, 3, torch.float32)
+    assert ttk.topk_plan(10, ttk.MAX_LANES, 3, torch.float32,
+                         lanes=True).route == "fused"
+
+
+def test_topk_fused_signature():
+    """shark_topk_fused(x, lanes, x_dt, q, n, d, m, word, buf, ticket,
+    stream): pointers as c_void_p, n as c_longlong, the word unsigned."""
+    ct = _build.ctypes
+    assert _build.SIGNATURES["topk_fused"] == ("shark_topk_fused", [
+        ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_longlong,
+        ct.c_int, ct.c_int, ct.c_ulonglong, ct.c_void_p, ct.c_void_p,
+        ct.c_void_p])
+    assert _build.LIBRARY["topk_fused"] == "topk"
+
+
+def test_topk_lane_descriptors_pack_addresses_then_weights():
+    """The lanes operand: d addresses, then the d float64 weights' bits."""
+    lanes = [torch.arange(5, dtype=torch.float32) + j for j in range(3)]
+    w = np.array([0.5, -2.0, np.pi])
+    desc = ttk.pack_lane_descriptors(lanes, w)
+    assert desc.dtype == np.int64 and desc.shape == (6,)
+    assert list(desc[:3]) == [t.data_ptr() for t in lanes]
+    np.testing.assert_array_equal(desc[3:].view(np.float64), w)
+
+
+@pytest.mark.parametrize("count", [0, ttk.MAX_LANES + 1])
+def test_topk_lane_descriptors_refuse_what_the_parameters_cannot_hold(count):
+    lanes = [torch.zeros(4)] * count
+    with pytest.raises(ValueError, match="lanes"):
+        ttk.pack_lane_descriptors(lanes, np.zeros(count))
+    with pytest.raises(ValueError):
+        ttk.pack_lane_descriptors([torch.zeros(4)] * 2, np.zeros(3))
+
+
+def test_topk_search_route_names_the_lanes_it_can_read_in_place():
+    f32 = [torch.zeros(10) for _ in range(64)]
+    assert ttk.search_route(f32) == "lanes"
+    assert ttk.search_route([t.double() for t in f32]) == "lanes"
+    assert ttk.search_route(f32[:1]) == "lanes"
+    assert ttk.search_route(f32[:-1] + [torch.zeros(10, dtype=torch.float64)]
+                            ) == "stacked"                  # mixed dtypes
+    assert ttk.search_route([t.long() for t in f32]) == "stacked"
+    assert ttk.search_route([torch.zeros(20)[::2]] * 3) == "stacked"
+    # a one-row column of a matrix keeps the matrix's stride: contiguous
+    one = torch.zeros(1, 8)
+    assert ttk.search_route([one[:, j].contiguous() for j in range(8)]) \
+        == "lanes"
+    assert ttk.search_route([torch.zeros(10)] * 2 + [torch.zeros(9)]) \
+        == "stacked"
+    assert ttk.search_route([torch.zeros(10)] * (ttk.MAX_LANES + 1)) \
+        == "stacked"
+    assert ttk.search_route([]) == "stacked"
+
+
+def test_topk_routes_are_counted_only_on_the_card():
+    """On the CPU neither entry launches: the kernel routes stay still."""
+    before, launches = dict(ttk.ROUTES), dict(ttk.LAUNCHES)
+    x = torch.rand(300, 4, dtype=torch.float64)
+    ttk.topk_similarity(x, torch.rand(4, dtype=torch.float64), 5)
+    ttk.topk_similarity_lanes(list(x.T.contiguous()), np.ones(4), 5)
+    assert ttk.ROUTES == before and ttk.LAUNCHES == launches
+    assert set(ttk.ROUTES) == {"fused", "rounds", "lanes", "stacked"}
+
+
+def test_topk_fold_ticket_is_one_word_per_device_and_stream(monkeypatch):
+    monkeypatch.setattr(ttk, "_TICKETS", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(_build, "stream_handle", lambda dev: 7)
+    dev = torch.device("cpu")
+    first = ttk._ticket(dev)
+    assert first.dtype == torch.int32 and first.tolist() == [0]
+    assert ttk._ticket(dev) is first
+    monkeypatch.setattr(_build, "stream_handle", lambda dev: 8)
+    assert ttk._ticket(dev) is not first
+    monkeypatch.setattr(_build, "stream_handle", lambda dev: 9)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="topk_similarity's first call"):
+        ttk._ticket(dev)
+
+
+# -- RLE's tiles and plan word --------------------------------------------
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 1), (1024, 1), (1025, 2),
+                                      (156_250, 153), (2_162_688, 2112),
+                                      (2_162_689, 2112), (2 ** 31 - 1, 2112)])
+def test_rle_plan_is_a_block_a_tile_up_to_the_cap(n, blocks):
+    assert tdd.rle_plan(n).blocks == blocks
+    assert not tdd.rle_plan(n).staged
+
+
+@pytest.mark.parametrize("vals,out", [(torch.float64, torch.float32),
+                                      (torch.int32, torch.int64),
+                                      (torch.int64, torch.float64),
+                                      (torch.float32, torch.int32)])
+@pytest.mark.parametrize("stride", [1, 12, 2 ** 31 - 1])
+@pytest.mark.parametrize("orig", [torch.int8, torch.uint64, None])
+def test_rle_word_round_trips(vals, out, stride, orig):
+    """decode.cu's Plan reads RLE's op (0-1), the values' dtype (2-3),
+    blocks (11-22), the destination's dtype (23-24), the original dtype
+    (25-27) and the stride (32-62) back; bits 4-10 and 28-31 stay clear."""
+    n = 156_250
+    odt = tdd.rle_odt(vals, orig)
+    w = tdd.rle_word(n, vals, out, odt, stride)
+    codes = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+             torch.float64: 3}
+    assert w & 3 == tdd._OP_RLE and (w >> 2) & 3 == codes[vals]
+    assert (w >> 4) & 127 == 0 and (w >> 28) & 15 == 0
+    assert (w >> 11) & 4095 == 153
+    assert (w >> 23) & 3 == codes[out] and (w >> 25) & 7 == odt
+    assert (w >> 32) == stride < 2 ** 31
+    assert _build.ctypes.c_ulonglong(w).value == w
+
+
+def test_rle_casts_integer_values_through_their_original_dtype_only():
+    """Integer run values take their block's original integer dtype (the
+    kernel's OrigType codes); float values, and any other original dtype,
+    keep the value (int64's code)."""
+    keep = tdd.BITPACK_ORIG_CODES[torch.int64]
+    assert tdd.RLE_KEEP == keep
+    assert tdd.rle_odt(torch.int64, torch.int8) == 0
+    assert tdd.rle_odt(torch.int64, torch.uint64) == 7
+    assert tdd.rle_odt(torch.int32, torch.uint16) == 3
+    assert tdd.rle_odt(torch.int64, None) == keep
+    assert tdd.rle_odt(torch.int64, torch.bool) == keep
+    assert tdd.rle_odt(torch.float64, torch.float16) == keep
+    assert tdd.rle_odt(torch.float64, torch.int8) == keep
+
+
+def test_rle_decode_into_raises_on_what_the_c_side_cannot_check():
+    """dtypes, ranks, sizes, the destination and one device are the
+    wrapper's to check; decode.cu refuses no runs and misalignment."""
+    vals = torch.zeros(3, dtype=torch.float64)
+    ends = torch.zeros(3, dtype=torch.int32)
+    dst = torch.zeros(8, dtype=torch.float32)
+    tdd._check_rle(vals, ends, 8, dst)
+    tdd._check_rle(vals, ends, 4, torch.zeros((4, 12))[:, 3])
+    with pytest.raises(ValueError, match="destination"):
+        tdd._check_rle(vals, ends, 7, dst)
+    with pytest.raises(ValueError, match="destination"):
+        tdd._check_rle(vals, ends, 8, dst.to(torch.int16))
+    with pytest.raises(ValueError, match="run ends"):
+        tdd._check_rle(vals, ends[:2], 8, dst)
+    with pytest.raises(TypeError):
+        tdd._check_rle(vals, ends.long(), 8, dst)
+    with pytest.raises(ValueError):          # a CPU / meta mix
+        tdd.rle_decode_into(vals, ends, 8, dst.to("meta"))

@@ -253,6 +253,37 @@ def test_rle_decode_matches_reference(runs, n, dtype):
         tops.rle_decode(_t(vals), _t(ends), total + 7).numpy(), past)
 
 
+@pytest.mark.parametrize("kind", ["ones", "one", "zeros", "past"])
+@pytest.mark.parametrize("dst_dtype", [torch.float32, torch.float64,
+                                       torch.int64])
+def test_rle_decode_into_matches_reference_cast_into_a_column(kind,
+                                                              dst_dtype):
+    """rle_decode_into a strided column of a row-major matrix equals the
+    reference's rle_decode cast to that column's dtype: runs of 1, one
+    run, zero-length runs, and n past the last end (which clamps to the
+    last run); the rest of the matrix untouched."""
+    rng = np.random.default_rng(len(kind))
+    n = 1500
+    if kind == "ones":
+        lens = np.ones(n, np.int64)
+    elif kind == "one":
+        lens = np.array([n])
+    elif kind == "zeros":
+        lens = rng.integers(0, 4, n)
+        lens[-1] += max(0, n - lens.sum())
+    else:
+        lens = rng.integers(1, 9, 100)
+    ends = np.cumsum(lens).astype(np.int32)
+    vals = (rng.normal(size=len(lens)) * 50).astype(np.float64)
+    with jax.enable_x64():
+        want = np.asarray(jops.rle_decode(vals, ends, n))
+    x = torch.full((n, 5), -1, dtype=dst_dtype)
+    tops.rle_decode_into(_t(vals), _t(ends), n, x[:, 2])
+    np.testing.assert_array_equal(x[:, 2].numpy(),
+                                  torch.from_numpy(want).to(dst_dtype))
+    assert bool((x[:, [0, 1, 3, 4]] == -1).all())
+
+
 # -- topk_similarity and train_grad (tests/test_kernels_topk.py) ---------
 
 
@@ -336,6 +367,46 @@ def test_topk_similarity_nan_scores_rank_last():
     q = np.array([1.0])
     s, i = tops.topk_similarity(_t(x), _t(q), 10)
     np.testing.assert_array_equal(i.numpy(), _topk_oracle(x, q, 10)[1])
+
+
+def _lanes_both(x, q, k):
+    """(reference over x, port's lanes entry over x's columns)."""
+    with jax.enable_x64():
+        want = jops.topk_similarity(x, q, k)
+    lanes = [_t(np.ascontiguousarray(x[:, j])) for j in range(x.shape[1])]
+    got_s, got_i = tops.topk_similarity_lanes(lanes, q, k)
+    assert got_s.dtype == torch.float64 and got_i.dtype == torch.int64
+    return want, (got_s.numpy(), got_i.numpy())
+
+
+@pytest.mark.parametrize("case", ["ties", "continuous32", "continuous64",
+                                  "all_tied", "k_past_n"])
+def test_topk_similarity_lanes_matches_reference(case):
+    """The lanes entry (its plain version here: the stacked lanes) against
+    the reference kernel over the matrix: ids exact, scores to rtol 1e-12
+    (exact against the float64 oracle on integer lanes)."""
+    rng = np.random.default_rng(len(case))
+    n, d, k = 3000, 12, 40
+    if case == "ties":
+        x = rng.integers(-4, 5, size=(n, d)).astype(np.float64)
+        q = rng.integers(-3, 4, size=d).astype(np.float64)
+    elif case == "all_tied":
+        x, q = np.ones((777, 6), np.float32), np.arange(6, dtype=np.float64)
+    elif case == "k_past_n":
+        x = rng.integers(-2, 3, size=(300, 3)).astype(np.float64)
+        q, k = np.array([1.0, -1.0, 0.5]), 500
+    else:
+        x = rng.normal(size=(n, d)).astype(
+            np.float32 if case == "continuous32" else np.float64)
+        q = rng.normal(size=d)
+    (ws, wi), (gs, gi) = _lanes_both(x, q, k)
+    os_, oi = _topk_oracle(x, q, k)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gi, oi)
+    np.testing.assert_allclose(gs, ws, rtol=1e-12)
+    if case in ("ties", "all_tied", "k_past_n"):
+        np.testing.assert_array_equal(gs, os_)
+    assert len(gi) == min(k, x.shape[0])
 
 
 def test_topk_similarity_rejects_k_below_one():
@@ -978,3 +1049,185 @@ def test_cuda_bitpack_narrow_and_unsigned_blocks(dtype):
     out = torch.empty(5001, dtype=torch.float32, device="cuda")
     tdd.bitpack_decode_into([bitpack_block(enc, "cuda")], [out], 5001)
     assert torch.equal(out.cpu(), decode_torch(enc, "cpu").to(torch.float32))
+
+
+# -- topk_similarity's fused route and lanes entry, RLE into a column ----
+
+
+def _topk_call(x, q, k, fold=None):
+    """topk_similarity on the card, on the plan's route and, when given,
+    the fold variant `fold`."""
+    if fold is None:
+        return ttk.topk_similarity(x, q, k)
+    n, d = x.shape
+    plan = ttk.topk_plan(n, d, k, x.dtype)._replace(fold=fold)
+    return ttk._launch(plan, x.data_ptr(), None, _build_code(x),
+                       q.data_ptr(), n, d, k, x.device)
+
+
+def _build_code(t):
+    from repro_torch.kernels import _build
+    return _build.dtype_code(t)
+
+
+def _topk_cases(rng, n):
+    """Integer lanes with ties (float64), continuous float32 lanes at the
+    search path's width, and all rows tied."""
+    return (rng.integers(-3, 4, size=(n, 5)).astype(np.float64),
+            rng.normal(size=(n, 64)).astype(np.float32),
+            np.ones((n, 6), np.float32))
+
+
+def _bitwise(got, want):
+    gs, gi = got
+    ws, wi = want
+    return (torch.equal(gi.cpu(), wi.cpu()) and gs.dtype == ws.dtype
+            and torch.equal(gs.cpu().view(torch.int64),
+                            ws.cpu().view(torch.int64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1023, 1024, 1025, 15_625,
+                               10 ** 6])
+def test_cuda_topk_routes_match_plain_bitwise(n):
+    """Both routes (fused up to FUSED_MAX_K, rounds above) and both fused
+    folds: ids and scores bitwise equal to the plain version at k = 1,
+    100, the fused limit +-1 and n + 5; repeat calls give the same bits
+    (the fold's ticket resets)."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(n)
+    lim = ttk.FUSED_MAX_K
+    for x in _topk_cases(rng, n):
+        if n == 10 ** 6 and x.shape[1] != 64:
+            continue
+        xt = _t(x).cuda()
+        q = _t(rng.normal(size=x.shape[1])).cuda()
+        for k in (1, 100, lim - 1, lim, lim + 1, n + 5):
+            want = ttk.topk_similarity_plain(xt, q, k)
+            plan = ttk.topk_plan(n, x.shape[1], k, xt.dtype)
+            assert plan.route == ("fused" if min(k, n) <= lim else "rounds")
+            folds = ["threshold", "rounds"] if plan.route == "fused" \
+                else [None]
+            for fold in folds:
+                got = _topk_call(xt, q, k, fold)
+                assert _bitwise(got, want), (x.dtype, k, fold)
+                assert _bitwise(_topk_call(xt, q, k, fold), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 257, 15_625, 100_003])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_topk_lanes_equal_the_matrix_entry(n, dtype):
+    """The lanes entry over x's columns equals topk_similarity over x to
+    the bit, on both routes; it counts one fused launch a call."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(n + 3)
+    x = _t(rng.normal(size=(n, 64)).astype(dtype)).cuda()
+    lanes = [x[:, j].contiguous() for j in range(64)]
+    w = rng.normal(size=64)
+    q = _t(w).cuda()
+    for k in (1, 100, ttk.FUSED_MAX_K + 1):
+        before = dict(ttk.ROUTES)
+        got = ttk.topk_similarity_lanes(lanes, w, k)
+        if min(k, n) <= ttk.FUSED_MAX_K:
+            assert ttk.ROUTES["fused"] == before["fused"] + 1
+        assert _bitwise(got, ttk.topk_similarity(x, q, k))
+        assert _bitwise(got, ttk.topk_similarity_plain(x, q, k))
+
+
+@pytest.mark.cuda
+def test_cuda_topk_one_device_kernel_per_call():
+    """At phase 4's partition (15,625 x 64 float32, k = 100) the matrix
+    entry and the lanes entry each put one kernel on the device."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(15)
+    x = _t(rng.normal(size=(15_625, 64)).astype(np.float32)).cuda()
+    q = _t(rng.normal(size=64)).cuda()
+    lanes = [x[:, j].contiguous() for j in range(64)]
+    w = q.cpu().numpy()
+    assert ttk.topk_plan(15_625, 64, 100, torch.float32).blocks == 62
+    assert graph_nodes(lambda: ttk.topk_similarity(x, q, 100)) \
+        == {"kernel": 1}
+    assert graph_nodes(lambda: ttk.topk_similarity_lanes(lanes, w, 100)) \
+        == {"kernel": 1}
+
+
+def _rle_runs(rng, n, kind):
+    """Cumulative int32 run ends of n positions: runs of 1, one run, runs
+    of 8, zero-length runs, ends short of n, and a tile spanning more
+    zero-length runs than the kernel stages."""
+    if kind == "ones":
+        lens = np.ones(n, np.int64)
+    elif kind == "one":
+        lens = np.array([n])
+    elif kind == "eights":
+        lens = np.full(-(-n // 8), 8)
+    elif kind == "zeros":
+        lens = rng.integers(0, 4, n)
+    elif kind == "short":
+        lens = rng.integers(1, 9, max(1, n // 10))
+    else:
+        lens = np.array([n // 2] + [0] * 2500 + [n - n // 2], np.int64)
+    return _t(np.cumsum(lens).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 1025, 2049, 156_250])
+@pytest.mark.parametrize("kind", ["ones", "one", "eights", "zeros", "short",
+                                  "heavy"])
+def test_cuda_rle_decode_and_into_exact(n, kind):
+    """rle_decode and rle_decode_into on the card equal their plain
+    versions exactly: every values dtype into every destination dtype, a
+    contiguous destination, one off 16 bytes and a column of a row-major
+    (n, 12) matrix."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(n + len(kind))
+    ends = _rle_runs(rng, n, kind).cuda()
+    r = ends.shape[0]
+    for vdt in ("int32", "int64", "float32", "float64"):
+        vals = _t((rng.normal(size=r) * 100).astype(vdt)).cuda()
+        got = tdd.rle_decode(vals, ends, n)
+        assert torch.equal(got.cpu(), tdd.rle_decode_plain(
+            vals.cpu(), ends.cpu(), n))
+        for odt in (torch.int32, torch.int64, torch.float32, torch.float64):
+            flat = torch.full((n * 12 + 1,), -7, dtype=odt, device="cuda")
+            for dst in (flat[:n], flat[1:n + 1],
+                        flat[:n * 12].view(n, 12)[:, 5]):
+                want = flat.cpu().clone()
+                wdst = want[dst.storage_offset():][::dst.stride(0)][:n]
+                tdd.rle_decode_into_plain(vals.cpu(), ends.cpu(), n, wdst)
+                tdd.rle_decode_into(vals, ends, n, dst)
+                assert torch.equal(flat.cpu(), want), (vdt, odt)
+
+
+@pytest.mark.cuda
+def test_cuda_rle_into_casts_through_the_original_dtype():
+    """int64 run values of a narrower or unsigned block: cast to it, then
+    to the destination, as decode_torch(enc).to(dt) does."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(21)
+    ends = _t(np.cumsum(np.full(300, 7)).astype(np.int32)).cuda()
+    vals = _t(rng.integers(-2 ** 62, 2 ** 62, 300)).cuda()
+    for orig in (torch.int8, torch.uint8, torch.int16, torch.int32,
+                 torch.uint32, torch.uint64):
+        dst = torch.empty(2100, dtype=torch.float32, device="cuda")
+        tdd.rle_decode_into(vals, ends, 2100, dst, orig)
+        want = torch.empty(2100, dtype=torch.float32)
+        tdd.rle_decode_into_plain(vals.cpu(), ends.cpu(), 2100, want, orig)
+        assert torch.equal(dst.cpu(), want), orig
+
+
+@pytest.mark.cuda
+def test_cuda_rle_one_device_kernel_per_call():
+    """At phase 3's column (156,250 positions in runs of 8) rle_decode and
+    rle_decode_into a column of a row-major (n, 12) float32 x each put one
+    kernel on the device."""
+    _cuda_or_skip()
+    n = 156_250
+    ends = _t(np.cumsum(np.full(n // 8 + 1, 8)).astype(np.int32)).cuda()
+    vals = torch.arange(ends.shape[0], dtype=torch.float64, device="cuda")
+    x = torch.empty((n, 12), dtype=torch.float32, device="cuda")
+    assert graph_nodes(lambda: tdd.rle_decode(vals, ends, n)) \
+        == {"kernel": 1}
+    assert graph_nodes(lambda: tdd.rle_decode_into(vals, ends, n, x[:, 3])) \
+        == {"kernel": 1}

@@ -398,6 +398,53 @@ def test_assembled_features_match_reference(dtype):
     ts.shutdown()
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_assembled_rle_columns_and_label_match_reference(dtype):
+    """RLE blocks of int32 and float32 features and of an int64 label,
+    each written straight into its column of x (or into y) by
+    `rle_decode_into`: the port's (x, y) equal the reference's exactly."""
+    from repro.core.expr import _x64
+    from repro.ml import featurize as jfz
+    from repro_torch.ml import featurize as tfz
+    rng = np.random.default_rng(3)
+    rows = 6000
+    cols = {
+        "ri": np.repeat(rng.integers(-10 ** 6, 10 ** 6, rows // 20 + 1),
+                        20)[:rows].astype(np.int32),
+        "rf": np.repeat(rng.normal(size=rows // 7 + 1), 7)[:rows].astype(
+            np.float32),
+        "p0": rng.normal(size=rows),
+        "label": np.repeat(rng.integers(-10 ** 9, 10 ** 9, rows // 30 + 1),
+                           30)[:rows].astype(np.int64)}
+    schema = dict(ri="INT32", rf="FLOAT32", p0="FLOAT64", label="INT64")
+    js = JaxSession(num_workers=2, max_threads=2)
+    js.create_table("t", JSchema.of(
+        **{k: getattr(JDType, v) for k, v in schema.items()}), cols,
+        num_partitions=3)
+    ts = SharkSession(num_workers=2, max_threads=2, device="cpu")
+    ts.create_table("t", Schema.of(
+        **{k: getattr(DType, v) for k, v in schema.items()}), cols,
+        num_partitions=3)
+    feats = ["ri", "rf", "p0"]
+    jparts = js.table("t").to_features(feats, "label", dtype=dtype).collect()
+    tparts = ts.table("t").to_features(feats, "label", dtype=dtype).collect()
+    for jb, tb in zip(jparts, tparts):
+        sigs, args, lsig, largs = jfz.partition_recipes(jb, feats, "label")
+        with _x64():
+            jx, jy = jfz.fused_train_step("assemble", sigs, lsig, dtype)(
+                np.zeros(3, dtype), args, largs)
+        sigs, args, lsig, largs = tfz.partition_recipes(tb, feats, "label",
+                                                        "cpu")
+        assert [s[0] for s in sigs[:2]] == ["rle", "rle"]
+        assert lsig[0] == "rle"
+        tx, ty = tfz.fused_train_step("assemble", sigs, lsig, dtype)(
+            torch.zeros(3), args, largs)
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    js.shutdown()
+    ts.shutdown()
+
+
 def test_cpu_session_trains_with_cpu_routes_and_no_launch():
     """A device="cpu" session trains on the CPU: the CPU rules pick the
     routes (jit at these sizes, not train_grad) and no kernel launches."""

@@ -119,6 +119,30 @@ def test_similarity_join_topk_kernel_route():
     sess.shutdown()
 
 
+def test_similarity_join_reads_lanes_in_place_and_counts_the_route(
+        monkeypatch):
+    """Each kernel-routed partition search takes route `lanes` (its 8
+    float32 lane columns read in place, no stack); with the lanes entry's
+    limit below 8 it takes `stacked`; the ids are the oracle's both
+    times."""
+    from repro_torch.kernels import topk_similarity as tk
+    sess, emb, cat = _docs_session(
+        rows=20_000, pde_config=PDEConfig(segment_force_kernels=True))
+    q = np.random.default_rng(5).normal(size=DIM)
+    want = _oracle(emb, cat, None, q, 12)
+    for route, limit in (("lanes", tk.MAX_LANES), ("stacked", DIM - 1)):
+        monkeypatch.setattr(tk, "MAX_LANES", limit)
+        before = dict(tk.ROUTES)
+        res = sess.table("docs").similarity_join("emb", q, 12).to_numpy()
+        searches = sess.metrics().segment_routes()["topk_similarity"]
+        counted = {k: tk.ROUTES[k] - before[k] for k in tk.ROUTES}
+        assert searches > 0
+        assert counted == {"fused": 0, "rounds": 0, "lanes": 0,
+                           "stacked": 0, route: searches}
+        np.testing.assert_array_equal(res["id"], want)
+    sess.shutdown()
+
+
 def test_similarity_join_error_paths():
     sess, _, _ = _docs_session(rows=200)
     q = np.zeros(DIM)
