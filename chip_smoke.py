@@ -11,25 +11,30 @@ of its routes: bf16 on the tensor cores, float32 and odd head dims on the
 SIMT kernel; the SSD scan on both of its routes: bf16 on the tensor
 cores, float32 on the SIMT kernel; top-k on both of its routes and
 through its lanes entry; RLE into strided columns of every dtype), checks
-that one `groupby_sum`, one `segmented_merge`, one `dict_decode`, one
-`train_grad`, one batched bit-pack decode of a phase-3 partition, one
-`rle_decode` and one `rle_decode_into` a column of x, one
+that one `colscan` (over one column and over two), one
+`fused_decode_scan`, one `groupby_sum`, one `segmented_merge`, one
+`dict_decode`, one `train_grad`, one batched bit-pack decode of a phase-3
+partition, one `rle_decode` and one `rle_decode_into` a column of x, one
 `topk_similarity` and one `topk_similarity_lanes` call at phase 4's
 partition and one bf16 `ssd_scan` call each put exactly one kernel on the
 device (the nodes of a CUDA graph captured around the call), and times
-each
-kernel, its plain version and, where one PyTorch call computes the same
+each kernel, its plain version and, where one PyTorch call computes the same
 function, that call, each with the host's cost (`ms`) and as a CUDA graph
 (`device_ms`; flash and the SSD scan at Zamba2-7B's prefill shapes, with
 `scaled_dot_product_attention` as flash's yardstick), and, beside the
 calls they replaced, the batched bit-pack decode (row 7b), `rle_decode_into`
-a column of x (8b) and the lanes entry of top-k (9b).
+a column of x (8b) and the lanes entry of top-k (9b), `colscan` over two
+distinct columns (1b), and both scan kernels over 10,000,000 rows beside
+their bounds.
 Phase 2 runs the SQL main path end to end: a `SharkSession` on the card
 loads a TPC-H `lineitem` table (6,000,000 rows, scale factor 1, in 64
 partitions of 93,750 rows, columns drawn from dbgen's domains with numpy
 from `--seed`) and answers four filter / aggregate / group-by queries,
 each checked against numpy over the generated arrays (integers exactly,
-floats to rtol 1e-9).  Its launch counts must show the five SQL kernels.
+floats to rtol 1e-9).  Its launch counts must show the five SQL kernels,
+and exactly one `colscan` (query a) and one `fused_decode_scan` (query b)
+launch per partition of each counted run; on the card it ends with a
+torch.profiler trace of one warm run of each of queries a and b.
 Phase 3 trains in the engine (paper Listing 1, §6.5): a `points` table of
 10,000,000 rows in 64 partitions of 156,250 (one node's share of the
 paper's billion rows on 100 nodes), 12 feature columns that load as
@@ -125,6 +130,9 @@ SEARCH_KERNELS = ("topk_similarity",)
 LM_KERNELS = ("flash_attention_fwd", "ssd_scan")
 # phase 3/4 partition sizes at full size: 10,000,000 / 64 and 1,000,000 / 64
 TRAIN_ROWS, DOCS_ROWS = 156_250, 15_625
+# the scan kernels' streaming line: 10,000,000 rows (160 MB of two float64
+# columns, 120 MB of int32 codes and a float64 column), past the L2
+LARGE_SCAN_ROWS = 10_000_000
 EMB_DIM, TOP_K = 64, 100
 
 
@@ -314,12 +322,12 @@ def phase_kernels(torch, device, seed: int) -> dict:
         fcol = price.copy()
         fcol[::13] = np.nan                        # NaN filter values
         qty = rng.integers(1, 51, n).astype(np.int32)
-        for f, a in ((fcol, price), (qty.astype(np.float64), qty),
-                     (qty, price)):
+        tp = t(price)
+        for f, a in ((t(fcol), tp), (t(qty.astype(np.float64)), t(qty)),
+                     (t(qty), tp), (tp, tp)):    # the last: one column
             for lo, hi in bounds:
                 err["colscan"] = max(err["colscan"], scan_err(
-                    kc.colscan(t(f), t(a), lo, hi),
-                    kc.colscan_plain(t(f), t(a), lo, hi)))
+                    kc.colscan(f, a, lo, hi), kc.colscan_plain(f, a, lo, hi)))
         disc = np.round(np.arange(11) * 0.01, 2)
         codes = rng.integers(0, 11, n).astype(np.int32)
         codes[::17] = 11                           # the pad code
@@ -362,6 +370,7 @@ def phase_kernels(torch, device, seed: int) -> dict:
     timer = Timer(torch, device)
     n = 93750
     price = t(np.round(rng.uniform(900, 105000, n), 2))
+    other = t(np.round(rng.uniform(900, 105000, n), 2))
     codes = t(rng.integers(0, 11, n).astype(np.int32))
     disc = t(np.round(np.arange(11) * 0.01, 2))
     qcodes = t(rng.integers(0, 50, n).astype(np.int32))
@@ -377,9 +386,10 @@ def phase_kernels(torch, device, seed: int) -> dict:
             0, qcodes, stacked)
 
     cases = {
+        # query a filters and sums one column: the least work is one read
         "colscan": (lambda: kc.colscan(price, price, 20000.0, 40000.0),
                     lambda: kc.colscan_plain(price, price, 20000.0, 40000.0),
-                    None, 16.0 * n + 32, 4.0 * n),
+                    None, 8.0 * n + 32, 4.0 * n),
         "fused_decode_scan": (
             lambda: kd.fused_decode_scan(codes, disc, price, 0.05, 0.07),
             lambda: kd.fused_decode_scan_plain(codes, disc, price, 0.05,
@@ -397,9 +407,13 @@ def phase_kernels(torch, device, seed: int) -> dict:
             lambda: kr.radix_partition_plain(rkeys, 64, with_counts=False),
             None, 8.0 * 50, 8.0 * 50),
     }
+    two_columns = (lambda: kc.colscan(other, price, 20000.0, 40000.0),
+                   lambda: kc.colscan_plain(other, price, 20000.0, 40000.0))
     if device.type == "cuda":
-        for name in ("groupby_sum", "segmented_merge"):
+        for name in ("colscan", "fused_decode_scan", "groupby_sum",
+                     "segmented_merge"):
             one_kernel(name, cases[name][0])
+        one_kernel("colscan (two columns)", two_columns[0])
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
         b_ms, b_by = bound(nbytes, ops)
@@ -413,7 +427,47 @@ def phase_kernels(torch, device, seed: int) -> dict:
             "library_device_ms": (timer.graphed(lib) if lib is not None
                                   else None),
         }
+    err_two = scan_err(two_columns[0](), two_columns[1]())
+    b_ms, b_by = bound(16.0 * n + 32, 4.0 * n)
+    out["colscan"]["two_columns"] = {
+        "rows": n, "launches": None, "max_abs_err": err_two,
+        "ms": timer(two_columns[0]),
+        "device_ms": timer.graphed(two_columns[0]),
+        "plain_ms": timer(two_columns[1]), "bound_ms": b_ms, "bound_by": b_by}
+    out["colscan"]["large"], out["fused_decode_scan"]["large"] = \
+        scan_large(t, rng, timer, kc, kd)
     return out
+
+
+def scan_large(t, rng, timer, kc, kd):
+    """Both scan kernels over LARGE_SCAN_ROWS rows (two float64 columns;
+    int32 codes into 11 float64 values and a float64 aggregate), where
+    the bytes and not the launch bound them: device ms beside the bound."""
+    n = LARGE_SCAN_ROWS
+    if not timer.cuda:
+        n = 10 ** 5                      # the CPU rehearsal's size
+    f = t(np.round(rng.uniform(900, 105000, n), 2))
+    a = t(np.round(rng.uniform(900, 105000, n), 2))
+    codes = t(rng.integers(0, 11, n).astype(np.int32))
+    disc = t(np.round(np.arange(11) * 0.01, 2))
+    recs = []
+    for kern, plain, nbytes in (
+            (lambda: kc.colscan(f, a, 20000.0, 40000.0),
+             lambda: kc.colscan_plain(f, a, 20000.0, 40000.0), 16.0 * n + 32),
+            (lambda: kd.fused_decode_scan(codes, disc, a, 0.05, 0.07),
+             lambda: kd.fused_decode_scan_plain(codes, disc, a, 0.05, 0.07),
+             12.0 * n + 8 * 11 + 32)):
+        b_ms, b_by = bound(nbytes, 4.0 * n)
+        device_ms = timer.graphed(kern, calls=5, replays=4)
+        recs.append({
+            "rows": n, "max_abs_err": scan_err(kern(), plain()),
+            "ms": timer(kern, reps=10, warmup=2), "device_ms": device_ms,
+            "plain_ms": timer(plain, reps=3, warmup=1), "bound_ms": b_ms,
+            "bound_by": b_by,
+            "device_over_bound": (device_ms / b_ms if device_ms is not None
+                                  else None)})
+    del f, a, codes
+    return recs
 
 
 def pack_words(vals: np.ndarray, width: int) -> np.ndarray:
@@ -797,7 +851,7 @@ def check(name: str, got: dict, want: dict) -> None:
 def phase_sql(torch, device, rows: int, seed: int) -> dict:
     from repro_torch.core import DType, Schema, SharkSession
     from repro_torch.core.pde import PDEConfig
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import colscan as kc, ops
 
     t0 = time.perf_counter()
     data = lineitem(rows, seed)
@@ -829,6 +883,7 @@ def phase_sql(torch, device, rows: int, seed: int) -> dict:
         first = {name: run(name) for name in QUERIES}
         # the main path's counted run
         ops.reset_launch_counts()
+        scan_routes0 = dict(kc.ROUTES)
         timed = {name: [] for name in QUERIES}
         routes = {}
         for _ in range(REPS):
@@ -836,6 +891,20 @@ def phase_sql(torch, device, rows: int, seed: int) -> dict:
                 timed[name].append(run(name))
                 routes[name] = sess.metrics().segment_routes()
         launches = ops.launch_counts()
+        # colscan's launches by path (row 1b reads the two-column path's)
+        launches.update({f"colscan.{k}": v - scan_routes0[k]
+                         for k, v in kc.ROUTES.items()})
+        if device.type == "cuda":
+            # where a warm scan query's time goes, and what it launches
+            for name in ("a", "b"):
+                ops.reset_launch_counts()
+                rec = traced(torch, device, f"phase 2: one warm query {name}",
+                             lambda: run(name))
+                ours = {k: v for k, v in ops.launch_counts().items() if v}
+                print(f"phase 2: one warm query {name}: "
+                      f"{rec['device_ops']} device ops "
+                      f"({rec['device_ops'] / PARTITIONS:.2f} a partition), "
+                      f"port kernel launches {json.dumps(ours)}", flush=True)
     finally:
         sess.shutdown()
     for name in QUERIES:
@@ -846,6 +915,15 @@ def phase_sql(torch, device, rows: int, seed: int) -> dict:
               f"{', '.join(f'{m:.3f}' for m in timed[name])} ms; routes "
               f"{json.dumps(routes[name], sort_keys=True)}", flush=True)
     print(f"phase 2: main-path launches {json.dumps(launches)}", flush=True)
+    if device.type == "cuda":
+        # queries a and b scan each partition with one launch a run
+        for name in ("colscan", "fused_decode_scan"):
+            if launches[name] != PARTITIONS * REPS:
+                fail(f"{name} launched {launches[name]} times in {REPS} runs "
+                     f"of {PARTITIONS} partitions, not once a partition")
+        # query a hands the scan one tensor as filter and aggregate
+        if launches["colscan.one_column"] != launches["colscan"]:
+            fail(f"query a's scans read two columns: {launches}")
     return launches
 
 
@@ -1544,9 +1622,8 @@ def main() -> int:
     kernels = phase_kernels(torch, device, args.seed)
     kernels.update(phase_kernels_analytics(torch, device, args.seed))
     kernels.update(phase_kernels_lm(torch, device, args.seed))
-    launches = {k: v for k, v in phase_sql(torch, device, args.rows,
-                                          args.seed).items()
-                if k in SQL_KERNELS}
+    sql = phase_sql(torch, device, args.rows, args.seed)
+    launches = {k: v for k, v in sql.items() if k in SQL_KERNELS}
     # phases 3 and 4 keep the SQL phase's ratio to their full sizes
     launches.update(phase_train(torch, device, args.rows * 5 // 3,
                                 args.seed))
@@ -1558,6 +1635,8 @@ def main() -> int:
             fail(f"kernels never launched on their main path: {idle}")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
+    kernels["colscan"]["two_columns"]["launches"] = \
+        sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \
         launches["bitpack_decode"]
     kernels["rle_decode"]["into"]["launches"] = launches["rle_decode"]

@@ -2,7 +2,8 @@
 """Where the redesigned kernels spend their time, on one GPU.
 
     python3 scripts/kernel_probe.py [flash] [group] [ssd] [decode] [train]
-                                    [bitpack] [topk] [rle]   # default: all
+                                    [bitpack] [topk] [rle] [scan]
+                                    # default: all
 
 1. flash: flash attention's tensor-core route at Zamba2-7B's prefill
    shape ((4, 32, 2048, 112) bf16, causal, in the model's (B, S, H, hd)
@@ -71,6 +72,18 @@
    per-position search of all ends that it replaced, decode-then-`copy_`
    and `repeat_interleave`; per-block timestamps (start, runs bounded,
    runs staged, end).
+9. scan: `colscan` and `fused_decode_scan` at phase 2's partition (93,750
+   rows: query a's one float64 column, two float64 columns, query b's
+   int32 codes into 11 float64 values with a float64 aggregate): device
+   time in turns of the plan (132 blocks) against 66 and 264 blocks,
+   copies of `csrc/scan.cu` with 8 and 16 rows a thread, scalar loads,
+   the branch on the predicate (the aggregate loaded after the test),
+   block 0 polling words the other blocks post with relaxed stores (no
+   fence, no atomic), the cluster fold over 16 blocks and no fold at all,
+   the dictionary through `__ldg`, and a one-element `fill_`; per-block
+   timestamps (start, loads issued, scan done, ticket passed, fold done);
+   the plan, 264 blocks, 16 and 8 warps a block and scalar loads at 10^7
+   rows beside the bound; ptxas's registers and spills.
 
 Each line of output is one JSON object.  Needs a CUDA device and `nvcc`.
 """
@@ -326,6 +339,9 @@ def ptxas_report(src: Path) -> dict:
                 name = (f"{kind}<{'float' if t == 'f' else 'double'}"
                         f"{',' + dpad if dpad else ''},"
                         f"{'logistic' if logistic == '1' else 'linear'}>")
+            tmpl = re.search(r"scan_kernelI(\w)(\w)Li(\d)E", name)
+            if tmpl:
+                name = f"scan_kernel<{','.join(tmpl.groups())}>"
             for short in ("ssd_fwd_tc", "ssd_fwd"):
                 if short in name:
                     tmpl = re.search(r"ILi(\d+)ELi(\d+)E", name)
@@ -1151,6 +1167,331 @@ def probe_rle(torch, np) -> None:
                       "timeline_us": timeline}), flush=True)
 
 
+# per-block timestamps of the scan: a block's start, its first step's
+# loads issued (and a staged dictionary's stage), its scan and block fold
+# done; the fold's span (the ticket passed, the answer written) in the
+# last block
+SCAN_STAMPS = (
+    ("constexpr int kMaxStageBytes = 32 * 1024;  // under the 48 KB default\n",
+     "constexpr int kMaxStageBytes = 32 * 1024;  // under the 48 KB default\n"
+     + TIMESTAMPS),
+    ("  extern __shared__ double s_dict[];\n",
+     "  extern __shared__ double s_dict[];\n"
+     "  const unsigned long long ts0 = gtime();\n"
+     "  unsigned long long ts1 = 0;\n"),
+    ("    while (tile < full) {\n",
+     "    ts1 = gtime();\n    while (tile < full) {\n"),
+    ("  acc = block_fold(acc);\n  if (threadIdx.x >= 32) return;",
+     "  acc = block_fold(acc);\n  STAMP_BLOCK(ts0, ts1);\n"
+     "  if (threadIdx.x >= 32) return;"),
+    ("  __syncwarp();                             // lane 0's acquire, for "
+     "the warp\n",
+     "  __syncwarp();                             // lane 0's acquire, for "
+     "the warp\n  const unsigned long long tb = gtime();\n"),
+    ("  a = warp_fold(a);\n  if (lane == 0) put(args.out, a);\n}\n",
+     "  a = warp_fold(a);\n  if (lane == 0) put(args.out, a);\n"
+     "  if (lane == 0) { g_fold[0] = tb; g_fold[1] = gtime(); }\n}\n"),
+)
+# the folds the ticket was held against, spliced in after the blocks' own
+# folds: block 0 gathering the others' results from 8 marked words a
+# block, posted with relaxed stores and polled (no fence, no atomic; it
+# lost: block 0 polled for about 3.5 us, PERF.md), and one thread-block
+# cluster (16 blocks at most, the non-portable size; block 0 folds over
+# distributed shared memory after a cluster barrier)
+SCAN_ONE_BLOCK = """  if (gridDim.x == 1) {
+    if (threadIdx.x == 0) put(args.out, acc);
+    return;
+  }
+"""
+SCAN_POLL_DECLS = ("__device__ unsigned long long g_words[8 * 1024];"
+                   "\n\n" + '// The words a block posts its result in: 8 a block, each a 32-bit half\n// of one of its 4 doubles under a nonzero mark in the high 32 bits, so a\n// word read with the mark set holds this launch\'s half whatever order the\n// words land in.  Relaxed stores and loads at gpu scope: no fence.\n__device__ __forceinline__ void post_raw(unsigned long long* p,\n                                         unsigned long long v) {\n  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v)\n               : "memory");\n}\n__device__ __forceinline__ void post(unsigned long long* p,\n                                     unsigned long long half) {\n  post_raw(p, (1ULL << 32) | half);\n}\n__device__ __forceinline__ unsigned long long peek(\n    const unsigned long long* p) {\n  unsigned long long v;\n  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)\n               : "memory");\n  return v;\n}\n\n')
+SCAN_POLL_TAIL = SCAN_ONE_BLOCK + "  unsigned long long* words = g_words;\n  if (blockIdx.x != 0) {\n    // lanes 0-7 of warp 0 post the block's result (lane 0's) as 8 words\n    if (threadIdx.x < 8) {\n      const int k = threadIdx.x >> 1;\n      const double cnt = static_cast<double>(__shfl_sync(0xffu, acc.cnt, 0));\n      const double sum = __shfl_sync(0xffu, acc.sum, 0);\n      const double mn = __shfl_sync(0xffu, acc.mn, 0);\n      const double mx = __shfl_sync(0xffu, acc.mx, 0);\n      const unsigned long long bits = static_cast<unsigned long long>(\n          __double_as_longlong(k == 0 ? cnt : k == 1 ? sum : k == 2 ? mn\n                                                                    : mx));\n      post(words + 8 * blockIdx.x + threadIdx.x,\n           (threadIdx.x & 1) ? bits >> 32 : bits & 0xffffffffULL);\n    }\n    return;\n  }\n  // block 0 gathers: thread t takes blocks t, t + blockDim.x, ... in\n  // order (its own result for block 0), each once its 8 words are posted,\n  // clearing them for the next launch on the stream; then the block's\n  // fold in a fixed order\n  const Acc own = acc;\n  Acc a = empty_acc();\n  for (unsigned int b = threadIdx.x; b < gridDim.x; b += blockDim.x) {\n    if (b == 0) {\n      a = join(a, own);\n      continue;\n    }\n    unsigned long long* w = words + 8 * b;\n    unsigned long long x[8];\n    bool ready;\n    do {\n#pragma unroll\n      for (int k = 0; k < 8; ++k) x[k] = peek(w + k);\n      ready = true;\n#pragma unroll\n      for (int k = 0; k < 8; ++k) ready = ready && (x[k] >> 32) != 0;\n    } while (!ready);\n#pragma unroll\n    for (int k = 0; k < 8; ++k) post_raw(w + k, 0ULL);\n    double f[4];\n#pragma unroll\n    for (int k = 0; k < 4; ++k)\n      f[k] = __longlong_as_double(static_cast<long long>(\n          (x[2 * k] & 0xffffffffULL) | (x[2 * k + 1] << 32)));\n    Acc q;\n    q.cnt = static_cast<long long>(f[0]);\n    q.sum = f[1];\n    q.mn = f[2];\n    q.mx = f[3];\n    a = join(a, q);\n  }\n  a = block_fold(a);\n  if (threadIdx.x == 0) put(args.out, a);\n}\n"
+SCAN_CLUSTER_TAIL = SCAN_ONE_BLOCK + """  __shared__ double s_blk[4];
+  if (threadIdx.x == 0) put(s_blk, acc);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() == 0 && threadIdx.x < 32) {
+    Acc a = empty_acc();
+    if (lane < static_cast<int>(cluster.num_blocks())) {
+      const double* p = cluster.map_shared_rank(s_blk, lane);
+      a.cnt = static_cast<long long>(p[0]);
+      a.sum = p[1];
+      a.mn = p[2];
+      a.mx = p[3];
+    }
+    a = warp_fold(a);
+    if (lane == 0) put(args.out, a);
+  }
+  cluster.sync();
+}
+"""
+SCAN_CLUSTER_LAUNCH = """  auto kernel = scan_kernel<F, A, kMode>;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+"""
+
+
+def scan_tail_variant(src: str, tail: str, decls: str = "",
+                      cluster: bool = False) -> str:
+    """csrc/scan.cu with `tail` in place of the ticket fold after the
+    blocks' own folds (and `decls` after the constants; `cluster`:
+    launched as one thread-block cluster)."""
+    head = "  acc = block_fold(acc);\n  if (threadIdx.x >= 32) return;"
+    tail_end = "  a = warp_fold(a);\n  if (lane == 0) put(args.out, a);\n}\n"
+    partials = ("constexpr int kMaxStageBytes = 32 * 1024;  // under the 48 "
+                "KB default\n")
+    launch = ("  scan_kernel<F, A, kMode><<<blocks, 32 * warps, smem, "
+              "stream>>>(a);\n  return static_cast<int>(cudaGetLastError());"
+              "\n")
+    for anchor in (head, tail_end, partials, launch,
+                   "#include <cuda_runtime.h>\n"):
+        if src.count(anchor) != 1:
+            raise SystemExit(f"csrc/scan.cu changed: {anchor!r} not found "
+                             f"once; update kernel_probe.py")
+    i = src.index(head) + len("  acc = block_fold(acc);\n")
+    j = src.index(tail_end) + len(tail_end)
+    src = src[:i] + tail + src[j:]
+    src = src.replace(partials, partials + decls)
+    if cluster:
+        src = src.replace(launch, SCAN_CLUSTER_LAUNCH).replace(
+            "#include <cuda_runtime.h>\n",
+            "#include <cooperative_groups.h>\n#include <cuda_runtime.h>\n")
+    return src
+
+
+# the scan's choices, undone one at a time: 8 and 16 rows a thread in
+# place of 4, scalar loads in place of 8- and 16-byte vectors, and the
+# aggregate loaded only for the rows that pass, behind a branch
+SCAN_VARIANTS = {
+    "8 rows a thread": (("constexpr int kRows = 4; ",
+                         "constexpr int kRows = 8; "),),
+    "16 rows a thread": (("constexpr int kRows = 4; ",
+                          "constexpr int kRows = 16; "),),
+    "scalar loads": (
+        ("    run(std::true_type{});\n  else\n", "    run(std::false_type{});"
+         "\n  else\n"),),
+    "branch, the aggregate loaded after the test": (
+        ("          if constexpr (kMode != kSame) a[s * kW + j] = __ldg(ap + "
+         "r);\n", ""),
+        ("        if constexpr (kMode != kSame) load_vec<A, kW>(ap + i, a + s "
+         "* kW);\n", ""),
+        ("      double v;\n      if constexpr (kMode == kSame)\n        v = "
+         "fv[k];\n      else\n        v = static_cast<double>(a[k]);\n"
+         "      const bool sel = (!kMask || row(base, k) < n) && lo <= fv[k] "
+         "&&\n                       fv[k] <= hi;\n"
+         "      acc.cnt += sel;\n      acc.sum += sel ? v : 0.0;\n"
+         "      acc.mn = sel ? nan_min(acc.mn, v) : acc.mn;\n"
+         "      acc.mx = sel ? nan_max(acc.mx, v) : acc.mx;\n",
+         "      const long long r = row(base, k);\n"
+         "      if ((!kMask || r < n) && lo <= fv[k] && fv[k] <= hi) {\n"
+         "        double v;\n        if constexpr (kMode == kSame)\n"
+         "          v = fv[k];\n        else\n"
+         "          v = static_cast<double>(__ldg(ap + r));\n"
+         "        acc.cnt += 1;\n        acc.sum += v;\n"
+         "        acc.mn = nan_min(acc.mn, v);\n"
+         "        acc.mx = nan_max(acc.mx, v);\n      }\n"),
+        ("  template <bool kMask>\n  __device__ __forceinline__ void "
+         "fold(",
+         "  const A* ap;\n  template <bool kMask>\n  __device__ "
+         "__forceinline__ void fold("),
+        ("  T t;\n", "  T t;\n  t.ap = ap;\n"),),
+}
+SCAN_ROWS = {"8 rows a thread": 8, "16 rows a thread": 16}
+
+
+def scan_grid(n: int, cap: int = 132, rows: int = 4, max_warps: int = 32):
+    """(blocks, warps a block) of a scan grid: colscan.scan_plan's rule
+    with another block cap, rows a thread or warps a block."""
+    tiles = max(1, -(-n // (32 * rows)))
+    blocks = min(cap, tiles)
+    return blocks, min(max_warps, -(-tiles // blocks))
+
+
+def probe_scan(torch, np) -> None:
+    """colscan and fused_decode_scan at phase 2's partition (93,750 rows:
+    query a's one float64 column, two float64 columns, query b's int32
+    codes into 11 float64 values and a float64 aggregate): device time in
+    turns of the plan (132 blocks), 66 and 264 blocks, copies of scan.cu
+    with 8 and 16 rows a thread, scalar loads, the branch on the predicate
+    with the aggregate loaded after it, block 0 polling the blocks' posted
+    words, the cluster fold over 16 blocks and no fold at all, the
+    dictionary read through __ldg, and a one-element `fill_`; per-block
+    timestamps of the plan; at 10^7 rows the plan, 264 blocks, 16 and 8
+    warps a block and scalar loads beside the bound; ptxas's registers
+    and spills."""
+    import chip_smoke
+    from repro_torch.kernels import _build, colscan as kc, dictdecode as kd
+    hbm = chip_smoke.HBM_BYTES_PER_S
+    src = (_build.CSRC / "scan.cu").read_text()
+    sources = {
+        "scan_ts": patched(src, SCAN_STAMPS) + TIMESTAMP_READER,
+        "block 0 polls posted words": scan_tail_variant(
+            src, SCAN_POLL_TAIL, SCAN_POLL_DECLS),
+        "cluster fold": scan_tail_variant(src, SCAN_CLUSTER_TAIL,
+                                          cluster=True),
+        # blocks stop after their own fold: the fold's cost, by difference
+        "no fold (timing only)": scan_tail_variant(src, "}\n")}
+    sources.update({name: patched(src, pairs)
+                    for name, pairs in SCAN_VARIANTS.items()})
+    libs = nvcc_build_all(sources)
+    entry = {"shipped": _build.kernel_fn("scan")}
+    for name, lib in libs.items():
+        entry[name] = lib.shark_scan
+        entry[name].argtypes = _build.SIGNATURES["scan"][1]
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+
+    def operands(n):
+        price = torch.from_numpy(np.round(rng.uniform(900, 105000, n), 2)
+                                 ).to(dev)
+        other = torch.from_numpy(np.round(rng.uniform(900, 105000, n), 2)
+                                 ).to(dev)
+        codes = torch.from_numpy(rng.integers(0, 11, n).astype(np.int32)
+                                 ).to(dev)
+        disc = torch.from_numpy(np.round(np.arange(11) * 0.01, 2)).to(dev)
+        return {"a": (price, None, price, 20000.0, 40000.0, 8 * n + 32),
+                "1b": (other, None, price, 20000.0, 40000.0, 16 * n + 32),
+                "b": (codes, disc, price, 0.05, 0.07, 12 * n + 88 + 32)}
+
+    def raw(name, case, grid, staged=None):
+        filt, dic, agg, lo, hi, _ = case
+        n = agg.shape[0]
+        coded = dic is not None
+        blocks, warps = grid
+        if staged is None:
+            staged = coded and kc.scan_staged(n, 11)
+        word = (3 | 3 << 2 | int(coded) << 4 | int(filt is agg) << 5
+                | int(staged) << 6 | warps << 7 | blocks << 13
+                | (11 if coded else 0) << 25)
+        buf = torch.empty(4 + 4 * blocks, dtype=torch.float64, device=dev)
+
+        def call():
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = entry[name](filt.data_ptr(),
+                             dic.data_ptr() if coded else None,
+                             agg.data_ptr(), n, word, lo, hi, buf.data_ptr(),
+                             kc._ticket(dev, stream).data_ptr(), stream)
+            if rc:
+                raise SystemExit(f"scan probe {name} failed: {rc}")
+            return buf[:4]
+        return call
+
+    def wrapper(case):
+        filt, dic, agg, lo, hi, _ = case
+        if dic is None:
+            return lambda: kc.colscan(filt, agg, lo, hi)
+        return lambda: kd.fused_decode_scan(filt, dic, agg, lo, hi)
+
+    def plain(case):
+        filt, dic, agg, lo, hi, _ = case
+        if dic is None:
+            return kc.colscan_plain(filt, agg, lo, hi)
+        return kd.fused_decode_scan_plain(filt, dic, agg, lo, hi)
+
+    def check(label, got, want):
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        if not (g[0] == w[0] and g[2] == w[2] and g[3] == w[3]
+                and abs(g[1] - w[1]) <= 1e-12 * abs(w[1]) + 1e-9):
+            raise SystemExit(f"scan probe {label!r} differs from plain: "
+                             f"{g} {w}")
+
+    timer = chip_smoke.Timer(torch, dev)
+    one = torch.zeros(1, device=dev)
+    n = 6_000_000 // chip_smoke.PARTITIONS        # phase 2's partition
+    cases = operands(n)
+    calls = {}
+    for q, case in cases.items():
+        plan = kc.scan_plan(n)
+        calls[f"{q}: plan ({plan.blocks} blocks of {plan.warps} warps)"] = (
+            wrapper(case), case)
+        for cap in (66, 264):
+            b, w = scan_grid(n, cap)
+            calls[f"{q}: {b} blocks of {w} warps"] = (
+                raw("shipped", case, (b, w)), case)
+        for name in SCAN_VARIANTS:
+            calls[f"{q}: {name}"] = (raw(name, case, scan_grid(
+                n, rows=SCAN_ROWS.get(name, 4))), case)
+        calls[f"{q}: block 0 polls posted words"] = (
+            raw("block 0 polls posted words", case, scan_grid(n)), case)
+        calls[f"{q}: cluster fold, 16 blocks"] = (
+            raw("cluster fold", case, scan_grid(n, 16)), case)
+        calls[f"{q}: no fold (timing only)"] = (
+            raw("no fold (timing only)", case, scan_grid(n)), case)
+        if q == "b":
+            calls["b: dictionary through __ldg"] = (
+                raw("shipped", case, scan_grid(n), staged=False), case)
+    for label, (call, case) in calls.items():
+        if "timing only" not in label:
+            check(label, call(), plain(case))
+    calls["a one-element fill_ (one launch, no work)"] = (
+        lambda: one.fill_(1.0), None)
+    device_ms = {label: [] for label in calls}
+    for r in range(4):
+        order = list(calls) if r % 2 == 0 else list(reversed(list(calls)))
+        for label in order:
+            device_ms[label].append(timer.graphed(calls[label][0]))
+    timeline = {}
+    for q in ("a", "b"):
+        call = raw("scan_ts", cases[q], scan_grid(n))
+        timeline[q] = []
+        for _ in range(3):
+            call()
+            torch.cuda.synchronize()
+            ts = (ctypes.c_ulonglong * (4 * 4096))()
+            fold = (ctypes.c_ulonglong * 2)()
+            if libs["scan_ts"].shark_ts_read(ts, fold):
+                raise SystemExit("scan timestamps failed")
+            timeline[q].append(block_timeline(np, ts, fold,
+                                              scan_grid(n)[0]))
+    print(json.dumps({"probe": "scan at 93,750 rows",
+                      "bound_ms": {q: c[5] / hbm * 1e3
+                                   for q, c in cases.items()},
+                      "device_ms_in_turns": device_ms,
+                      "timeline_us": timeline}), flush=True)
+    del cases, calls
+    big = 10_000_000
+    cases = operands(big)
+    out = {}
+    for q in ("1b", "b", "a"):
+        case = cases[q]
+        want = plain(case)
+        runs = {"plan": wrapper(case)}
+        for label, grid in (("264 blocks", scan_grid(big, 264)),
+                            ("16 warps a block", scan_grid(big,
+                                                           max_warps=16)),
+                            ("8 warps a block", scan_grid(big,
+                                                          max_warps=8))):
+            runs[f"{label} ({grid[0]} x {grid[1]})"] = raw("shipped", case,
+                                                          grid)
+        runs["scalar loads"] = raw("scalar loads", case, scan_grid(big))
+        rec = {"bound_ms": case[5] / hbm * 1e3}
+        for label, call in runs.items():
+            check(f"{q} {label} at 10^7", call(), want)
+            rec[label] = [timer.graphed(call, calls=5, replays=4)
+                          for _ in range(2)]
+        out[q] = rec
+    print(json.dumps({"probe": "scan at 10^7 rows", "plan":
+                      kc.scan_plan(big)._asdict(), "device_ms": out,
+                      "ptxas": ptxas_report(_build.CSRC / "scan.cu")}),
+          flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1159,7 +1500,8 @@ def main() -> int:
         return 1
     probes = {"flash": probe_flash, "group": probe_group, "ssd": probe_ssd,
               "decode": probe_decode, "train": probe_train,
-              "bitpack": probe_bitpack, "topk": probe_topk, "rle": probe_rle}
+              "bitpack": probe_bitpack, "topk": probe_topk, "rle": probe_rle,
+              "scan": probe_scan}
     chosen = sys.argv[1:] or list(probes)
     unknown = set(chosen) - set(probes)
     if unknown:

@@ -732,9 +732,12 @@ class SegmentRunner:
                 self._tensor(fv, "codes"), vals)
             route = "fused_decode_scan"
         elif kernel:
+            # a filter on the aggregated column passes one tensor twice:
+            # the kernel reads it once
             res = self._kernel_colscan_chunked(
                 lambda f, v: kernel_ops.colscan(f, v, lo, hi),
-                _kernel_operand(self._tensor(fv)), vals)
+                vals if fcol == vcol else _kernel_operand(self._tensor(fv)),
+                vals)
             route = "colscan"
         elif coded:
             # value bounds translate to CODE bounds host-side (sorted

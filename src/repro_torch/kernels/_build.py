@@ -35,8 +35,8 @@ _vp, _i, _ll, _d, _ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # c_void_p, so ctypes never truncates them to 32 bits.  An entry lives in
 # the library of its own name, or of the name LIBRARY gives it
 SIGNATURES = {
-    "scan": ("shark_colscan",
-             [_vp, _i, _vp, _ll, _vp, _i, _ll, _d, _d, _vp, _i, _vp, _vp]),
+    "scan": ("shark_scan", [_vp, _vp, _vp, _ll, _ull, _d, _d, _vp, _vp,
+                            _vp]),
     "group": ("shark_group_reduce", [_vp, _vp, _ll, _i, _ll, _vp, _vp]),
     "radix": ("shark_radix", [_vp, _ll, ctypes.c_uint, _vp, _vp, _i, _vp]),
     "decode": ("shark_decode", [_vp, _vp, _vp, _ll, _ll, _ull, _vp]),

@@ -37,10 +37,11 @@ a `bitpack_decode_into` call is one launch per MAX_BITPACK_COLUMNS
 blocks, their descriptors passed by value in the kernel's parameters; an
 `rle_decode_into` call one launch, tiles of RLE_TILE positions a block
 with their runs staged in shared memory)
-and `csrc/scan.cu` with its DictGather policy (fused_decode_scan, which
+and `csrc/scan.cu` with its Dict source (fused_decode_scan, which
 replaces repro/kernels/dictdecode.py:fused_decode_scan: the int32 codes
-stream from HBM, the dictionary stays in L1, and the decoded filter column
-never exists).  On CPU tensors they run the `*_plain` versions.
+stream from HBM, the dictionary is staged in shared memory when it fits,
+and the decoded filter column never exists; one launch through
+`colscan.launch_scan`).  On CPU tensors they run the `*_plain` versions.
 
 The decodes run on the training path once per encoded block and step
 (bit-pack once per partition and step), thousands of times a fit, where
@@ -458,15 +459,10 @@ def rle_decode_into(run_values: torch.Tensor, run_ends: torch.Tensor, n: int,
 
 def fused_decode_scan(codes: torch.Tensor, dictionary: torch.Tensor,
                       agg_col: torch.Tensor, lo, hi) -> torch.Tensor:
-    if on_cpu(codes, dictionary, agg_col):
+    # the card's test first: cheaper than on_cpu on this per-partition path
+    if not (codes.is_cuda and dictionary.is_cuda and agg_col.is_cuda) \
+            and on_cpu(codes, dictionary, agg_col):
         return fused_decode_scan_plain(codes, dictionary, agg_col, lo, hi)
-    n = int(codes.shape[0])
-    check_cuda_operand(codes, "codes")
-    check_cuda_operand(dictionary, "dictionary")
-    check_cuda_operand(agg_col, "agg_col", n)
-    if codes.dtype != torch.int32:
-        raise TypeError(f"codes must be int32, got {codes.dtype}")
-    out = launch_scan("fused_decode_scan", dictionary, codes, agg_col, n,
-                      lo, hi)
+    out = launch_scan("fused_decode_scan", codes, dictionary, agg_col, lo, hi)
     count_launch(LAUNCHES, "fused_decode_scan")
     return out

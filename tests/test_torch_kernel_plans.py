@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import colscan as tcs
 from repro_torch.kernels import dictdecode as tdd
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import groupby_mxu as tgb
@@ -1019,3 +1020,226 @@ def test_rle_decode_into_raises_on_what_the_c_side_cannot_check():
         tdd._check_rle(vals, ends.long(), 8, dst)
     with pytest.raises(ValueError):          # a CPU / meta mix
         tdd.rle_decode_into(vals, ends, 8, dst.to("meta"))
+
+
+# -- the one-launch scan: plan, word, signature ---------------------------
+
+
+@pytest.mark.parametrize("n,blocks,warps", [
+    (0, 1, 1), (1, 1, 1), (128, 1, 1), (129, 2, 1),
+    (93_750, 132, 6),                   # phase 2's partition: 733 tiles
+    (10 ** 6, 132, 32), (10 ** 7, 132, 32)])
+def test_scan_plan_grid_at_sizes(n, blocks, warps):
+    """Warp tiles of 128 rows (4 a lane) over at most 132 blocks (one an
+    SM), with the warps that give each warp one tile a step, up to 32: the
+    grid covers n in one step below 132 x 32 tiles."""
+    plan = tcs.scan_plan(n)
+    assert plan == (blocks, warps)
+    assert tcs.TILE_ROWS == 128
+    assert plan.blocks * plan.warps * tcs.TILE_ROWS >= n \
+        or plan.warps == tcs.MAX_WARPS
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 93_750, 131_072, 131_073,
+                               10 ** 6, 10 ** 7, 2 ** 39])
+def test_scan_grid_is_a_function_of_n_only(n):
+    """The blocks and warps in the plan word are the same for every dtype
+    pair, coded or not, one column or two, and any dictionary."""
+    grids = set()
+    for f in range(4):
+        for a in range(4):
+            for coded, same, d in ((False, False, 0), (False, True, 0),
+                                   (True, False, 11), (True, False, 10 ** 6)):
+                w = tcs.scan_word(n, f, a, coded, same, d)
+                grids.add(((w >> 7) & 63, (w >> 13) & 4095))
+    assert len(grids) == 1
+    warps, blocks = grids.pop()
+    assert (blocks, warps) == tcs.scan_plan(n)
+    assert 1 <= warps <= 32 and 1 <= blocks <= 132
+
+
+@pytest.mark.parametrize("n,f,a,coded,same,d", [
+    (93_750, 3, 3, False, True, 0), (93_750, 3, 3, True, False, 11),
+    (93_750, 0, 2, False, False, 0), (10 ** 7, 1, 0, True, False, 4096),
+    (10 ** 6, 2, 1, True, False, 2 ** 30 - 1), (1, 0, 0, True, False, 0)])
+def test_scan_word_bits_round_trip(n, f, a, coded, same, d):
+    """scan.cu reads the dtypes (bits 0-1, 2-3), codes (4), one column (5),
+    the staged dictionary (6), warps (7-12), blocks (13-24) and the
+    dictionary's length (25-54) back, and nothing above them."""
+    plan = tcs.scan_plan(n)
+    w = tcs.scan_word(n, f, a, coded, same, d)
+    assert w & 3 == f and (w >> 2) & 3 == a
+    assert (w >> 4) & 1 == int(coded) and (w >> 5) & 1 == int(same)
+    assert (w >> 6) & 1 == int(coded and tcs.scan_staged(n, d))
+    assert (w >> 7) & 63 == plan.warps and (w >> 13) & 4095 == plan.blocks
+    assert (w >> 25) & (2 ** 30 - 1) == d
+    assert w < 2 ** 55
+
+
+@pytest.mark.parametrize("n,d,staged", [
+    (93_750, 11, True),              # query b's L_DISCOUNT
+    (93_750, 711, True),             # a block's 711 rows
+    (93_750, 712, False),
+    (10 ** 7, 4_096, True),          # 32 KB exactly
+    (10 ** 7, 4_097, False),         # past 32 KB
+    (300, 11, True), (300, 100, True), (300, 101, False),   # 3 blocks
+    (1, 1, True), (1, 2, False), (10, 0, False)])
+def test_scan_staging_rule(n, d, staged):
+    """The dictionary is staged (as float64) when it fits in 32 KB and has
+    no more values than the rows one block scans."""
+    assert tcs.scan_staged(n, d) == staged
+    rows = -(-n // tcs.scan_plan(n).blocks)
+    assert staged == (0 < d * 8 <= tcs.STAGE_BYTES and d <= rows)
+
+
+def test_scan_word_is_cached_per_size_dtypes_and_column():
+    """One lru_cache lookup a call: the (word, buffer size) of (n, d,
+    dtypes, codes, one column) is scan_word's and scan_buffer's."""
+    f64 = torch.float64
+    assert tcs._launch(93_750, 11, f64, f64, True, False) == (
+        tcs.scan_word(93_750, 3, 3, True, False, 11), tcs.scan_buffer(93_750))
+    assert tcs._launch(93_750, 0, torch.int32, f64, False, False) == (
+        tcs.scan_word(93_750, 0, 3, False, False), tcs.scan_buffer(93_750))
+    info = tcs._launch.cache_info()
+    tcs._launch(93_750, 11, f64, f64, True, False)
+    assert tcs._launch.cache_info().hits == info.hits + 1
+    source = (_build.CSRC / "scan.cu").read_text()
+    assert "constexpr int kMaxWarps = 32;" in source
+    assert tcs.MAX_WARPS == 32
+
+
+@pytest.mark.parametrize("n,doubles", [
+    (0, 4), (1, 4), (128, 4), (129, 12), (93_750, 4 + 4 * 132),
+    (10 ** 7, 4 + 4 * 132)])
+def test_scan_buffer_is_the_answer_then_a_partial_a_block(n, doubles):
+    """A call's one allocation: the 4-double answer, then 4 doubles a
+    block for the partials the last block folds (none for one block,
+    which writes the answer itself)."""
+    assert tcs.scan_buffer(n) == doubles
+    blocks = tcs.scan_plan(n).blocks
+    assert doubles == 4 + (4 * blocks if blocks > 1 else 0)
+
+
+def _c_arguments(source: str, entry: str) -> list:
+    """The ctypes of a C entry point's arguments, read from its source."""
+    text = source[source.index(f"extern \"C\" int {entry}("):]
+    args = text[text.index("(") + 1:text.index(")")].split(",")
+    ct = _build.ctypes
+    kinds = []
+    for arg in args:
+        decl = " ".join(arg.split()[:-1]) + ("*" if "*" in arg else "")
+        kinds.append(ct.c_void_p if "*" in decl or "cudaStream_t" in decl
+                     else ct.c_ulonglong if "unsigned long long" in decl
+                     else ct.c_longlong if "long long" in decl
+                     else ct.c_double if "double" in decl
+                     else ct.c_int)
+    return kinds
+
+
+def test_scan_signature_matches_the_c_entry():
+    """shark_scan(filt, dict, agg, n, word, lo, hi, buf, ticket, stream):
+    ten plain arguments, pointers and the stream as c_void_p, n as
+    c_longlong, the plan word as c_ulonglong, the bounds as c_double."""
+    ct = _build.ctypes
+    name, args = _build.SIGNATURES["scan"]
+    assert name == "shark_scan" and len(args) == 10
+    assert args == [ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_longlong,
+                    ct.c_ulonglong, ct.c_double, ct.c_double, ct.c_void_p,
+                    ct.c_void_p, ct.c_void_p]
+    source = (_build.CSRC / "scan.cu").read_text()
+    assert _c_arguments(source, "shark_scan") == args
+    word = tcs.scan_word(10 ** 7, 3, 3, True, False, 2 ** 30 - 1)
+    assert ct.c_ulonglong(word).value == word
+
+
+def test_scan_fold_ticket_is_one_word_per_device_and_stream(monkeypatch):
+    """Both scan kernels take the ticket of `_common.stream_ticket`: calls
+    on one stream share it (they run in order), another stream or device
+    gets its own, and none is allocated inside a graph capture."""
+    monkeypatch.setattr(tcs, "_TICKETS", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    dev = torch.device("cpu")
+    first = tcs._ticket(dev, 7)
+    assert first.dtype == torch.int32 and first.tolist() == [0]
+    assert tcs._ticket(dev, 7) is first
+    assert tcs._ticket(dev, 8) is not first
+    assert tcs._TICKETS.keys() == {(None, 7), (None, 8)}
+    for s in range(300):                 # no limit on the streams
+        tcs._ticket(dev, 100 + s)
+    assert tcs._ticket(dev, 399) is tcs._ticket(dev, 399)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    assert tcs._ticket(dev, 7) is first
+    with pytest.raises(RuntimeError, match="scan's first call"):
+        tcs._ticket(dev, 9)
+
+
+def test_scan_launches_are_counted_only_on_the_card():
+    launches = dict(tcs.LAUNCHES), dict(tdd.LAUNCHES)
+    routes = dict(tcs.ROUTES)
+    x = torch.arange(300, dtype=torch.float64)
+    tcs.colscan(x, x, 3, 7)
+    tdd.fused_decode_scan(torch.zeros(300, dtype=torch.int32), x[:3], x,
+                          0, 1)
+    assert (tcs.LAUNCHES, tdd.LAUNCHES) == launches
+    assert tcs.ROUTES == routes
+
+
+def test_scan_launch_passes_one_buffer_and_the_stream_ticket(monkeypatch):
+    """launch_scan's one ctypes call (a stand-in entry on CPU tensors): the
+    plan word, the buffer of scan_buffer(n) doubles whose first 4 are the
+    answer, the stream's ticket and the stream; colscan's path counted in
+    ROUTES (one column when the filter is the aggregate), none for codes."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(tcs, "_TICKETS", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(_build, "stream_handle", lambda dev: 5)
+    monkeypatch.setattr(_build, "kernel_fn", lambda name: entry)
+    monkeypatch.setattr(tcs, "ROUTES", {"one_column": 0, "two_columns": 0})
+    n = 93_750
+    x = torch.zeros(n, dtype=torch.float64)
+    y = torch.zeros(n, dtype=torch.float32)
+    c = torch.zeros(n, dtype=torch.int32)
+    for filt, dic, agg, same in ((x, None, x, True), (y, None, x, False),
+                                 (x[:n], None, x, True), (c, x[:11], x,
+                                                          False)):
+        out = tcs.launch_scan("scan", filt, dic, agg, 1.0, 2.0)
+        args = calls[-1]
+        assert len(args) == 10 and args[3] == n and args[9] == 5
+        table = dic if dic is not None else filt
+        d = 11 if dic is not None else 0
+        assert args[4] == tcs.scan_word(
+            n, tcs.SCAN_CODES[table.dtype], tcs.SCAN_CODES[agg.dtype],
+            dic is not None, same, d)
+        assert args[:3] == (filt.data_ptr(), None if dic is None
+                            else dic.data_ptr(), agg.data_ptr())
+        assert args[5:7] == (1.0, 2.0)
+        assert out.shape == (4,) and out.data_ptr() == args[7]
+        assert out.untyped_storage().nbytes() == 8 * tcs.scan_buffer(n)
+        assert args[8] == tcs._ticket(x.device, 5).data_ptr()
+    assert tcs.ROUTES == {"one_column": 2, "two_columns": 1}
+
+
+def test_scan_launch_raises_before_the_kernel_on_what_scan_cu_cannot_see():
+    """Rank, contiguity, dtypes (bf16 included), row counts, int32 codes:
+    each raises in launch_scan before a library is loaded."""
+    x = torch.zeros(8, dtype=torch.float64)
+    c = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1-D"):
+        tcs.launch_scan("colscan", x.view(2, 4), None, x.view(2, 4), 0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcs.launch_scan("colscan", torch.zeros(16)[::2], None, x, 0, 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tcs.launch_scan("colscan", x.to(torch.bfloat16), None, x, 0, 1)
+    with pytest.raises(ValueError, match="rows"):
+        tcs.launch_scan("colscan", x[:7], None, x, 0, 1)
+    with pytest.raises(TypeError, match="int32 codes"):
+        tcs.launch_scan("fused_decode_scan", c.long(), x[:3], x, 0, 1)
+    with pytest.raises(ValueError):
+        tdd.fused_decode_scan(c, x[:3], x.to("meta"), 0, 1)

@@ -12,8 +12,10 @@ summed in another order).
 
 The flash-attention and SSD-scan kernels' twins against the reference are
 in tests/test_torch_lm_kernels.py.  `test_cuda_kernel_matches_plain` holds
-each CUDA kernel against its plain version on the card; it needs a CUDA
-device and skips without one.
+each CUDA kernel against its plain version on the card, and the
+`test_cuda_*` tests below it each kernel's routes, dtypes, edge cases,
+repeat-call bits and one-kernel-a-call; they need a CUDA device and skip
+without one.
 """
 
 import numpy as np
@@ -1231,3 +1233,210 @@ def test_cuda_rle_one_device_kernel_per_call():
         == {"kernel": 1}
     assert graph_nodes(lambda: tdd.rle_decode_into(vals, ends, n, x[:, 3])) \
         == {"kernel": 1}
+
+
+# -- the one-launch scan (colscan, fused_decode_scan) on the card ----------
+
+SCAN_DTYPES = ("int32", "int64", "float32", "float64")
+SCAN_SIZES = [0, 1, 255, 256, 257, 1023, 1024, 1025, 93_750, 10 ** 6,
+              10 ** 7]
+
+
+def _scan_column(rng, n, dtype, nan_every=0):
+    """A column of `dtype` on the card: integers in [-100, 100), floats
+    from a normal (NaN every `nan_every` rows when given)."""
+    if dtype.startswith("int"):
+        return _t(rng.integers(-100, 100, n).astype(dtype)).cuda()
+    v = rng.normal(size=n) * 50
+    if nan_every:
+        v[::nan_every] = np.nan
+    return _t(v.astype(dtype)).cuda()
+
+
+def _scan_both(fn, plain, *args):
+    got = fn(*args)
+    assert got.dtype == torch.float64 and got.shape == (4,)
+    _scan_close(got.cpu().numpy(), plain(*args).cpu().numpy())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_cuda_scan_every_dtype_pair_matches_plain(n):
+    """Both policies against their plain versions (exact count, min and
+    max, the sum to rtol 1e-12) for every filter (or dictionary) and
+    aggregate dtype, on one block and many, with codes below 0, at the pad
+    code d and past it."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(n % 9973)
+    codes = _t(rng.integers(-2, 14, n).astype(np.int32)).cuda()
+    aggs = {dt: _scan_column(rng, n, dt, 7) for dt in SCAN_DTYPES}
+    for fdt in SCAN_DTYPES:
+        f = _scan_column(rng, n, fdt, 5)
+        dic = _scan_column(rng, 11, fdt)
+        for adt, a in aggs.items():
+            _scan_both(tcolscan.colscan, tcolscan.colscan_plain, f, a,
+                       -20, 30)
+            _scan_both(tdd.fused_decode_scan, tdd.fused_decode_scan_plain,
+                       codes, dic, a, -40, 40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 93_750, 10 ** 6])
+def test_cuda_scan_nan_inf_bounds_and_codes(n):
+    """NaN filter values fail ±inf bounds, NaN aggregate values make min
+    and max NaN, (-inf, inf) selects every finite row and (inf, -inf)
+    none; negative, pad (d) and larger codes read NaN."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(n)
+    f = _scan_column(rng, n, "float64", 3)
+    a = _scan_column(rng, n, "float64")
+    a_nan = a.clone()
+    a_nan[n // 2] = float("nan")
+    dic = _t(np.arange(11) * 0.01).cuda()
+    codes = _t(rng.integers(-3, 15, n).astype(np.int32)).cuda()
+    for lo, hi in ((-np.inf, np.inf), (np.inf, -np.inf), (-np.inf, 0.0),
+                   (0.0, np.inf), (-10.0, 10.0)):
+        for agg in (a, a_nan):
+            got = _scan_both(tcolscan.colscan, tcolscan.colscan_plain, f,
+                             agg, lo, hi)
+            _scan_both(tdd.fused_decode_scan, tdd.fused_decode_scan_plain,
+                       codes, dic, agg, lo, hi)
+            if lo > hi:
+                assert got.cpu().tolist() == [0.0, 0.0, np.inf, -np.inf]
+    every = tdd.fused_decode_scan(codes, dic, a, -np.inf, np.inf).cpu()
+    valid = ((codes >= 0) & (codes < 11)).sum().item()
+    assert every[0].item() == valid < n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,staged", [(93_750, 11, True),
+                                        (93_750, 711, True),
+                                        (93_750, 712, False),
+                                        (93_750, 100_000, False),
+                                        (10 ** 7, 4_096, True),
+                                        (10 ** 7, 4_097, False),
+                                        (300, 11, True), (300, 300, False)])
+def test_cuda_fused_decode_scan_staged_and_global_dictionaries(n, d, staged):
+    """A dictionary that fits the shared-memory stage (32 KB as float64,
+    no more values than a block's rows) is staged; a larger one is read
+    through __ldg; both match the plain version."""
+    _cuda_or_skip()
+    assert tcolscan.scan_staged(n, d) == staged
+    rng = np.random.default_rng(d)
+    dic = _t(np.sort(rng.normal(size=d))).cuda()
+    codes = _t(rng.integers(-1, d + 2, n).astype(np.int32)).cuda()
+    a = _scan_column(rng, n, "float64")
+    for dt in ("float32", "int64"):
+        _scan_both(tdd.fused_decode_scan, tdd.fused_decode_scan_plain,
+                   codes, dic.to(getattr(torch, dt)), a, -0.5, 1.0)
+    _scan_both(tdd.fused_decode_scan, tdd.fused_decode_scan_plain, codes,
+               dic, a, -0.5, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [257, 93_750, 10 ** 6])
+@pytest.mark.parametrize("dtype", SCAN_DTYPES)
+def test_cuda_colscan_one_tensor_as_filter_and_aggregate(n, dtype):
+    """One tensor as both operands takes the one-column path: the plain
+    version's answer, to the bit the two-column path's over a copy."""
+    _cuda_or_skip()
+    x = _scan_column(np.random.default_rng(n), n, dtype, 11)
+    routes = dict(tcolscan.ROUTES)
+    got = _scan_both(tcolscan.colscan, tcolscan.colscan_plain, x, x, -30,
+                     40)
+    assert tcolscan.ROUTES["one_column"] == routes["one_column"] + 1
+    assert torch.equal(got, tcolscan.colscan(x, x.clone(), -30, 40))
+    assert tcolscan.ROUTES["two_columns"] == routes["two_columns"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1025, 93_750, 10 ** 6])
+def test_cuda_scan_views_off_16_bytes(n):
+    """Views one element into their buffers (not on 16 bytes) take scalar
+    loads: the plain version's answer, to the bit the aligned copies'."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(n + 1)
+    for fdt, adt in (("float64", "float64"), ("int32", "float64"),
+                     ("float32", "int32"), ("int64", "float32")):
+        fb = _scan_column(rng, n + 1, fdt, 5)
+        ab = _scan_column(rng, n + 1, adt)
+        f, a = fb[1:], ab[1:]
+        for fv, av in ((f, a), (f, ab[:n]), (fb[:n], a)):
+            got = _scan_both(tcolscan.colscan, tcolscan.colscan_plain, fv,
+                             av, -25, 25)
+            assert torch.equal(got, tcolscan.colscan(
+                fv.clone(), av.clone(), -25, 25))
+        got = _scan_both(tcolscan.colscan, tcolscan.colscan_plain, f, f,
+                         -25, 25)
+        assert torch.equal(got, tcolscan.colscan(f.clone(), f.clone(), -25,
+                                                 25))
+    cb = _t(rng.integers(-1, 12, n + 3).astype(np.int32)).cuda()
+    dic = _t(np.arange(11) * 0.01).cuda()
+    a = _scan_column(rng, n + 1, "float64")
+    for off in (1, 2, 3):
+        codes = cb[off:off + n]
+        got = _scan_both(tdd.fused_decode_scan, tdd.fused_decode_scan_plain,
+                         codes, dic, a[1:], 0.02, 0.08)
+        assert torch.equal(got, tdd.fused_decode_scan(
+            codes.clone(), dic, a[1:].clone(), 0.02, 0.08))
+
+
+@pytest.mark.cuda
+def test_cuda_scan_repeat_calls_bit_equal():
+    """Repeat calls give the same bits on one block and on many; the
+    ticket word returns to 0 after every launch, whatever ran before it
+    on the stream."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(3)
+    cases = []
+    for n in (93_750, 10 ** 6, 140_000, 200, 5):
+        f = _scan_column(rng, n, "float64", 13)
+        a = _scan_column(rng, n, "float64")
+        cases.append((f, a, tcolscan.colscan(f, a, -40, 40)))
+    launches = tcolscan.LAUNCHES["colscan"]
+    for _ in range(5):
+        for f, a, first in cases:
+            assert torch.equal(tcolscan.colscan(f, a, -40, 40), first)
+    assert tcolscan.LAUNCHES["colscan"] == launches + 25
+
+
+@pytest.mark.cuda
+def test_cuda_scan_calls_on_two_streams():
+    """Calls overlapping on two streams hold separate tickets (the
+    partials are each call's own) and give the one-stream answers."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(4)
+    n = 10 ** 6
+    f = [_scan_column(rng, n, "float64", 9) for _ in range(2)]
+    a = _scan_column(rng, n, "float64")
+    want = [tcolscan.colscan(x, a, -30, 30) for x in f]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    tickets = {tcolscan._ticket(a.device, s.cuda_stream).data_ptr()
+               for s in streams}
+    assert len(tickets) == 2
+    got = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(tcolscan.colscan(f[i], a, -30, 30))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 93_750, 10 ** 6])
+def test_cuda_scan_one_device_kernel_per_call(n):
+    _cuda_or_skip()
+    rng = np.random.default_rng(n)
+    f = _scan_column(rng, n, "float64")
+    a = _scan_column(rng, n, "float64")
+    codes = _t(rng.integers(0, 11, n).astype(np.int32)).cuda()
+    dic = _t(np.arange(11) * 0.01).cuda()
+    for call in (lambda: tcolscan.colscan(f, f, -10, 10),
+                 lambda: tcolscan.colscan(f, a, -10, 10),
+                 lambda: tdd.fused_decode_scan(codes, dic, a, 0.02, 0.05)):
+        assert graph_nodes(call) == {"kernel": 1}
