@@ -16,25 +16,37 @@ that one `colscan` (over one column and over two), one
 `dict_decode`, one `train_grad`, one batched bit-pack decode of a phase-3
 partition, one `rle_decode` and one `rle_decode_into` a column of x, one
 `topk_similarity` and one `topk_similarity_lanes` call at phase 4's
-partition and one bf16 `ssd_scan` call each put exactly one kernel on the
-device (the nodes of a CUDA graph captured around the call), and times
+partition, one bf16 `ssd_scan` call and one `radix_split` of 50 and of
+93,750 int64 keys each put exactly one kernel on the device (the nodes
+of a CUDA graph captured around the call), holds `radix_split` and
+`radix_partition` bit for bit against their plain versions over n = 0 ..
+93,750 x B = 1 .. 8,192, and times
 each kernel, its plain version and, where one PyTorch call computes the same
 function, that call, each with the host's cost (`ms`) and as a CUDA graph
 (`device_ms`; flash and the SSD scan at Zamba2-7B's prefill shapes, with
 `scaled_dot_product_attention` as flash's yardstick), and, beside the
 calls they replaced, the batched bit-pack decode (row 7b), `rle_decode_into`
 a column of x (8b) and the lanes entry of top-k (9b), `colscan` over two
-distinct columns (1b), and both scan kernels over 10,000,000 rows beside
-their bounds.
+distinct columns (1b), both scan kernels over 10,000,000 rows beside
+their bounds, and `radix_split` at 50, 93,750 and 10,000,000 keys (rows
+4, 4M, 4L), with what a shuffle's map task pays for it from host numpy
+to host numpy (`call_ms`) beside the chain it replaced (`chain_ms`).
 Phase 2 runs the SQL main path end to end: a `SharkSession` on the card
 loads a TPC-H `lineitem` table (6,000,000 rows, scale factor 1, in 64
 partitions of 93,750 rows, columns drawn from dbgen's domains with numpy
 from `--seed`) and answers four filter / aggregate / group-by queries,
 each checked against numpy over the generated arrays (integers exactly,
-floats to rtol 1e-9).  Its launch counts must show the five SQL kernels,
-and exactly one `colscan` (query a) and one `fused_decode_scan` (query b)
-launch per partition of each counted run; on the card it ends with a
-torch.profiler trace of one warm run of each of queries a and b.
+floats to rtol 1e-9), then query e: `lineitem` joined with TPC-H `orders`
+(1,500,000 rows, dbgen's sparse keys, 1 to 7 lines an order, 64
+partitions) and grouped by O_ORDERPRIORITY, which PDE must run as a
+shuffle join at the default broadcast threshold.  Its launch counts must
+show the five SQL kernels, exactly one `colscan` (query a) and one
+`fused_decode_scan` (query b) launch per partition of each counted run,
+and exactly one `radix_partition` launch, on its one-launch route, per
+map task of every shuffle (c and d: 64 a run; e: 64 orders and 64
+lineitem tasks, then one a reducer of the join); on the card it ends
+with a torch.profiler trace of one warm run of each of queries a, b and
+e.
 Phase 3 trains in the engine (paper Listing 1, §6.5): a `points` table of
 10,000,000 rows in 64 partitions of 156,250 (one node's share of the
 paper's billion rows on 100 nodes), 12 feature columns that load as
@@ -134,6 +146,14 @@ TRAIN_ROWS, DOCS_ROWS = 156_250, 15_625
 # columns, 120 MB of int32 codes and a float64 column), past the L2
 LARGE_SCAN_ROWS = 10_000_000
 EMB_DIM, TOP_K = 64, 100
+# the shuffle's buckets on the main path: the executor's max(64, partitions)
+RADIX_BUCKETS = 64
+# radix_split's grid (phase 1), and its rows: query c's 50 partial-state
+# keys a partition (row 4), a lineitem partition of query e (4M) and
+# 10,000,000 keys past the L2 (4L)
+RADIX_GRID_ROWS = (0, 1, 50, 1023, 4096, 4097, 93_750)
+RADIX_GRID_BUCKETS = (1, 7, 64, 1000, 8192)
+RADIX_ROWS = {"partials": 50, "medium": 93_750, "large": 10_000_000}
 
 
 def fail(msg: str) -> None:
@@ -347,22 +367,9 @@ def phase_kernels(torch, device, seed: int) -> dict:
             err["segmented_merge"] = max(err["segmented_merge"], group_err(
                 km.segmented_merge(t(inv), t(price), g),
                 km.segmented_merge_plain(t(inv), t(price), g)))
-        keys = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
-        kt = t(keys.view(np.int32))
-        for b in (32, 64):
-            want_ids, want_counts = kr.radix_partition_ref(keys, b)
-            for with_counts in (True, False):
-                ids, counts = kr.radix_partition(kt, b, with_counts)
-                plain_ids, _ = kr.radix_partition_plain(kt, b, with_counts)
-                if not (np.array_equal(ids.cpu().numpy(), want_ids)
-                        and np.array_equal(plain_ids.cpu().numpy(),
-                                           want_ids)):
-                    fail(f"radix ids differ (n={n}, B={b})")
-                if with_counts and not np.array_equal(counts.cpu().numpy(),
-                                                      want_counts):
-                    fail(f"radix counts differ (n={n}, B={b})")
     if device.type == "cuda":
         torch.cuda.synchronize()
+    err["radix_partition"] = radix_grid(torch, device, t, rng, kr)
     print(f"phase 1: 5 kernels match their plain versions, max abs err "
           f"{json.dumps(err)}", flush=True)
 
@@ -377,8 +384,7 @@ def phase_kernels(torch, device, seed: int) -> dict:
     m_rows, m_groups = 64 * 50, 50
     minv = t(rng.integers(0, m_groups, m_rows).astype(np.int64))
     mval = t(rng.uniform(1e7, 2e7, m_rows))
-    rkeys = t(rng.integers(0, 2 ** 32, 50, dtype=np.uint64)
-              .astype(np.uint32).view(np.int32))
+    rkeys = t(radix_keys(rng, RADIX_ROWS["partials"]))
     stacked = torch.stack([price, torch.ones_like(price)], dim=1)
 
     def index_add_groupby():
@@ -402,18 +408,24 @@ def phase_kernels(torch, device, seed: int) -> dict:
             lambda: km.segmented_merge(minv, mval, m_groups),
             lambda: km.segmented_merge_plain(minv, mval, m_groups),
             None, 16.0 * m_rows + 32 * m_groups, 4.0 * m_rows),
+        # the shuffle's whole split of a map task's int64 keys: each key
+        # read once, order and bounds written once
         "radix_partition": (
-            lambda: kr.radix_partition(rkeys, 64, with_counts=False),
-            lambda: kr.radix_partition_plain(rkeys, 64, with_counts=False),
-            None, 8.0 * 50, 8.0 * 50),
+            lambda: kr.radix_split(rkeys, RADIX_BUCKETS),
+            lambda: kr.radix_split_plain(rkeys, RADIX_BUCKETS),
+            None, radix_bytes(RADIX_ROWS["partials"]),
+            RADIX_OPS * RADIX_ROWS["partials"]),
     }
     two_columns = (lambda: kc.colscan(other, price, 20000.0, 40000.0),
                    lambda: kc.colscan_plain(other, price, 20000.0, 40000.0))
     if device.type == "cuda":
         for name in ("colscan", "fused_decode_scan", "groupby_sum",
-                     "segmented_merge"):
+                     "segmented_merge", "radix_partition"):
             one_kernel(name, cases[name][0])
         one_kernel("colscan (two columns)", two_columns[0])
+        mkeys = t(radix_keys(rng, RADIX_ROWS["medium"]))
+        one_kernel("radix_partition (93,750 keys)",
+                   lambda: kr.radix_split(mkeys, RADIX_BUCKETS))
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
         b_ms, b_by = bound(nbytes, ops)
@@ -436,7 +448,143 @@ def phase_kernels(torch, device, seed: int) -> dict:
         "plain_ms": timer(two_columns[1]), "bound_ms": b_ms, "bound_by": b_by}
     out["colscan"]["large"], out["fused_decode_scan"]["large"] = \
         scan_large(t, rng, timer, kc, kd)
+    for row, n in RADIX_ROWS.items():
+        rec = radix_row(torch, device, timer, kr, rng, n)
+        if row == "partials":
+            out["radix_partition"].update(rec)
+        else:
+            out["radix_partition"][row] = rec
     return out
+
+
+# radix_split's operations a key: the fold, the mix, the modulo and the
+# rank (integer work; the bytes bound it)
+RADIX_OPS = 12.0
+
+
+def radix_bytes(n: int) -> float:
+    """radix_split's bytes: each int64 key read once, its order entry and
+    the B + 1 bounds written once."""
+    return 12.0 * n + 4.0 * (RADIX_BUCKETS + 1)
+
+
+def radix_keys(rng, n: int) -> np.ndarray:
+    """int64 key hashes, negatives and repeats among them."""
+    k = rng.integers(-2 ** 62, 2 ** 62, n)
+    k[::7] = -1
+    if n:
+        k[3::11] = k[0]
+    return k
+
+
+def radix_grid(torch, device, t, rng, kr) -> float:
+    """radix_split (int64 keys, and 32-bit lanes) and radix_partition (ids
+    and counts, and ids alone) against their plain versions and the numpy
+    oracle, bit for bit, over RADIX_GRID_ROWS x RADIX_GRID_BUCKETS; every B up to 1024 on
+    the one-launch route.  Returns the largest difference (0: exact)."""
+    routes0 = dict(kr.ROUTES)
+    want_routes = {"one_launch": 0, "two_launch": 0}
+    for n in RADIX_GRID_ROWS:
+        k64 = radix_keys(rng, n)
+        k32 = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+        k32[::5] = 12345
+        lanes = t(k32.view(np.int32))
+        for b in RADIX_GRID_BUCKETS:
+            for k in (k64, k32.view(np.int32)):
+                kt = t(k)
+                got = kr.radix_split(kt, b)
+                plain = kr.radix_split_plain(kt, b)
+                ref = kr.radix_split_ref(k, b)
+                for g, p, r, what in zip(got, plain, ref, ("order", "bounds")):
+                    if not (torch.equal(g, p)
+                            and np.array_equal(p.cpu().numpy(), r)):
+                        fail(f"radix_split {what} differs (n={n}, B={b}, "
+                             f"keys {k.dtype})")
+            ids, counts = kr.radix_partition(lanes, b)
+            pids, pcounts = kr.radix_partition_plain(lanes, b)
+            wids, wcounts = kr.radix_partition_ref(k32, b)
+            if not (torch.equal(ids, pids) and torch.equal(counts, pcounts)
+                    and np.array_equal(ids.cpu().numpy(), wids)
+                    and np.array_equal(counts.cpu().numpy(), wcounts)):
+                fail(f"radix_partition differs (n={n}, B={b})")
+            only, none = kr.radix_partition(lanes, b, with_counts=False)
+            if not (none is None and torch.equal(only, pids)
+                    and np.array_equal(only.cpu().numpy(), wids)):
+                fail(f"radix_partition's ids alone differ (n={n}, B={b})")
+            route = "one_launch" if b <= kr.ONE_LAUNCH_MAX else "two_launch"
+            want_routes[route] += 4
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        routes = {r: kr.ROUTES[r] - routes0[r] for r in want_routes}
+        if routes != want_routes:
+            fail(f"radix calls took routes {routes}, not {want_routes}")
+    print(f"phase 1: radix_split and radix_partition (with counts and ids "
+          f"alone) equal their plain versions bit for bit at n in {list(RADIX_GRID_ROWS)} x B in "
+          f"{list(RADIX_GRID_BUCKETS)}", flush=True)
+    return 0.0
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Host clock per call of `fn()`, a call that ends on the host (its
+    own copies back synchronize), after two warm-up calls."""
+    fn()
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def radix_row(torch, device, timer, kr, rng, n: int) -> dict:
+    """radix_split over n int64 keys into RADIX_BUCKETS buckets: exact
+    against the plain version; device ms (graphed), the wrapper's ms, the
+    plain version's; and what a shuffle's map task pays, host numpy in and
+    numpy out (`call_ms`: shuffle.split_keys; `chain_ms`: the chain it
+    replaced — host fold, pageable copy, ids kernel, `.cpu()`, stable
+    np.argsort, np.searchsorted), timed in turns new, old, old, new; and,
+    for context, torch.argsort of the ids (half the function)."""
+    from repro_torch.core.shuffle import split_keys
+    b = RADIX_BUCKETS
+    if not timer.cuda and n > 10 ** 5:
+        n = 10 ** 5                      # the CPU rehearsal's size
+    k = radix_keys(rng, n)
+    kt = torch.from_numpy(k).to(device)
+    got, want = kr.radix_split(kt, b), kr.radix_split_plain(kt, b)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"radix_split differs from its plain version at n={n}")
+    reps = 200 if n <= 50 else (30 if n <= 10 ** 5 else 3)
+
+    def call():
+        split_keys(k, b, device)
+
+    def chain():
+        keys = torch.from_numpy(kr.fold_keys_u32(k).view(np.int32)).to(device)
+        ids = kr.radix_partition(keys, b, with_counts=False)[0].cpu().numpy()
+        order = np.argsort(ids, kind="stable")
+        np.searchsorted(ids[order], np.arange(b + 1))
+
+    turns = [wall_ms(call, reps), wall_ms(chain, reps), wall_ms(chain, reps),
+             wall_ms(call, reps)]
+    lanes = torch.from_numpy(kr.fold_keys_u32(k).view(np.int32)).to(device)
+    ids = kr.radix_partition(lanes, b, with_counts=False)[0]
+    b_ms, b_by = bound(radix_bytes(n), RADIX_OPS * n)
+    kern = lambda: kr.radix_split(kt, b)
+    calls = 20 if n <= 10 ** 5 else 5
+    device_ms = timer.graphed(kern, calls=calls, replays=4)
+    return {
+        "rows": n, "launches": None, "max_abs_err": 0.0,
+        "ms": timer(kern, reps=max(10, reps), warmup=2),
+        "device_ms": device_ms,
+        "plain_ms": timer(lambda: kr.radix_split_plain(kt, b),
+                          reps=max(3, reps // 10), warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "device_over_bound": (device_ms / b_ms if device_ms is not None
+                              else None),
+        "call_ms": (turns[0] + turns[3]) / 2,
+        "chain_ms": (turns[1] + turns[2]) / 2, "call_turns_ms": turns,
+        "argsort_device_ms": timer.graphed(
+            lambda: torch.argsort(ids, stable=True), calls=calls,
+            replays=4)}
 
 
 def scan_large(t, rng, timer, kc, kd):
@@ -785,7 +933,8 @@ def phase_kernels_analytics(torch, device, seed: int) -> dict:
 
 
 def lineitem(rows: int, seed: int) -> dict:
-    """TPC-H lineitem columns from dbgen's domains (spec §4.2.3)."""
+    """TPC-H lineitem columns from dbgen's domains (spec §4.2.3), with
+    L_ORDERKEY from `orders`."""
     rng = np.random.default_rng(seed)
     qty = rng.integers(1, 51, rows).astype(np.int32)
     retail = np.round(rng.uniform(900.0, 2100.0, rows), 2)
@@ -800,6 +949,41 @@ def lineitem(rows: int, seed: int) -> dict:
     }
 
 
+ORDER_PRIORITIES = np.array(["1-URGENT", "2-HIGH", "3-MEDIUM",
+                             "4-NOT SPECIFIED", "5-LOW"])
+
+
+def orders(li: dict, seed: int) -> dict:
+    """TPC-H orders for the lineitem rows `li` (spec §4.2.3), which gains
+    L_ORDERKEY: rows / 4 orders (1,500,000 at SF1) under dbgen's sparse
+    keys (8 of every 32), 1 to 7 lines an order (their count adjusted by
+    one here and there to add up to the lineitem rows), lines in key order
+    as dbgen writes them; O_TOTALPRICE the order's sum of
+    L_EXTENDEDPRICE * (1 - L_DISCOUNT) * (1 + tax), tax 0 to 0.08."""
+    rows = len(li["L_QUANTITY"])
+    rng = np.random.default_rng(seed + 1)
+    count = max(1, rows // 4)
+    i = np.arange(count, dtype=np.int64)
+    keys = (i // 8) * 32 + (i % 8) + 1
+    lines = rng.integers(1, 8, count)
+    while lines.sum() != rows:
+        diff = rows - int(lines.sum())
+        cand = np.flatnonzero(lines < 7 if diff > 0 else lines > 1)
+        pick = rng.choice(cand, size=min(abs(diff), len(cand)),
+                          replace=False)
+        lines[pick] += 1 if diff > 0 else -1
+    li["L_ORDERKEY"] = np.repeat(keys, lines)
+    tax = np.round(rng.integers(0, 9, rows) * 0.01, 2)
+    charge = li["L_EXTENDEDPRICE"] * (1 - li["L_DISCOUNT"]) * (1 + tax)
+    starts = np.concatenate([[0], np.cumsum(lines)[:-1]])
+    return {
+        "O_ORDERKEY": keys,
+        "O_ORDERPRIORITY": ORDER_PRIORITIES[rng.integers(0, 5, count)],
+        "O_TOTALPRICE": np.round(np.add.reduceat(charge, starts), 2),
+        "O_ORDERDATE": rng.integers(8035, 10289, count).astype(np.int32),
+    }
+
+
 QUERIES = {
     "a": ("SELECT COUNT(*) AS c, SUM(L_EXTENDEDPRICE) AS s, "
           "MIN(L_EXTENDEDPRICE) AS mn, MAX(L_EXTENDEDPRICE) AS mx "
@@ -810,13 +994,27 @@ QUERIES = {
           "GROUP BY L_QUANTITY"),
     "d": ("SELECT L_SHIPMODE, COUNT(*) AS c, AVG(L_EXTENDEDPRICE) AS a "
           "FROM lineitem GROUP BY L_SHIPMODE"),
+    "e": ("SELECT O_ORDERPRIORITY, COUNT(*) AS c, SUM(L_EXTENDEDPRICE) AS rev, "
+          "SUM(O_TOTALPRICE) AS tp FROM lineitem JOIN orders "
+          "ON L_ORDERKEY = O_ORDERKEY GROUP BY O_ORDERPRIORITY"),
 }
 EXPECTED_ROUTE = {"a": "colscan", "b": "fused_decode_scan",
                   "c": "groupby_mxu", "d": "groupby_mxu"}
+# radix launches a run: one a map task — c's and d's 64 partial
+# aggregates; query e's 64 orders and 64 lineitem partitions into the
+# join's buckets, then a partial aggregate a reducer of the join (PDE
+# bin-packs the join's buckets into reducers of about
+# PDEConfig.target_reduce_bytes)
+RADIX_A_RUN = {"c": PARTITIONS, "d": PARTITIONS, "e": 2 * PARTITIONS}
 
 
-def expected(data: dict) -> dict:
+def expected(data: dict, od: dict) -> dict:
     p, q = data["L_EXTENDEDPRICE"], data["L_QUANTITY"]
+    at = np.searchsorted(od["O_ORDERKEY"], data["L_ORDERKEY"])
+    if not np.array_equal(od["O_ORDERKEY"][at], data["L_ORDERKEY"]):
+        fail("a lineitem row has no order")
+    prios, pinv = np.unique(od["O_ORDERPRIORITY"], return_inverse=True)
+    line_prio = pinv[at]
     sel = (p >= 20000) & (p <= 40000)
     dsel = (data["L_DISCOUNT"] >= 0.05) & (data["L_DISCOUNT"] <= 0.07)
     modes, inv = np.unique(data["L_SHIPMODE"], return_inverse=True)
@@ -830,6 +1028,12 @@ def expected(data: dict) -> dict:
               "rev": np.bincount(q, weights=p)[qs]},
         "d": {"L_SHIPMODE": modes, "c": cnt,
               "a": np.bincount(inv, weights=p) / cnt},
+        "e": {"O_ORDERPRIORITY": prios,
+              "c": np.bincount(line_prio, minlength=len(prios)),
+              "rev": np.bincount(line_prio, weights=p,
+                                 minlength=len(prios)),
+              "tp": np.bincount(line_prio, weights=od["O_TOTALPRICE"][at],
+                                minlength=len(prios))},
     }
 
 
@@ -851,22 +1055,36 @@ def check(name: str, got: dict, want: dict) -> None:
 def phase_sql(torch, device, rows: int, seed: int) -> dict:
     from repro_torch.core import DType, Schema, SharkSession
     from repro_torch.core.pde import PDEConfig
+    from repro_torch.core.shuffle import RADIX_KERNEL_CALLS
     from repro_torch.kernels import colscan as kc, ops
+    from repro_torch.kernels import radix_partition as kr
 
     t0 = time.perf_counter()
     data = lineitem(rows, seed)
-    # the CPU rehearsal forces the kernel routes (their plain versions)
+    od = orders(data, seed)
+    # the CPU rehearsal forces the kernel routes (their plain versions),
+    # and scales the broadcast threshold with its rows so that query e
+    # meets the card's decision; the card keeps the default
     rehearsal = device.type != "cuda"
+    threshold = PDEConfig().broadcast_threshold_bytes * (
+        rows / 6_000_000 if rehearsal else 1)
     cfg = PDEConfig(segment_force_kernels=rehearsal,
-                    reduce_force_compiled=rehearsal)
+                    reduce_force_compiled=rehearsal,
+                    broadcast_threshold_bytes=threshold)
     sess = SharkSession(device=str(device), num_workers=8, max_threads=8,
                         default_shuffle_buckets=64, pde_config=cfg)
     sess.create_table("lineitem", Schema.of(
         L_QUANTITY=DType.INT32, L_EXTENDEDPRICE=DType.FLOAT64,
         L_DISCOUNT=DType.FLOAT64, L_SHIPMODE=DType.STRING,
-        L_SHIPDATE=DType.DATE), data, num_partitions=PARTITIONS)
-    want = expected(data)
-    print(f"phase 2: lineitem {rows} rows in {PARTITIONS} partitions "
+        L_SHIPDATE=DType.DATE, L_ORDERKEY=DType.INT64), data,
+        num_partitions=PARTITIONS)
+    sess.create_table("orders", Schema.of(
+        O_ORDERKEY=DType.INT64, O_ORDERPRIORITY=DType.STRING,
+        O_TOTALPRICE=DType.FLOAT64, O_ORDERDATE=DType.DATE), od,
+        num_partitions=PARTITIONS)
+    want = expected(data, od)
+    print(f"phase 2: lineitem {rows} rows and orders "
+          f"{len(od['O_ORDERKEY'])} rows in {PARTITIONS} partitions each "
           f"loaded in {time.perf_counter() - t0:.3f} s", flush=True)
 
     def run(name: str) -> float:
@@ -881,40 +1099,67 @@ def phase_sql(torch, device, rows: int, seed: int) -> dict:
     try:
         # first run: columns move to the card once and stay there
         first = {name: run(name) for name in QUERIES}
+        joins = sess.metrics().join_decisions       # query e's, run last
+        boundary = sess.metrics().join_boundaries[-1]
+        per_run = dict(RADIX_A_RUN, e=RADIX_A_RUN["e"] + boundary.num_reducers)
         # the main path's counted run
         ops.reset_launch_counts()
         scan_routes0 = dict(kc.ROUTES)
+        radix_routes0 = dict(kr.ROUTES)
         timed = {name: [] for name in QUERIES}
+        # radix launches and map-task splits of each query's runs
+        radix = {name: [] for name in QUERIES}
+        splits = {name: [] for name in QUERIES}
         routes = {}
         for _ in range(REPS):
             for name in QUERIES:
+                before = (kr.LAUNCHES["radix_partition"],
+                          RADIX_KERNEL_CALLS["count"])
                 timed[name].append(run(name))
+                radix[name].append(kr.LAUNCHES["radix_partition"] - before[0])
+                splits[name].append(RADIX_KERNEL_CALLS["count"] - before[1])
                 routes[name] = sess.metrics().segment_routes()
         launches = ops.launch_counts()
         # colscan's launches by path (row 1b reads the two-column path's)
         launches.update({f"colscan.{k}": v - scan_routes0[k]
                          for k, v in kc.ROUTES.items()})
+        radix_routes = {k: v - radix_routes0[k] for k, v in kr.ROUTES.items()}
         if device.type == "cuda":
-            # where a warm scan query's time goes, and what it launches
-            for name in ("a", "b"):
+            # where a warm query's time goes, and what it launches
+            for name in ("a", "b", "e"):
                 ops.reset_launch_counts()
                 rec = traced(torch, device, f"phase 2: one warm query {name}",
                              lambda: run(name))
                 ours = {k: v for k, v in ops.launch_counts().items() if v}
+                parts = PARTITIONS * (2 if name == "e" else 1)
                 print(f"phase 2: one warm query {name}: "
                       f"{rec['device_ops']} device ops "
-                      f"({rec['device_ops'] / PARTITIONS:.2f} a partition), "
-                      f"port kernel launches {json.dumps(ours)}", flush=True)
+                      f"({rec['device_ops'] / parts:.2f} a map partition of "
+                      f"{parts}), port kernel launches {json.dumps(ours)}",
+                      flush=True)
     finally:
         sess.shutdown()
     for name in QUERIES:
-        if routes[name].get(EXPECTED_ROUTE[name], 0) == 0:
+        if name in EXPECTED_ROUTE and \
+                routes[name].get(EXPECTED_ROUTE[name], 0) == 0:
             fail(f"query {name} took routes {routes[name]}, not "
                  f"{EXPECTED_ROUTE[name]}")
         print(f"query {name}: first {first[name]:.3f} ms, then "
               f"{', '.join(f'{m:.3f}' for m in timed[name])} ms; routes "
-              f"{json.dumps(routes[name], sort_keys=True)}", flush=True)
-    print(f"phase 2: main-path launches {json.dumps(launches)}", flush=True)
+              f"{json.dumps(routes[name], sort_keys=True)}; map-task "
+              f"splits {splits[name]}, radix launches {radix[name]}",
+              flush=True)
+        if splits[name] != [per_run.get(name, 0)] * REPS:
+            fail(f"query {name} split {splits[name]} map tasks in its "
+                 f"runs, not {per_run.get(name, 0)} each")
+    print(f"phase 2: query e's join decisions {json.dumps(joins)}; "
+          f"boundary {boundary.strategy}, {boundary.left_bytes:.0f} and "
+          f"{boundary.right_bytes:.0f} bytes observed, "
+          f"{boundary.num_reducers} reducers", flush=True)
+    if not any(j.startswith("PDE shuffle-join") for j in joins):
+        fail(f"query e did not take a PDE shuffle join: {joins}")
+    print(f"phase 2: main-path launches {json.dumps(launches)}; radix routes "
+          f"{json.dumps(radix_routes)}", flush=True)
     if device.type == "cuda":
         # queries a and b scan each partition with one launch a run
         for name in ("colscan", "fused_decode_scan"):
@@ -924,6 +1169,15 @@ def phase_sql(torch, device, rows: int, seed: int) -> dict:
         # query a hands the scan one tensor as filter and aggregate
         if launches["colscan.one_column"] != launches["colscan"]:
             fail(f"query a's scans read two columns: {launches}")
+        # one radix launch a map task, all on the one-launch route
+        for name in QUERIES:
+            if radix[name] != [per_run.get(name, 0)] * REPS:
+                fail(f"query {name} made {radix[name]} radix launches in "
+                     f"its runs, not {per_run.get(name, 0)} each")
+        if radix_routes["one_launch"] != launches["radix_partition"] or \
+                launches["radix_partition"] != REPS * sum(per_run.values()):
+            fail(f"radix launches {launches['radix_partition']} took routes "
+                 f"{radix_routes}")
     return launches
 
 

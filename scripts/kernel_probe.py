@@ -2,7 +2,7 @@
 """Where the redesigned kernels spend their time, on one GPU.
 
     python3 scripts/kernel_probe.py [flash] [group] [ssd] [decode] [train]
-                                    [bitpack] [topk] [rle] [scan]
+                                    [bitpack] [topk] [rle] [scan] [radix]
                                     # default: all
 
 1. flash: flash attention's tensor-core route at Zamba2-7B's prefill
@@ -84,6 +84,20 @@
    timestamps (start, loads issued, scan done, ticket passed, fold done);
    the plan, 264 blocks, 16 and 8 warps a block and scalar loads at 10^7
    rows beside the bound; ptxas's registers and spills.
+10. radix: `radix_split` of int64 keys into 64 buckets at a lineitem
+   partition of query e (93,750 keys, 23 one-tile chunks) and at
+   10,000,000 keys (2,442 tiles in 245 chunks): device time in turns of
+   the plan against copies of `csrc/radix.cu` that undo one design choice
+   each — tiles of 2,048 and 8,192 rows in place of 4,096, a look-back
+   window of one word a lane in place of 8, a warp's ranks and counts
+   from `__match_any_sync` peers and counters in shared memory (the path
+   of B > 64) in place of bucket-bit ballots and counters in registers,
+   and that path with one shared atomic a row in place of the match
+   (timing only: its order within a bucket is not stable) — the two launches of route two_launch
+   (a histogram launch, then the scatter) in place of the look-back, and a
+   one-element `fill_`; per-block timestamps of an instrumented copy (a
+   block's start, its phase 1 done, the done count reached, its end, and
+   its time in look-back); ptxas's registers and spills.
 
 Each line of output is one JSON object.  Needs a CUDA device and `nvcc`.
 """
@@ -1492,6 +1506,218 @@ def probe_scan(torch, np) -> None:
           flush=True)
 
 
+# radix.cu's one-launch route with per-block timestamps: g_rts[8 b ..
+# 8 b + 7] = start, phase 1 done, the done count reached, end, SM, and
+# the ns of phase 1 in look-back, in ranking (one-tile chunks) and in
+# counting (longer chunks)
+RADIX_STAMPS = (
+    ("constexpr uint32_t kField = 0x7fffffffu;\n",
+     "constexpr uint32_t kField = 0x7fffffffu;\n"
+     "__device__ unsigned long long g_rts[8 * 4096];\n"
+     "__device__ __forceinline__ unsigned long long gtime() {\n"
+     "  unsigned long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+     "  return t;\n}\n"),
+    ("  uint32_t bk[kRows], rk[kRows];\n",
+     "  uint32_t bk[kRows], rk[kRows];\n"
+     "  const unsigned long long ts0 = gtime();\n"
+     "  unsigned long long tlb = 0, trk = 0, thi = 0;\n"),
+    ("      look_back(p, c, ex);\n",
+     "      const unsigned long long tl0 = gtime();\n"
+     "      look_back(p, c, ex);\n      tlb += gtime() - tl0;\n"),
+    ("      tile_ranks<k64, kReg>(p, c, bk, rk, hw, cnt);\n      kept = c;\n",
+     "      const unsigned long long tr0 = gtime();\n"
+     "      tile_ranks<k64, kReg>(p, c, bk, rk, hw, cnt);\n      kept = c;\n"
+     "      trk += gtime() - tr0;\n"),
+    ("      chunk_hist<k64, kReg>(p, c * K, min(p.tiles, (c + 1) * K), cnt);"
+     "\n      __syncthreads();\n",
+     "      const unsigned long long th0 = gtime();\n"
+     "      chunk_hist<k64, kReg>(p, c * K, min(p.tiles, (c + 1) * K), cnt);"
+     "\n      __syncthreads();\n      thi += gtime() - th0;\n"),
+    ("  if (threadIdx.x == 0) {\n    if (taken > 0) {",
+     "  const unsigned long long ts1 = gtime();\n"
+     "  if (threadIdx.x == 0) {\n    if (taken > 0) {"),
+    ("  // phase 2: the bucket starts",
+     "  const unsigned long long ts2 = gtime();\n"
+     "  // phase 2: the bucket starts"),
+    ("  // the block to exit last leaves the scratch",
+     "  if (threadIdx.x == 0 && blockIdx.x < 4096) {\n"
+     "    unsigned long long* r = g_rts + 8 * blockIdx.x;\n"
+     "    unsigned sm;\n"
+     "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+     "    r[0] = ts0; r[1] = ts1; r[2] = ts2; r[3] = gtime(); r[4] = sm;\n"
+     "    r[5] = tlb; r[6] = trk; r[7] = thi;\n  }\n"
+     "  // the block to exit last leaves the scratch"),
+)
+RADIX_READER = (
+    "\nextern \"C\" int shark_rts_read(unsigned long long* ts) {\n"
+    "  return cudaMemcpyFromSymbol(ts, g_rts, sizeof(g_rts));\n}\n")
+# the one-launch route's choices, undone one at a time; B = 64 sent down
+# the path of B > 64 (per-warp counts in shared memory, match-any peers)
+RADIX_SMEM = ("    if (B <= kRegBuckets)\n", "    if (false)\n")
+RADIX_VARIANTS = {
+    "tiles of 2,048 rows": (("constexpr int kRows = 16; ",
+                             "constexpr int kRows = 8; "),),
+    "tiles of 8,192 rows": (("constexpr int kRows = 16; ",
+                             "constexpr int kRows = 32; "),),
+    "look-back window of 1": (("constexpr int kWindow = 8; ",
+                               "constexpr int kWindow = 1; "),),
+    "match-any ranks in shared memory, not ballots": (RADIX_SMEM,),
+    "shared atomics, not match-any (timing only)": (
+        RADIX_SMEM,
+        ("          const unsigned peers = __match_any_sync(0xffffffffu, "
+         "bk[s]);\n"
+         "          if (bk[s] < p.B && (peers & lt) == 0)\n"
+         "            atomicAdd(cnt + bk[s], static_cast<uint32_t>(__popc("
+         "peers)));\n",
+         "          if (bk[s] < p.B) atomicAdd(cnt + bk[s], 1u);\n"),
+        ("        const unsigned peers = __match_any_sync(0xffffffffu, b);\n"
+         "        const uint32_t pre = b < B ? mine[b] : 0;\n"
+         "        rk[s] = pre + __popc(peers & lt);\n"
+         "        __syncwarp();\n"
+         "        if (b < B && (peers & lt) == 0) mine[b] = pre + "
+         "__popc(peers);\n        __syncwarp();\n",
+         "        rk[s] = b < B ? atomicAdd(mine + b, 1u) : 0u;\n"),),
+}
+RADIX_TILES = {"tiles of 2,048 rows": 2048, "tiles of 8,192 rows": 8192}
+
+
+def probe_radix(torch, np) -> None:
+    """radix_split of int64 keys into 64 buckets at 93,750 and 10^7 keys:
+    device time in turns of the plan, the copies of radix.cu in
+    RADIX_VARIANTS, route two_launch and a one-element fill_; per-block
+    timestamps of an instrumented copy; ptxas's registers and spills."""
+    import chip_smoke
+    from repro_torch.kernels import _build, radix_partition as rp
+    from repro_torch.kernels._common import stream_ticket
+    b = chip_smoke.RADIX_BUCKETS
+    src = (_build.CSRC / "radix.cu").read_text()
+    libs = nvcc_build_all(dict(
+        {"radix_ts": patched(src, RADIX_STAMPS) + RADIX_READER},
+        **{name: patched(src, pairs)
+           for name, pairs in RADIX_VARIANTS.items()}))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    timer = chip_smoke.Timer(torch, dev)
+    one = torch.zeros(1, device=dev)
+
+    def raw(name, keys, route="one_launch", tile=rp.TILE):
+        fn = getattr(libs[name], "shark_radix")
+        fn.argtypes = _build.SIGNATURES["radix"][1]
+        n = int(keys.shape[0])
+        if route == "one_launch":
+            chunks, per = rp.one_launch_chunks(n, tile)
+            plan = rp.RadixPlan(route, chunks, chunks, per, n + b + 1,
+                                2 + chunks * b, 1)
+        else:
+            chunks = min(rp.CHUNKS_MAX, max(1, -(-n // rp.TILE)))
+            rows = -(-max(1, -(-n // chunks)) // 32) * 32
+            plan = rp.RadixPlan(route, chunks, 0, rows,
+                                n + b + 1 + chunks * b, 2, 2)
+        word = plan.word(True, rp.SPLIT)
+
+        def call():
+            stream = _build.stream_handle(dev)
+            out = torch.empty(plan.size, dtype=torch.int32, device=dev)
+            scratch = stream_ticket(rp._SCRATCH, dev, stream, "radix",
+                                    rp.SCRATCH_WORDS, torch.int64)
+            rc = fn(keys.data_ptr(), n, b, word, out.data_ptr(),
+                    scratch.data_ptr(), stream)
+            if rc:
+                raise SystemExit(f"radix probe {name} failed: {rc}")
+            return out[:n], out[n:n + b + 1]
+        return call
+
+    shipped = "radix_ts"        # the instrumented copy, timed as the plan
+    results = []
+    for n in (chip_smoke.RADIX_ROWS["medium"], chip_smoke.RADIX_ROWS["large"]):
+        keys = torch.from_numpy(chip_smoke.radix_keys(
+            np.random.default_rng(n), n)).to(dev)
+        want = rp.radix_split_plain(keys, b)
+        calls = {"plan": lambda: rp.radix_split(keys, b)}
+        for name in RADIX_VARIANTS:
+            calls[name] = raw(name, keys, tile=RADIX_TILES.get(name,
+                                                               rp.TILE))
+        calls["two launches (route two_launch)"] = raw(shipped, keys,
+                                                       "two_launch")
+        for label, call in calls.items():
+            order, bounds = call()
+            if not torch.equal(bounds, want[1]):
+                raise SystemExit(f"radix probe {label!r}: bounds differ")
+            if "timing only" not in label and not torch.equal(order,
+                                                              want[0]):
+                raise SystemExit(f"radix probe {label!r}: order differs")
+        calls["a one-element fill_ (one launch, no work)"] = \
+            lambda: one.fill_(1.0)
+        reps = 20 if n < 10 ** 6 else 5
+        device_ms = {label: [] for label in calls}
+        for r in range(4):
+            order = list(calls) if r % 2 == 0 else list(reversed(list(calls)))
+            for label in order:
+                device_ms[label].append(timer.graphed(calls[label],
+                                                      calls=reps, replays=4))
+        stamped = raw(shipped, keys)
+        timeline = []
+        chunks = rp.one_launch_chunks(n)[0]
+        for _ in range(3):
+            stamped()
+            torch.cuda.synchronize()
+            ts = (ctypes.c_ulonglong * (8 * 4096))()
+            if libs[shipped].shark_rts_read(ts):
+                raise SystemExit("radix timestamps failed")
+            t = np.asarray(ts[:8 * chunks], np.float64).reshape(chunks, 8)
+            t0 = t[:, 0].min()
+
+            def pct(v):
+                return [float(np.percentile(v, q)) for q in (0, 50, 100)]
+            timeline.append({
+                "blocks": chunks, "sms_used": int(len(set(t[:, 4]))),
+                "last_block_start_us": float((t[:, 0].max() - t0) / 1e3),
+                "phase1_us": pct((t[:, 1] - t[:, 0]) / 1e3),
+                "look_back_us": pct(t[:, 5] / 1e3),
+                "ranks_us": pct(t[:, 6] / 1e3),
+                "counts_us": pct(t[:, 7] / 1e3),
+                "wait_us": pct((t[:, 2] - t[:, 1]) / 1e3),
+                "phase2_us": pct((t[:, 3] - t[:, 2]) / 1e3),
+                "done_reached_us": pct((t[:, 2] - t0) / 1e3),
+                "last_block_end_us": float((t[:, 3].max() - t0) / 1e3)})
+        results.append({"probe": f"radix_split at {n} int64 keys, B = {b}",
+                        "plan": rp.radix_plan(n, b, rp.SPLIT)._asdict(),
+                        "bound_ms": chip_smoke.radix_bytes(n) / 3.35e12 * 1e3,
+                        "device_ms_in_turns": device_ms,
+                        "timeline_us": timeline})
+        print(json.dumps(results[-1]), flush=True)
+        del keys, want
+    print(json.dumps({"probe": "radix ptxas and SASS",
+                      "ptxas": ptxas_report(_build.CSRC / "radix.cu"),
+                      "sass": sass_counts(_build._target("radix"))}),
+          flush=True)
+
+
+def sass_counts(lib: Path) -> dict:
+    """Per kernel of a built library: its instructions by opcode family
+    (global and local loads and stores, match, barriers), from
+    cuobjdump -sass."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)[-40:]
+            out[name] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if m and name:
+            op = m.group(1)
+            if op in ("LDG", "STG", "LDL", "STL", "MATCH", "BAR", "ATOMS",
+                      "LDS", "STS", "CALL", "WARPSYNC"):
+                out[name][op] += 1
+    return {k: dict(v) for k, v in out.items()}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1501,7 +1727,7 @@ def main() -> int:
     probes = {"flash": probe_flash, "group": probe_group, "ssd": probe_ssd,
               "decode": probe_decode, "train": probe_train,
               "bitpack": probe_bitpack, "topk": probe_topk, "rle": probe_rle,
-              "scan": probe_scan}
+              "scan": probe_scan, "radix": probe_radix}
     chosen = sys.argv[1:] or list(probes)
     unknown = set(chosen) - set(probes)
     if unknown:

@@ -56,7 +56,9 @@ class RangeDependency(Dependency):
 class ShuffleDependency(Dependency):
     """Wide dependency: every output partition reads from every map task.
 
-    `partitioner(batch) -> np.ndarray[int]` assigns each row to a bucket.
+    `partitioner(batch)` assigns each row to a bucket: an int array of
+    bucket ids, or a `shuffle.BucketSplit` of the rows already grouped by
+    bucket (the radix kernel's route).
     `map_side_combine` optionally pre-aggregates each bucket before it is
     materialized (Shark/Hive task-local aggregation).
     `accumulators()` builds the PDE statistics gathered while map output
@@ -64,7 +66,7 @@ class ShuffleDependency(Dependency):
     """
 
     def __init__(self, parent: "RDD", num_buckets: int,
-                 partitioner: Callable[[PartitionBatch], np.ndarray],
+                 partitioner: Callable[[PartitionBatch], object],
                  map_side_combine: Optional[Callable[[PartitionBatch], PartitionBatch]] = None,
                  accumulators: Optional[Callable[[], List[Accumulator]]] = None):
         super().__init__(parent)

@@ -8,19 +8,30 @@ String keys hash through the partition dictionary — one crc32 per *distinct*
 value, then an O(1) gather per row — so the shuffle path never materializes
 a string (the columnar store making the shuffle CPU-cheap, §3.2).
 
-`kernel=<device>` routes the hash-mix + modulo through the `radix_partition`
+`kernel=<device>` routes a map task's whole split through the radix
 kernel on that device (GPU sessions, or forced routes on the CPU, where the
-kernel's plain version runs; `kernel=True` means the CPU).  The choice is
+kernel's plain version runs; `kernel=True` means the CPU): the partitioner
+returns a `BucketSplit`, the rows grouped by bucket (`order`, stable) and
+the bucket starts (`bounds`), and `split_bucket_pieces` cuts the pieces
+straight from them, with no host argsort.  On a GPU the int64 key hashes
+cross to the device unfolded, through a pinned staging buffer of the
+worker thread's own (reused, grown on demand) by an asynchronous copy on
+the current stream; one launch folds, buckets and splits them; order and
+bounds come back in one copy into pinned memory: one synchronize a map
+task.  One launch takes a whole partition, so a split is never chunked:
+chunks would need their splits merged on the host again.  The choice is
 fixed per partitioner, never per task: a shuffle's bucket assignment must
-be one function of the key value on every map task, and the kernel's 32-bit
-mix is a *different* (equally valid) function than the host's 64-bit mix.
+be one function of the key value on every map task, and the kernel's
+32-bit mix is a *different* (equally valid) function than the host's
+64-bit mix.
 """
 
 from __future__ import annotations
 
+import threading
 import weakref
 import zlib
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Sequence, Union
 
 import numpy as np
 
@@ -71,29 +82,64 @@ def _mix_mod(k: np.ndarray, num_buckets: int) -> np.ndarray:
     return (h % np.uint64(num_buckets)).astype(np.int32)
 
 
-def _kernel_buckets(k: np.ndarray, num_buckets: int, device) -> np.ndarray:
+class BucketSplit:
+    """A map task's rows split by bucket: `order` the row indices grouped
+    by bucket, ascending within a bucket, and `bounds` the num_buckets + 1
+    bucket starts into it.  Both are the split's own arrays (never views
+    of a reused staging buffer), so a split may be kept."""
+
+    __slots__ = ("order", "bounds")
+
+    def __init__(self, order: np.ndarray, bounds: np.ndarray):
+        self.order = order
+        self.bounds = bounds
+
+
+# what a partitioner returns: bucket ids (host route) or a kernel's split
+Partition = Union[np.ndarray, BucketSplit]
+
+
+_STAGING = threading.local()
+
+
+def _pinned(name: str, device, numel: int, dtype) -> "torch.Tensor":
+    """The calling thread's pinned buffer `name` for `device`, grown to at
+    least `numel` elements: one map task at a time uses a thread's buffers,
+    so no two tasks overwrite one in flight."""
+    import torch
+    bufs = getattr(_STAGING, "bufs", None)
+    if bufs is None:
+        bufs = _STAGING.bufs = {}
+    buf = bufs.get((name, device))
+    if buf is None or buf.numel() < numel:
+        size = max(numel, 2 * buf.numel() if buf is not None else 1024)
+        buf = bufs[(name, device)] = torch.empty(size, dtype=dtype,
+                                                 pin_memory=True)
+    return buf[:numel]
+
+
+def split_keys(k: np.ndarray, num_buckets: int, device) -> BucketSplit:
+    """The radix kernel's split of int64 key hashes `k` on `device`."""
     import torch
 
-    from ..kernels import ops as kernel_ops
-    from ..kernels.radix_partition import fold_keys_u32
+    from ..kernels import radix_partition as rp
     RADIX_KERNEL_CALLS["count"] += 1
-
-    def launch(c: np.ndarray):
-        # host fold (as in the reference), then the 32-bit lanes cross to
-        # the device as int32 bits
-        keys = torch.from_numpy(fold_keys_u32(c).view(np.int32)).to(device)
-        return kernel_ops.radix_partition(keys, num_buckets=num_buckets,
-                                          with_counts=False)[0]
-
-    chunk = kernel_ops.DOUBLE_BUFFER["chunk_rows"]
-    if len(k) >= 2 * chunk:
-        # Double-buffered: fold+dispatch of chunk i+1 overlaps compute of
-        # chunk i (DESIGN.md §14).  Bucket id is per-row, so chunked and
-        # single-shot results are bit-identical.
-        parts = kernel_ops.double_buffer_map(
-            launch, [k[i:i + chunk] for i in range(0, len(k), chunk)])
-        return np.concatenate(parts)
-    return launch(k).cpu().numpy()
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        order, bounds = rp.radix_split(torch.from_numpy(k), num_buckets)
+        return BucketSplit(order.numpy(), bounds.numpy())
+    n = len(k)
+    staged = _pinned("keys", dev, n, torch.int64)
+    np.copyto(staged.numpy(), k, casting="no")
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    keys.copy_(staged, non_blocking=True)
+    packed = rp.radix_split_packed(keys, num_buckets)
+    back = _pinned("split", dev, packed.numel(), torch.int32)
+    back.copy_(packed, non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    # copied out: the pinned buffer is the thread's next split's too
+    out = back.numpy().copy()
+    return BucketSplit(out[:n], out[n:n + num_buckets + 1])
 
 
 def _kernel_device(kernel):
@@ -104,7 +150,7 @@ def _kernel_device(kernel):
 
 
 def bucket_by_hash(key: str, num_buckets: int, kernel=None
-                   ) -> Callable[[PartitionBatch], np.ndarray]:
+                   ) -> Callable[[PartitionBatch], Partition]:
     from .batch import EXCHANGE_TIMERS
     device = _kernel_device(kernel)
 
@@ -112,7 +158,7 @@ def bucket_by_hash(key: str, num_buckets: int, kernel=None
         import time
         t0 = time.perf_counter()
         k = _row_keys(batch, key)
-        out = (_kernel_buckets(k, num_buckets, device) if device is not None
+        out = (split_keys(k, num_buckets, device) if device is not None
                else _mix_mod(k, num_buckets))
         EXCHANGE_TIMERS["hash"] += time.perf_counter() - t0
         return out
@@ -121,7 +167,7 @@ def bucket_by_hash(key: str, num_buckets: int, kernel=None
 
 def bucket_by_composite(keys: Sequence[str], num_buckets: int,
                         kernel=None
-                        ) -> Callable[[PartitionBatch], np.ndarray]:
+                        ) -> Callable[[PartitionBatch], Partition]:
     from .batch import EXCHANGE_TIMERS
     device = _kernel_device(kernel)
 
@@ -132,7 +178,7 @@ def bucket_by_composite(keys: Sequence[str], num_buckets: int,
         for key in keys:
             k = _row_keys(batch, key)
             h = h * np.int64(1000003) + k
-        out = (_kernel_buckets(h, num_buckets, device) if device is not None
+        out = (split_keys(h, num_buckets, device) if device is not None
                else _mix_mod(h, num_buckets))
         EXCHANGE_TIMERS["hash"] += time.perf_counter() - t0
         return out
@@ -166,13 +212,19 @@ class BucketedBatch:
         return sum(p.nbytes for p in self.pieces)
 
 
-def split_bucket_pieces(batch: PartitionBatch, bucket_of: np.ndarray,
+def split_bucket_pieces(batch: PartitionBatch, bucket_of: Partition,
                         num_buckets: int) -> List[PartitionBatch]:
     """Slice `batch` into per-bucket pieces — the scheduler's legacy
-    slicing, verbatim, so fused and seam-by-seam shuffle blocks match."""
-    order = np.argsort(bucket_of, kind="stable")
-    sorted_buckets = np.asarray(bucket_of)[order]
-    bounds = np.searchsorted(sorted_buckets, np.arange(num_buckets + 1))
+    slicing, verbatim, so fused and seam-by-seam shuffle blocks match.  A
+    `BucketSplit` (the radix kernel's route) is cut as it is: its order is
+    the stable argsort of its ids, so the pieces are the same rows in the
+    same order."""
+    if isinstance(bucket_of, BucketSplit):
+        order, bounds = bucket_of.order, bucket_of.bounds
+    else:
+        order = np.argsort(bucket_of, kind="stable")
+        sorted_buckets = np.asarray(bucket_of)[order]
+        bounds = np.searchsorted(sorted_buckets, np.arange(num_buckets + 1))
     return [batch.take(order[bounds[b]:bounds[b + 1]])
             for b in range(num_buckets)]
 

@@ -38,7 +38,7 @@ SIGNATURES = {
     "scan": ("shark_scan", [_vp, _vp, _vp, _ll, _ull, _d, _d, _vp, _vp,
                             _vp]),
     "group": ("shark_group_reduce", [_vp, _vp, _ll, _i, _ll, _vp, _vp]),
-    "radix": ("shark_radix", [_vp, _ll, ctypes.c_uint, _vp, _vp, _i, _vp]),
+    "radix": ("shark_radix", [_vp, _ll, ctypes.c_uint, _ull, _vp, _vp, _vp]),
     "decode": ("shark_decode", [_vp, _vp, _vp, _ll, _ll, _ull, _vp]),
     "bitpack": ("shark_bitpack", [_vp, _i, _ll, _ull, _vp]),
     "train": ("shark_train_grad",

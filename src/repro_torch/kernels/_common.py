@@ -49,20 +49,30 @@ _COUNT_LOCK = threading.Lock()
 
 
 def stream_ticket(tickets: dict, device: torch.device, stream: int,
-                  name: str) -> torch.Tensor:
+                  name: str, numel: int = 1,
+                  dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """The fold ticket in `tickets` of `stream` (a raw handle) on `device`,
     for a kernel whose last block folds the others' partials: one int32
     zero, allocated at the first call on that stream (not inside a CUDA
     graph capture: warm a call up on the capturing stream first); each
     launch leaves it at 0 again.  Overlapping calls on two streams would
-    race on one shared word; calls on one stream run in order."""
+    race on one shared word; calls on one stream run in order.  A kernel
+    that keeps more state between its blocks (radix.cu's look-back words)
+    asks for `numel` zeros of `dtype`, always the same `numel`: the most
+    any of its calls needs, so the tensor is never replaced and a graph
+    captured later never holds a freed pointer."""
     key = (device.index, stream)
     t = tickets.get(key)
     if t is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{name}'s first call on a stream must come "
                                f"before a CUDA graph capture on it")
-        t = tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+        # setdefault: of two threads' first calls, both launch on one tensor
+        t = tickets.setdefault(key, torch.zeros(numel, dtype=dtype,
+                                                device=device))
+    if t.numel() != numel or t.dtype != dtype:
+        raise ValueError(f"{name}'s stream words are {t.numel()} x "
+                         f"{t.dtype}, asked for {numel} x {dtype}")
     return t
 
 

@@ -1243,3 +1243,66 @@ def test_scan_launch_raises_before_the_kernel_on_what_scan_cu_cannot_see():
         tcs.launch_scan("fused_decode_scan", c.long(), x[:3], x, 0, 1)
     with pytest.raises(ValueError):
         tdd.fused_decode_scan(c, x[:3], x.to("meta"), 0, 1)
+
+
+def test_radix_signature_matches_the_c_entry():
+    """shark_radix(keys, n, B, word, out, scratch, stream): seven plain
+    arguments, pointers and the stream as c_void_p, n as c_longlong, B as
+    c_uint, the plan word as c_ulonglong."""
+    ct = _build.ctypes
+    name, args = _build.SIGNATURES["radix"]
+    assert name == "shark_radix"
+    assert args == [ct.c_void_p, ct.c_longlong, ct.c_uint, ct.c_ulonglong,
+                    ct.c_void_p, ct.c_void_p, ct.c_void_p]
+    source = (_build.CSRC / "radix.cu").read_text()
+    parsed = _c_arguments(source, "shark_radix")
+    assert "unsigned int num_buckets" in source
+    assert parsed[:2] + parsed[3:] == args[:2] + args[3:]
+
+
+def test_stream_scratch_is_one_fixed_zeroed_tensor_never_in_a_capture(
+        monkeypatch):
+    """radix.cu's look-back words: `stream_ticket` with `numel` keeps one
+    zeroed tensor a (device, stream), never replaced (a graph captured
+    after the first call keeps a live pointer), never allocated inside a
+    graph capture, and refuses a request of another size."""
+    from repro_torch.kernels._common import stream_ticket
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    words, dev = {}, torch.device("cpu")
+    first = stream_ticket(words, dev, 7, "radix", 10, torch.int64)
+    assert first.dtype == torch.int64 and first.tolist() == [0] * 10
+    assert stream_ticket(words, dev, 7, "radix", 10, torch.int64) is first
+    other = stream_ticket(words, dev, 8, "radix", 10, torch.int64)
+    assert other is not first and other.numel() == 10
+    with pytest.raises(ValueError, match="radix's stream words"):
+        stream_ticket(words, dev, 7, "radix", 11, torch.int64)
+    assert words[(None, 7)] is first
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    assert stream_ticket(words, dev, 7, "radix", 10, torch.int64) is first
+    with pytest.raises(RuntimeError, match="radix's first call"):
+        stream_ticket(words, dev, 9, "radix", 10, torch.int64)
+
+
+@pytest.mark.parametrize("buckets", [1, 64, 1024, 1025, 8192])
+def test_radix_scratch_is_the_most_any_call_uses(monkeypatch, buckets):
+    """Every radix call asks the stream for the same SCRATCH_WORDS, which
+    covers what any plan uses (two_launch's counters, one_launch's 264
+    chunks of look-back words at 1,024 buckets)."""
+    from repro_torch.kernels import radix_partition as rp
+    assert rp.SCRATCH_WORDS == 2 + rp.GRID_MAX * rp.ONE_LAUNCH_MAX == 270338
+    for n in (0, 50, 4096, 4097, 93750, 10 ** 7, rp.MAX_ROWS):
+        for flags in (rp.IDS, rp.IDS | rp.COUNTS, rp.SPLIT):
+            assert rp.radix_plan(n, buckets, flags).scratch <= rp.SCRATCH_WORDS
+    asked = []
+    monkeypatch.setattr(rp, "stream_ticket",
+                        lambda *a: asked.append(a[4:]) or torch.zeros(1))
+    monkeypatch.setattr(rp._build, "stream_handle", lambda dev: 3)
+    monkeypatch.setattr(rp._build, "kernel_fn", lambda name: lambda *a: 0)
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    monkeypatch.setattr(rp, "LAUNCHES", {"radix_partition": 0})
+    monkeypatch.setattr(rp, "ROUTES", dict.fromkeys(rp.ROUTES, 0))
+    for n in (5000, 93750):
+        rp._launch(torch.zeros(n, dtype=torch.int64), buckets, rp.SPLIT)
+    assert asked == [(rp.SCRATCH_WORDS, torch.int64)] * 2

@@ -514,6 +514,10 @@ def test_cuda_kernel_matches_plain(n):
         want_ids, want_counts = trp.radix_partition_ref(keys, b)
         np.testing.assert_array_equal(ids.cpu().numpy(), want_ids)
         np.testing.assert_array_equal(counts.cpu().numpy(), want_counts)
+        only, none = trp.radix_partition(_t(keys.view(np.int32)).cuda(), b,
+                                         with_counts=False)
+        assert none is None
+        np.testing.assert_array_equal(only.cpu().numpy(), want_ids)
     # decode kernels: exact against their plain versions
     for dt in ("int32", "int64", "float32", "float64"):
         for d in (3, 4096):
@@ -1440,3 +1444,157 @@ def test_cuda_scan_one_device_kernel_per_call(n):
                  lambda: tcolscan.colscan(f, a, -10, 10),
                  lambda: tdd.fused_decode_scan(codes, dic, a, 0.02, 0.05)):
         assert graph_nodes(call) == {"kernel": 1}
+
+
+# -- radix_split: the shuffle's map-side split (csrc/radix.cu) ------------
+
+RADIX_SIZES = [0, 1, 50, 1023, 4096, 4097, 93_750]
+RADIX_BUCKETS = [1, 7, 64, 1000, 8192]
+
+
+def _radix_keys(rng, n, kind):
+    """int64 key hashes with negatives and repeats, or 32-bit lanes as
+    uint32 or int32 bits."""
+    if kind == "int64":
+        k = rng.integers(-2 ** 62, 2 ** 62, n)
+        k[::7] = -1
+        if n:
+            k[3::11] = k[0]
+        return k
+    k = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    k[::5] = 12345
+    return k if kind == "uint32" else k.view(np.int32)
+
+
+def _radix_tensor(k):
+    t = _t(k)
+    return t.view(torch.uint32) if k.dtype == np.uint32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int64", "uint32", "int32"])
+@pytest.mark.parametrize("n", RADIX_SIZES)
+def test_cuda_radix_split_matches_plain(n, kind):
+    """order and bounds bit for bit against the plain version (and the
+    numpy oracle) at every bucket count, both routes."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(n + len(kind))
+    k = _radix_keys(rng, n, kind)
+    t = _radix_tensor(k)
+    for b in RADIX_BUCKETS:
+        order, bounds = trp.radix_split(t.cuda(), b)
+        po, pb = trp.radix_split_plain(t, b)
+        ro, rb = trp.radix_split_ref(k, b)
+        assert order.dtype == bounds.dtype == torch.int32
+        np.testing.assert_array_equal(order.cpu().numpy(), po.numpy())
+        np.testing.assert_array_equal(bounds.cpu().numpy(), pb.numpy())
+        np.testing.assert_array_equal(po.numpy(), ro)
+        np.testing.assert_array_equal(pb.numpy(), rb)
+        if kind != "int64":
+            lanes = t if kind == "int32" else t.view(torch.int32)
+            ids, counts = trp.radix_partition(lanes.cuda(), b)
+            pids, pcounts = trp.radix_partition_plain(lanes, b)
+            assert torch.equal(ids.cpu(), pids)
+            assert torch.equal(counts.cpu(), pcounts)
+            only, none = trp.radix_partition(lanes.cuda(), b, False)
+            assert none is None and torch.equal(only.cpu(), pids)
+            np.testing.assert_array_equal(
+                only.cpu().numpy(),
+                trp.radix_partition_ref(lanes.numpy().view(np.uint32), b)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_radix_split_large_one_bucket_and_repeats():
+    """10^7 keys (2,442 tiles over the grid), every key in one bucket,
+    and repeat calls bitwise."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(19)
+    for k in (_radix_keys(rng, 10 ** 7, "int64"),
+              np.full(93_750, -7, np.int64), np.full(10 ** 6, 3, np.int64)):
+        t = _t(k)
+        tc = t.cuda()
+        for b in (64, 1000, 8192) if len(k) == 10 ** 7 else (64, 1024):
+            want = trp.radix_split_plain(t, b)
+            got = [trp.radix_split(tc, b) for _ in range(3)]
+            torch.cuda.synchronize()
+            for order, bounds in got:
+                assert torch.equal(order.cpu(), want[0])
+                assert torch.equal(bounds.cpu(), want[1])
+        if len(k) == 10 ** 7:
+            # ids alone over chunks of many tiles (one_launch, B = 64)
+            lanes = _t(trp.fold_keys_u32(k).view(np.int32))
+            only, none = trp.radix_partition(lanes.cuda(), 64, False)
+            assert none is None
+            assert torch.equal(only.cpu(),
+                               trp.radix_partition_plain(lanes, 64, False)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_radix_split_on_two_streams():
+    """Calls overlapping on two streams keep their own look-back words and
+    give the one-stream answers."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(5)
+    keys = [_t(_radix_keys(rng, 93_750 + i, "int64")).cuda()
+            for i in range(2)]
+    want = [trp.radix_split(k, 64) for k in keys]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(trp.radix_split(keys[i], 64))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for order, bounds in got[i]:
+            assert torch.equal(order, want[i][0])
+            assert torch.equal(bounds, want[i][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 93_750, 10 ** 6])
+def test_cuda_radix_one_device_kernel_per_call(n):
+    """One kernel node a call on route one_launch (the counts written in
+    the launch, no memset); two on two_launch."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(n)
+    keys = _t(_radix_keys(rng, n, "int64")).cuda()
+    lanes = _t(_radix_keys(rng, n, "int32")).cuda()
+    assert graph_nodes(lambda: trp.radix_split(keys, 64)) == {"kernel": 1}
+    assert graph_nodes(lambda: trp.radix_partition(lanes, 64)) \
+        == {"kernel": 1}
+    assert graph_nodes(lambda: trp.radix_partition(lanes, 64, False)) \
+        == {"kernel": 1}
+    assert graph_nodes(lambda: trp.radix_split(keys, 8192)) == {"kernel": 2}
+    assert graph_nodes(lambda: trp.radix_partition(lanes, 8192, False)) \
+        == {"kernel": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_radix_graph_replays_after_a_larger_call():
+    """A graph captured around a small multi-chunk call replays right
+    after calls that use more of the stream's look-back words (the words
+    are never replaced)."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(23)
+    small = _t(_radix_keys(rng, 10_000, "int64")).cuda()
+    large = _t(_radix_keys(rng, 10 ** 6, "int64")).cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trp.radix_split(small, 64)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            got = trp.radix_split(small, 64)
+        for b in (64, 1024):
+            big = trp.radix_split(large, b)
+        graph.replay()
+    torch.cuda.synchronize()
+    want = trp.radix_split_plain(small.cpu(), 64)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(big[0].cpu(), trp.radix_split_plain(large.cpu(),
+                                                           1024)[0])
