@@ -76,6 +76,25 @@ copy of the same weights, it holds the kernels' prefill logits against
 the plain versions' and one decode step against the full forward over
 S + 1 tokens.  The CPU rehearsal serves the smoke variant.
 
+Phase 6 (run right after phase 2, on its tables) serves them through a
+`SharkServer` on the card: `lineitem` and `orders` registered as
+benchmarks/concurrent_bench.py registers its warehouse, a cache budget of
+0.3 x the catalog's bytes (concurrent_bench's share: caching must churn),
+4 clients of weights 1, 1, 2 and 4 (`max_concurrent_queries=4`) each
+submitting queries a-e at once, in three rounds: cold (evictions and
+lineage recomputes must happen), cached (every answer from the result
+cache, no launch) and after `orders` is registered again with the same
+rows (e must miss, a-d must hit).  Every answer is checked against numpy,
+no shuffle block may outlive its query, every scan and radix launch must
+take phase 2's route, a warm query a through the server (its result-cache
+entry dropped) must make no host-to-device copy and keep its column's
+device memos, and after `shutdown()` the card's allocated memory must be
+back at its level before the phase.  It prints each round's wall, QPS,
+p50 / p95 by weight and service share by weight, the memory manager's
+and the scheduler's statistics, a trace of the warm query, and the
+phase's wall; the `kernels` line gives kernels 1-5 their launches in the
+three rounds as `server_launches`.
+
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
 device (and without `--device cpu`), or outside a checkout of the repo,
@@ -86,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -264,9 +284,11 @@ def traced(torch, device, label: str, fn) -> None:
                     )[:12]:
         host.append([e.key[:60], e.count, e.self_cpu_time_total / 1e3])
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    htod = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+               and e.name.startswith("Memcpy HtoD"))
     rec = {"trace": label, "wall_ms": wall, "device_busy_ms": busy / 1e3,
            "device_idle_share": 1.0 - busy / 1e3 / wall,
-           "device_ops": len(spans),
+           "device_ops": len(spans), "htod_copies": htod,
            "device_ops_ms": [[k, c, ms] for k, (c, ms) in top],
            "host_self_ms": host}
     print(json.dumps(rec), flush=True)
@@ -1178,6 +1200,207 @@ def phase_sql(torch, device, rows: int, seed: int) -> dict:
                 launches["radix_partition"] != REPS * sum(per_run.values()):
             fail(f"radix launches {launches['radix_partition']} took routes "
                  f"{radix_routes}")
+    return launches, data, od, want
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+CLIENT_WEIGHTS = (1, 1, 2, 4)
+SERVER_BUDGET_SHARE = 0.3        # benchmarks/concurrent_bench.py:179-180
+ROUNDS = ("cold", "cached", "after a catalog change")
+
+
+def by_weight(handles) -> dict:
+    """p50 / p95 latency (ms) and the count of a round's queries by their
+    client's weight."""
+    out = {}
+    for w in sorted(set(CLIENT_WEIGHTS)):
+        lat = [h.latency_s * 1e3 for cw, _, h in handles if cw == w]
+        out[str(w)] = {"queries": len(lat),
+                       "p50_ms": float(np.percentile(lat, 50)),
+                       "p95_ms": float(np.percentile(lat, 95))}
+    return out
+
+
+def phase_server(torch, device, data: dict, od: dict, want: dict) -> dict:
+    """Phase 6: phase 2's tables served by a `SharkServer` to 4 weighted
+    clients under a cache budget of 0.3 x the catalog's bytes, in three
+    rounds (cold, every answer from the result cache, and after `orders`
+    is registered again); returns kernels 1-5's launches in the rounds."""
+    from repro_torch.core import DType, Schema
+    from repro_torch.core.pde import PDEConfig
+    from repro_torch.kernels import colscan as kc, ops
+    from repro_torch.kernels import radix_partition as kr
+    from repro_torch.server import SharkServer
+
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated(device)
+    rows = len(data["L_QUANTITY"])
+    rehearsal = not cuda
+    cfg = PDEConfig(segment_force_kernels=rehearsal,
+                    reduce_force_compiled=rehearsal,
+                    broadcast_threshold_bytes=PDEConfig()
+                    .broadcast_threshold_bytes * (rows / 6_000_000
+                                                  if rehearsal else 1))
+    srv = SharkServer(device=str(device), num_workers=8, max_threads=8,
+                      default_shuffle_buckets=64, pde_config=cfg,
+                      max_concurrent_queries=len(CLIENT_WEIGHTS))
+    orders_schema = Schema.of(
+        O_ORDERKEY=DType.INT64, O_ORDERPRIORITY=DType.STRING,
+        O_TOTALPRICE=DType.FLOAT64, O_ORDERDATE=DType.DATE)
+    srv.create_table("lineitem", Schema.of(
+        L_QUANTITY=DType.INT32, L_EXTENDEDPRICE=DType.FLOAT64,
+        L_DISCOUNT=DType.FLOAT64, L_SHIPMODE=DType.STRING,
+        L_SHIPDATE=DType.DATE, L_ORDERKEY=DType.INT64), data,
+        num_partitions=PARTITIONS)
+    srv.create_table("orders", orders_schema, od, num_partitions=PARTITIONS)
+    # the budget is the working set's share, as concurrent_bench sets it:
+    # caching must churn
+    catalog_bytes = sum(t.nbytes for t in srv.catalog.tables().values())
+    srv.memory.budget_bytes = int(catalog_bytes * SERVER_BUDGET_SHARE)
+    clients = [(w, srv.session(f"analyst{i}-w{w}", weight=w))
+               for i, w in enumerate(CLIENT_WEIGHTS)]
+    print(f"phase 6: SharkServer on {device}, lineitem {rows} and orders "
+          f"{len(od['O_ORDERKEY'])} rows loaded in "
+          f"{time.perf_counter() - t_phase:.3f} s: {catalog_bytes} catalog "
+          f"bytes, cache budget {srv.memory.budget_bytes} bytes; "
+          f"{len(clients)} clients of weights {list(CLIENT_WEIGHTS)}",
+          flush=True)
+    bm = srv.ctx.block_manager
+    # every query's shuffle blocks must be gone once the server releases
+    # them (`BlockManager.drop_shuffle`), concurrent queries or not
+    release, leaks = srv._release_shuffles, []
+
+    def checked_release(executor):
+        release(executor)
+        ids = set(executor.created_shuffles)
+        with bm.lock:
+            leaks.extend(k for k in bm.blocks if k[0] == "shuf"
+                         and k[1] in ids)
+
+    srv._release_shuffles = checked_release
+    counters = ("evictions", "recomputes", "partition_misses", "bypasses",
+                "decode_cache_drops")
+    ops.reset_launch_counts()
+    scan0, radix0 = dict(kc.ROUTES), dict(kr.ROUTES)
+
+    def one_round(label: str) -> list:
+        mem0 = srv.stats()["memory"]
+        sched0 = srv.stats()["scheduler"]["clients"]
+        launches0 = ops.launch_counts()
+        t0 = time.perf_counter()
+        handles = [(w, name, sess.submit(QUERIES[name]))
+                   for w, sess in clients for name in QUERIES]
+        for _, name, h in handles:
+            check(name, h.result(timeout=600).to_numpy(), want[name])
+        wall = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.synchronize()
+        with bm.lock:
+            held = [k for k in bm.blocks if k[0] == "shuf"]
+        if held or leaks:
+            fail(f"phase 6 round {label}: shuffle blocks held after their "
+                 f"query {leaks[:3]} or after the round {held[:3]}")
+        mem = srv.stats()["memory"]
+        sched = srv.stats()["scheduler"]["clients"]
+        service = {}
+        for name, c in sched.items():
+            w = str(c["weight"])
+            done = c["service_s"] - sched0.get(name, {}).get("service_s", 0)
+            service[w] = service.get(w, 0.0) + done
+        total = sum(service.values()) or 1.0
+        launched = {k: v - launches0[k] for k, v in ops.launch_counts().items()
+                    if k in SQL_KERNELS}
+        rec = {"round": label, "queries": len(handles), "wall_s": wall,
+               "qps": len(handles) / wall, "by_weight": by_weight(handles),
+               "service_share_by_weight": {w: v / total
+                                           for w, v in service.items()},
+               "executed": sorted(n for _, n, h in handles if not h.cached),
+               "memory": {k: mem[k] - mem0[k] for k in counters},
+               "launches": launched}
+        print(f"phase 6: round {json.dumps(rec)}", flush=True)
+        return handles, rec
+
+    try:
+        cold, rec = one_round(ROUNDS[0])
+        if rec["memory"]["evictions"] == 0 or rec["memory"]["recomputes"] == 0:
+            fail(f"phase 6: the cold round evicted and recomputed "
+                 f"{rec['memory']}: caching did not churn")
+        cached, rec = one_round(ROUNDS[1])
+        if not all(h.cached for _, _, h in cached) or \
+                any(rec["launches"].values()):
+            fail(f"phase 6: the cached round executed {rec['executed']} "
+                 f"and launched {rec['launches']}")
+        # the same rows again: a new epoch for orders, so e's entry is
+        # stale while a-d, which read only lineitem, still hit
+        srv.create_table("orders", orders_schema, od,
+                         num_partitions=PARTITIONS)
+        changed, rec = one_round(ROUNDS[2])
+        if not all(h.cached for _, n, h in changed if n != "e") or \
+                all(h.cached for _, n, h in changed if n == "e"):
+            fail(f"phase 6: after orders changed the round executed "
+                 f"{rec['executed']}: e must miss and a-d hit")
+        launches = {k: v for k, v in ops.launch_counts().items()
+                    if k in SQL_KERNELS}
+        scan_routes = {k: v - scan0[k] for k, v in kc.ROUTES.items()}
+        radix_routes = {k: v - radix0[k] for k, v in kr.ROUTES.items()}
+        print(f"phase 6: three rounds' launches {json.dumps(launches)}; "
+              f"colscan routes {json.dumps(scan_routes)}, radix routes "
+              f"{json.dumps(radix_routes)}", flush=True)
+        if cuda:
+            idle = [k for k, v in launches.items() if v == 0]
+            if idle:
+                fail(f"phase 6 never launched {idle}")
+            if scan_routes["one_column"] != launches["colscan"] or \
+                    radix_routes["one_launch"] != launches["radix_partition"]:
+                fail(f"phase 6: kernel routes {scan_routes} {radix_routes} "
+                     f"for launches {launches}")
+        print(f"phase 6: memory {json.dumps(srv.stats()['memory'])}",
+              flush=True)
+        print(f"phase 6: scheduler "
+              f"{json.dumps(srv.stats()['scheduler'])}", flush=True)
+        if cuda:
+            # one warm query a under the budget, its result-cache entry
+            # dropped so it runs: its column's device memos are up, so no
+            # stream crosses PCIe again
+            table = srv.catalog.get("lineitem")
+            memos = [dict(p.columns["L_EXTENDEDPRICE"].enc._device)
+                     for p in table.partitions]
+            srv.result_cache.invalidate_table("lineitem")
+            sess = clients[0][1]
+            rec = traced(torch, device, "phase 6: one warm query a through "
+                         "the server under the budget",
+                         lambda: check("a", sess.sql_np(QUERIES["a"]),
+                                       want["a"]))
+            kept = all(
+                len(p.columns["L_EXTENDEDPRICE"].enc._device) == len(m)
+                and all(p.columns["L_EXTENDEDPRICE"].enc._device.get(k) is t
+                        for k, t in m.items())
+                for p, m in zip(table.partitions, memos))
+            del table, memos        # they hold the column's device copies
+            if rec["htod_copies"] or not kept:
+                fail(f"phase 6: the warm query a copied "
+                     f"{rec['htod_copies']} times to the card (memos kept: "
+                     f"{kept})")
+    finally:
+        srv.shutdown()
+    del clients, srv, cold, cached, changed
+    gc.collect()
+    wall = time.perf_counter() - t_phase
+    if cuda:
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated(device)
+        print(f"phase 6: device memory allocated {mem_after} bytes after "
+              f"shutdown ({mem_before} before the phase)", flush=True)
+        if mem_after != mem_before:
+            fail(f"phase 6: device memory {mem_after} after shutdown, "
+                 f"{mem_before} before")
+    print(f"phase 6: {wall:.3f} s of wall, load included", flush=True)
     return launches
 
 
@@ -1876,7 +2099,9 @@ def main() -> int:
     kernels = phase_kernels(torch, device, args.seed)
     kernels.update(phase_kernels_analytics(torch, device, args.seed))
     kernels.update(phase_kernels_lm(torch, device, args.seed))
-    sql = phase_sql(torch, device, args.rows, args.seed)
+    sql, data, od, want = phase_sql(torch, device, args.rows, args.seed)
+    server = phase_server(torch, device, data, od, want)
+    del data, od, want
     launches = {k: v for k, v in sql.items() if k in SQL_KERNELS}
     # phases 3 and 4 keep the SQL phase's ratio to their full sizes
     launches.update(phase_train(torch, device, args.rows * 5 // 3,
@@ -1889,6 +2114,8 @@ def main() -> int:
             fail(f"kernels never launched on their main path: {idle}")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
+        if name in SQL_KERNELS:
+            rec["server_launches"] = server[name]
     kernels["colscan"]["two_columns"]["launches"] = \
         sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \

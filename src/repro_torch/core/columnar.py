@@ -156,13 +156,12 @@ class ColumnBlock:
     def group_space(self):
         """(distinct values, int32 group id per row) of the stored values —
         `np.unique(values, return_inverse=True)`, memoized on the encoded
-        block beside the device copies."""
-        memo = self.enc._device
-        hit = memo.get(("group_space", None))
+        block with the host decode."""
+        hit = self.enc._group_space
         if hit is None:
             reps, inv = np.unique(self.values(), return_inverse=True)
             hit = (reps, inv.astype(np.int32))
-            memo[("group_space", None)] = hit
+            self.enc._group_space = hit
         return hit
 
     def recompress(self) -> int:
@@ -177,6 +176,8 @@ class ColumnBlock:
         new.drop_decoded()
         freed = pre_decoded
         if new is not old:
+            # the device copies are of the old encoding's streams
+            old.drop_device()
             freed += old.nbytes - new.nbytes
             self.enc = new
             self.stats.nbytes = new.nbytes
@@ -184,6 +185,9 @@ class ColumnBlock:
 
     def drop_decoded(self) -> int:
         return self.enc.drop_decoded()
+
+    def drop_device(self) -> None:
+        self.enc.drop_device()
 
     def decoded(self) -> np.ndarray:
         """Logical values: maps codes through the partition-local string
@@ -326,6 +330,11 @@ class Partition:
             return 0
         return sum(b.drop_decoded() for b in self._columns.values())
 
+    def drop_device(self) -> None:
+        """Release all memoized device copies in this partition."""
+        for b in (self._columns or {}).values():
+            b.drop_device()
+
     def recompress(self) -> int:
         """WARM transition: adaptively recompress every resident block;
         returns bytes freed."""
@@ -394,6 +403,12 @@ class Table:
         """Release every partition's memoized decode cache (MemoryManager
         pressure hook): bytes freed."""
         return sum(p.drop_decoded() for p in self.partitions)
+
+    def drop_device(self) -> None:
+        """Release every partition's memoized device copies (the table left
+        the catalog, or its server shut down)."""
+        for p in self.partitions:
+            p.drop_device()
 
     @property
     def decoded_cache_nbytes(self) -> int:

@@ -42,6 +42,12 @@ RLE_MIN_AVG_RUN = 4.0
 BITPACK_MAX_BITS = 16
 
 
+# Bumped after every decode memo is set or released, so a reader that
+# sums the memos' bytes (the server's MemoryManager, on every block put)
+# can keep its last sum until a memo changes.
+DECODE_MEMO_CHANGES = [0]
+
+
 @dataclasses.dataclass
 class Encoded:
     encoding: Encoding
@@ -65,10 +71,16 @@ class Encoded:
     _decoded: Optional[np.ndarray] = dataclasses.field(
         default=None, repr=False, compare=False)
     decode_count: int = dataclasses.field(default=0, repr=False, compare=False)
+    # (distinct values, int32 group id per row) of the decoded values
+    # (`ColumnBlock.group_space`): host state derived from the decode memo,
+    # dropped with it and, like it, outside `nbytes`.
+    _group_space: Optional[tuple] = dataclasses.field(
+        default=None, repr=False, compare=False)
     # Device residency of kernel operands: torch copies of this block's
     # arrays on the session's device, keyed by (what, device) and filled by
-    # ColumnBlock.device_array.  Like the decode memo it is derived state,
-    # dropped with it, and outside `nbytes`.
+    # ColumnBlock.device_array.  Like the decode memo it is derived state
+    # outside `nbytes`; drop_device() releases it when the block's encoding
+    # changes or the block leaves memory (the decode-memo rung leaves it).
     _device: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
 
@@ -87,11 +99,19 @@ class Encoded:
         return self._decoded.nbytes if self._decoded is not None else 0
 
     def drop_decoded(self) -> int:
-        """Release the memoized decoded array; returns bytes freed."""
+        """Release the memoized host decoded array (and the group space
+        derived from it); returns bytes freed.  The device memo stays (see
+        drop_device)."""
         freed = self.decoded_nbytes
         self._decoded = None
-        self._device.clear()
+        self._group_space = None
+        if freed:
+            DECODE_MEMO_CHANGES[0] += 1
         return freed
+
+    def drop_device(self) -> None:
+        """Release the memoized device copies of this block's streams."""
+        self._device.clear()
 
 
 def _avg_run_length(values: np.ndarray) -> float:
@@ -268,6 +288,7 @@ def decode_np(enc: Encoded) -> np.ndarray:
     else:
         raise ValueError(enc.encoding)
     enc._decoded = out
+    DECODE_MEMO_CHANGES[0] += 1
     return out
 
 

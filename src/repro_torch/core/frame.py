@@ -366,10 +366,18 @@ class SharkFrame:
     # -- terminal actions ---------------------------------------------------
 
     def collect(self):
-        """Execute (once; memoized) and return the ExecResult."""
+        """Execute (once; memoized) and return the ExecResult.  Attached
+        sessions submit the bound plan to the server — the query is admission
+        controlled, fair-scheduled, and served from / filling the
+        plan-fingerprint result cache exactly like its SQL-text twin."""
         if self._result is None:
-            self._result = self._session.executor.execute(
-                copy.deepcopy(self._node))
+            sess = self._session
+            if sess.server is not None:
+                self._result = sess.server.submit(
+                    self._node, client=sess.client_id).result()
+            else:
+                self._result = sess.executor.execute(
+                    copy.deepcopy(self._node))
         return self._result
 
     def to_numpy(self) -> Dict[str, np.ndarray]:

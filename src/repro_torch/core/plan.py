@@ -712,8 +712,8 @@ def plan_tables(node: Node) -> List[str]:
 def plan_fingerprint(node: Node, catalog) -> Tuple[str, Dict[str, int]]:
     """(fingerprint, {table: version}) for an *optimized* plan: sha1 of
     explain(plan) and the catalog version of every table it reads — the
-    key of the server tier's result cache (DESIGN.md §6.4), kept here
-    until that tier is ported."""
+    key of the server tier's result cache (DESIGN.md §6.4), which
+    re-exports it (`server.result_cache.plan_fingerprint`)."""
     import hashlib
     deps = {t: catalog.version(t) for t in plan_tables(node)}
     text = explain(node) + "|" + ",".join(

@@ -14,14 +14,26 @@ the paper), the whole pipeline shares one lineage graph, and recovery
 spans SQL and ML.
 
 A session computes on the GPU unless the caller asks for the CPU
-(`device="cpu"`).  Attaching to a shared SharkServer (`server=`, DESIGN.md
-§6) waits for the server tier's port and raises until then.
+(`device="cpu"`).  It can also *attach to a shared SharkServer* (DESIGN.md
+§6) instead of owning a private context, and then computes on the
+server's device:
+
+    srv = SharkServer(cache_budget_bytes=64 << 20)
+    sess = SharkSession(server=srv, client_id="dash", weight=4.0)
+    sess.sql("...")                 # fair-scheduled on the server pool
+    h = sess.submit("...")          # async QueryHandle
+
+Attached sessions share the server's catalog, block store, memory budget,
+and result cache; queries — SQL text or frames, which submit their *bound
+plan* — route through the server's admission-controlled scheduler, while
+plan/explain/to_rdd still work locally against the shared catalog (same
+lineage graph, same workers).
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -50,14 +62,22 @@ class SharkSession:
                  weight: float = 1.0, backend: str = "compiled",
                  exchange: str = "coded", mesh=None,
                  stage_fusion: str = "on", resilience=None, device=None):
+        self.server = server
+        if server is not None:
+            # attached mode: share the server's runtime + catalog and its
+            # device; queries route through its fair scheduler (see module
+            # docstring)
+            self.device = server.device
+            self.ctx = server.ctx
+            self.catalog = server.catalog
+            self.default_partitions = server.default_partitions
+            self.executor = server.make_executor()
+            self.client_id = client_id or f"session-{id(self):x}"
+            server.register_client(self.client_id, weight)
+            return
         # the device compiled routes and kernels run on: the GPU unless the
         # caller asks for the CPU (the CPU tests pass device="cpu")
         self.device = resolve_device(device)
-        self.server = None
-        if server is not None:
-            raise NotImplementedError(
-                "server=: the server tier is not ported yet (ROADMAP queue A, "
-                "server and storage tier)")
         self.client_id = client_id or "local"
         self.ctx = SharkContext(num_workers=num_workers,
                                 max_threads=max_threads,
@@ -113,7 +133,11 @@ class SharkSession:
         extend the plan or hand it to ML via `.to_rdd()`."""
         stmt = parse(sql)
         if isinstance(stmt, CreateStmt):
-            result = self._create_table_as(stmt)
+            if self.server is not None:
+                result = self.server.submit(
+                    sql, client=self.client_id).result()
+            else:
+                result = self._create_table_as(stmt)
             node = Binder(self.catalog).bind(stmt.select)
             return SharkFrame(self, node, result=result)
         node = Binder(self.catalog).bind(stmt)
@@ -125,13 +149,24 @@ class SharkSession:
     def sql_np(self, sql: str) -> Dict[str, np.ndarray]:
         return self.sql(sql).to_numpy()
 
+    def submit(self, query: Union[str, Node], block: bool = True,
+               timeout: Optional[float] = None):
+        """Async submission of SQL text or a bound logical plan — attached
+        sessions only; returns a QueryHandle."""
+        if self.server is None:
+            raise RuntimeError(
+                "submit() needs a server-attached session; use sql()")
+        return self.server.submit(query, client=self.client_id, block=block,
+                                  timeout=timeout)
+
     def sql2rdd(self, sql: str) -> Tuple[RDD, List[str]]:
         """Deprecated shim over `sess.sql(sql, lazy=True).to_rdd()`.
 
         Returns the query plan as a lazy TableRDD plus its column names
         (paper §4.1).  The frame path registers the RDD's shuffle map
         outputs on this session's executor, so `release_shuffles()` /
-        `shutdown()` frees them."""
+        `shutdown()` frees them — a server-attached session cannot silently
+        leak shared-store memory."""
         warnings.warn(
             "sql2rdd() is deprecated; use sess.sql(query, lazy=True)"
             ".to_rdd() or a fluent sess.table(...) chain",
@@ -168,13 +203,19 @@ class SharkSession:
         self.executor.created_shuffles.clear()
 
     def shutdown(self):
+        if self.server is not None:
+            # the shared context belongs to the server, but this session's
+            # sql2rdd shuffle outputs must not outlive it in the shared store
+            self.release_shuffles()
+            return
         self.ctx.shutdown()
 
 
 def create_table_as(executor: Executor, catalog: Catalog, stmt: CreateStmt,
                     default_partitions: int) -> ExecResult:
     """CREATE TABLE ... AS SELECT: execute, re-partition, register.  The
-    catalog registration bumps the table's version (epoch)."""
+    catalog registration bumps the table's version (epoch), which
+    invalidates dependent result-cache entries on the server tier."""
     sel = stmt.select
     node = Binder(catalog).bind(sel)
     result = executor.execute(node)

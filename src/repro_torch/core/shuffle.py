@@ -123,7 +123,8 @@ def split_keys(k: np.ndarray, num_buckets: int, device) -> BucketSplit:
     import torch
 
     from ..kernels import radix_partition as rp
-    RADIX_KERNEL_CALLS["count"] += 1
+    from ..kernels._common import count_launch
+    count_launch(RADIX_KERNEL_CALLS, "count")     # map tasks run on threads
     dev = torch.device(device)
     if dev.type == "cpu":
         order, bounds = rp.radix_split(torch.from_numpy(k), num_buckets)

@@ -1,6 +1,7 @@
 """Where the estimators' host-facing helpers (`predict*`, `loss`) compute:
 a tensor stays on its own device; numpy input moves to `device`, which
-defaults to the card, as a `SharkSession` does."""
+defaults to the device the estimator was fitted on (the session's), and
+for an estimator never fitted to the card, as a `SharkSession` does."""
 
 from __future__ import annotations
 
@@ -10,10 +11,14 @@ import torch
 from ..core.runtime import resolve_device
 
 
-def as_tensor(x, device=None):
-    """(tensor, came_from_numpy)."""
+def as_tensor(x, device=None, fitted=None):
+    """(tensor, came_from_numpy).  Numpy `x` goes to `device` when given,
+    else to `fitted` (the device the estimator was fitted on), else to
+    `resolve_device(None)`."""
     if isinstance(x, torch.Tensor):
         return x, False
+    if device is None:
+        device = fitted
     return torch.from_numpy(np.ascontiguousarray(x)).to(
         resolve_device(device)), True
 

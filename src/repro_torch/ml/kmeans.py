@@ -28,6 +28,8 @@ class KMeans:
         self.centroids = rng.normal(size=(k, dims)).astype(np.float32)
         self.objective_history: List[float] = []
         self.metrics = None
+        # the device of the session fit() ran on: predict's default
+        self.device = None
 
     def fit(self, data, feature_cols=None, label_col=None,
             map_rows=None, dtype=np.float32) -> "KMeans":
@@ -42,6 +44,7 @@ class KMeans:
         features_rdd.cache()
         trainer = IterativeTrainer(features_rdd, "kmeans", dtype=dtype)
         self.metrics = trainer.metrics
+        self.device = features_rdd.ctx.device
         for _ in range(self.iterations):
             sums, counts, obj = trainer.kmeans_iteration(self.centroids)
             self.objective_history.append(obj)
@@ -53,8 +56,9 @@ class KMeans:
 
     def predict(self, x, device=None):
         """Nearest centroid of each row, on x's device (numpy x: on
-        `device`, the card by default); numpy in, numpy out."""
-        xt, from_np = as_tensor(x, device)
+        `device`, by default the device it was fitted on); numpy in, numpy
+        out."""
+        xt, from_np = as_tensor(x, device, self.device)
         xt, c = promoted(xt, self.centroids)
         d2 = (torch.sum(xt * xt, 1, keepdim=True) - 2 * xt @ c.T
               + torch.sum(c * c, 1)[None, :])

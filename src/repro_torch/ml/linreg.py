@@ -22,6 +22,8 @@ class LinearRegression:
         self.iterations = iterations
         self.w = np.zeros(dims, np.float32)
         self.metrics = None
+        # the device of the session fit() ran on: predict's default
+        self.device = None
 
     def fit(self, data, feature_cols=None, label_col=None,
             map_rows=None, dtype=np.float32) -> "LinearRegression":
@@ -35,14 +37,15 @@ class LinearRegression:
         features_rdd.cache()
         trainer = IterativeTrainer(features_rdd, "linreg", dtype=dtype)
         self.metrics = trainer.metrics
+        self.device = features_rdd.ctx.device
         for _ in range(self.iterations):
             g, n = trainer.gradient_iteration(self.w, "linear")
             self.w = self.w - self.lr * (g / max(n, 1)).astype(self.w.dtype)
         return self
 
     def predict(self, x, device=None):
-        """x @ w on x's device (numpy x: on `device`, the card by
-        default); numpy in, numpy out."""
-        xt, from_np = as_tensor(x, device)
+        """x @ w on x's device (numpy x: on `device`, by default the
+        device it was fitted on); numpy in, numpy out."""
+        xt, from_np = as_tensor(x, device, self.device)
         xt, w = promoted(xt, self.w)
         return returned(xt @ w, from_np)

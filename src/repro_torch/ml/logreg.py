@@ -41,6 +41,8 @@ class LogisticRegression:
         self.w = rng.normal(scale=0.01, size=dims).astype(np.float32)
         self.loss_history: List[float] = []
         self.metrics = None
+        # the device of the session fit() ran on: predict's default
+        self.device = None
 
     def fit(self, data, feature_cols=None, label_col=None,
             map_rows=None, dtype=np.float32) -> "LogisticRegression":
@@ -58,6 +60,7 @@ class LogisticRegression:
         features_rdd.cache()
         trainer = IterativeTrainer(features_rdd, "logreg", dtype=dtype)
         self.metrics = trainer.metrics
+        self.device = features_rdd.ctx.device
         for _ in range(self.iterations):
             g, n = trainer.gradient_iteration(self.w, "logistic")
             self.w = self.w - self.lr * (g / max(n, 1)).astype(self.w.dtype)
@@ -89,13 +92,13 @@ class LogisticRegression:
         return total / max(n, 1)
 
     def predict_proba(self, x, device=None):
-        """sigmoid(x @ w) on x's device (numpy x: on `device`, the card by
-        default); numpy in, numpy out."""
-        xt, from_np = as_tensor(x, device)
+        """sigmoid(x @ w) on x's device (numpy x: on `device`, by default the
+        device it was fitted on); numpy in, numpy out."""
+        xt, from_np = as_tensor(x, device, self.device)
         xt, w = promoted(xt, self.w)
         return returned(stable_sigmoid(xt @ w), from_np)
 
     def predict(self, x, device=None):
-        xt, from_np = as_tensor(x, device)
+        xt, from_np = as_tensor(x, device, self.device)
         return returned((self.predict_proba(xt) >= 0.5).to(torch.int32),
                         from_np)

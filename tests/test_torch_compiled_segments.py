@@ -8,9 +8,7 @@ renames, fused-aggregate segment metrics, decode memoization, and the
 kernel routes forced through the engine (the reference's Pallas kernels in
 interpret mode, the port's kernel wrappers on CPU tensors, which run their
 plain versions).  Integers, booleans, strings, routes and counters must be
-equal; floats to rtol 1e-12 (float64 sums in another order).  The
-reference's `test_memory_manager_drops_decode_caches` has no twin yet:
-the port has no `MemoryManager` (ROADMAP queue A).
+equal; floats to rtol 1e-12 (float64 sums in another order).
 """
 
 import operator
@@ -320,6 +318,34 @@ def test_decode_memoized_and_droppable():
         np.testing.assert_array_equal(c, vals)
     assert encs["torch"].bit_width == encs["jax"].bit_width
     np.testing.assert_array_equal(encs["torch"].words, encs["jax"].words)
+
+
+def test_memory_manager_drops_decode_caches():
+    """The server's MemoryManager releases the column store's host decode
+    memos: the same bytes and counters as the reference's."""
+    out = {}
+    for pkg in PACKAGES:
+        root = "repro" if pkg == "jax" else "repro_torch"
+        server = __import__(f"{root}.server", fromlist=["MemoryManager"])
+        runtime = __import__(f"{root}.core.runtime",
+                             fromlist=["BlockManager"])
+        sess, _ = _star_session(pkg)
+        # no WHERE: fn is consumed as values, so its decode is memoized (a
+        # filtered dict column would be gathered post-mask and never cached)
+        sess.sql_np("SELECT SUM(fn) AS s FROM t")
+        mm = server.MemoryManager(runtime.BlockManager())
+        mm.attach_catalog(sess.catalog)
+        table = sess.catalog.get("t")
+        held = table.decoded_cache_nbytes
+        assert held > 0
+        freed = mm.drop_decoded_caches()
+        assert freed > 0 and table.decoded_cache_nbytes == 0
+        stats = mm.stats()
+        assert stats["decode_cache_drops"] == 1
+        out[pkg] = (held, freed, stats["decode_cache_drops"],
+                    stats["decode_cache_dropped_bytes"])
+        sess.shutdown()
+    assert out["torch"] == out["jax"]
 
 
 def test_query_decodes_each_block_once():

@@ -93,7 +93,12 @@ def test_device_memo_dropped_with_decode_cache():
     np.testing.assert_array_equal(blk.device_array("values", "cpu").numpy(),
                                   v)
     before = blk.nbytes
-    blk.drop_decoded()
+    # the decode-memo rung frees the host memo only; the device copies go
+    # with drop_device (a new encoding, or the block leaving memory)
+    blk.values()
+    assert blk.drop_decoded() == v.nbytes and blk.enc._decoded is None
+    assert blk.device_array("codes", "cpu") is codes
+    blk.drop_device()
     assert blk.enc._device == {} and blk.nbytes == before
 
 

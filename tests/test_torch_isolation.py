@@ -32,6 +32,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.models.convert, repro_torch.models.flash\n"
         "import repro_torch.configs, repro_torch.serving\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.server, repro_torch.server.memory\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "print(bad)")
@@ -55,6 +56,26 @@ def test_session_without_device_needs_a_card():
     assert out == "raised"
 
 
+def test_server_without_device_needs_a_card():
+    """`SharkServer()` with no `device=` computes on the card, and raises
+    on a host without one rather than running on the CPU."""
+    out = _run(
+        "import threading, torch\n"
+        "from repro_torch.server import SharkServer\n"
+        "if torch.cuda.is_available():\n"
+        "    print('card')\n"
+        "else:\n"
+        "    before = threading.active_count()\n"
+        "    try:\n"
+        "        SharkServer()\n"
+        "        print('no-raise')\n"
+        "    except RuntimeError:\n"
+        "        print('raised', threading.active_count() - before)\n")
+    if out == "card":
+        pytest.skip("a CUDA device is present")
+    assert out == "raised 0"
+
+
 def test_model_without_device_needs_a_card():
     out = _run(
         "import torch\n"
@@ -75,10 +96,14 @@ def test_model_without_device_needs_a_card():
 
 def test_unported_paths_raise():
     from repro_torch.core import SharkSession
+    from repro_torch.server import SharkServer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SharkSession(device="cpu", mesh=object())
+    # server= attaches now; the server's storage tier waits for A.2b
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2b"):
+        SharkServer(device="cpu", spill_dir="spill")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SharkSession(device="cpu", server=object())
+        SharkServer(device="cpu", mesh=object())
 
 
 def test_cpu_session_trains_on_the_cpu():

@@ -1598,3 +1598,93 @@ def test_cuda_radix_graph_replays_after_a_larger_call():
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(big[0].cpu(), trp.radix_split_plain(large.cpu(),
                                                            1024)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_two_server_clients_on_forced_kernel_routes():
+    """Two clients of one SharkServer run queries at once on the card with
+    every SQL kernel route forced (colscan, fused_decode_scan, groupby_sum,
+    radix_split and segmented_merge on the executor's threads): each
+    answer equals the one-client answer (counts exactly, sums to rtol
+    1e-12), every launch is counted (the stream's fold tickets, the
+    threads' pinned key buffers and the launch counters are shared), and
+    the scans keep their one-column route."""
+    _cuda_or_skip()
+    import threading
+
+    from repro_torch.core import DType, Schema
+    from repro_torch.core.pde import PDEConfig
+    from repro_torch.kernels import colscan as tcs
+    from repro_torch.server import SharkServer
+
+    rng = np.random.default_rng(41)
+    n = 120_000
+    data = {"g": rng.integers(0, 40, n).astype(np.int32),
+            "v": np.round(rng.uniform(0, 100, n), 2),
+            "d": np.round(rng.integers(0, 11, n) * 0.01, 2)}
+    queries = [
+        "SELECT COUNT(*) AS c, SUM(v) AS s, MIN(v) AS mn, MAX(v) AS mx "
+        "FROM t WHERE v BETWEEN 20 AND 60",
+        "SELECT COUNT(*) AS c, SUM(v) AS s FROM t WHERE d BETWEEN 0.03 "
+        "AND 0.07",
+        # a SUM alone merges its partial states through segmented_merge
+        "SELECT g, SUM(v) AS s FROM t GROUP BY g"]
+    kernels = ("colscan", "fused_decode_scan", "groupby_sum",
+               "radix_partition", "segmented_merge")
+    cfg = PDEConfig(segment_force_kernels=True, reduce_force_compiled=True,
+                    segment_kernel_min_rows=256)
+    srv = SharkServer(device="cuda", num_workers=4, max_threads=4,
+                      default_partitions=8, default_shuffle_buckets=16,
+                      pde_config=cfg, enable_result_cache=False,
+                      max_concurrent_queries=2)
+    srv.create_table("t", Schema.of(g=DType.INT32, v=DType.FLOAT64,
+                                    d=DType.FLOAT64), data)
+
+    def answers(sess):
+        out = []
+        for q in queries:
+            got = sess.sql_np(q)
+            order = np.argsort(got["g"]) if "g" in got else slice(None)
+            out.append({k: np.asarray(v)[order] for k, v in got.items()})
+        return out
+
+    def launches():
+        counts = tops.launch_counts()
+        return {k: counts[k] for k in kernels}
+
+    try:
+        tops.reset_launch_counts()
+        want = answers(srv.session("alone"))
+        alone = launches()
+        assert all(alone.values()), alone
+        tops.reset_launch_counts()
+        one_col = tcs.ROUTES["one_column"]
+        got, errors = {}, []
+
+        def client(name):
+            try:
+                sess = srv.session(name)
+                got[name] = [answers(sess) for _ in range(2)]
+            except Exception as e:       # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(f"c{i}",))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not errors, errors
+        assert launches() == {k: 4 * v for k, v in alone.items()}
+        assert tcs.ROUTES["one_column"] - one_col == 4 * alone["colscan"]
+        for runs in got.values():
+            for run in runs:
+                for g, w in zip(run, want):
+                    for k in w:
+                        if w[k].dtype.kind == "f":
+                            np.testing.assert_allclose(g[k], w[k],
+                                                       rtol=1e-12)
+                        else:
+                            np.testing.assert_array_equal(g[k], w[k])
+    finally:
+        srv.shutdown()

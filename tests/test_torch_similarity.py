@@ -2,8 +2,8 @@
 tests/test_similarity.py on `SharkSession(device="cpu")` — embedding lane
 columns in the catalog, `similarity_join` on the frame surface, its
 SQL-twin plan and the topk_similarity route (its plain version on the
-CPU) — plus the same searches through the JAX reference.  The server
-concurrency twin waits for the port's server tier.
+CPU) — plus the same searches through the JAX reference, and concurrent
+filtered searches through each package's SharkServer.
 
 Both packages load the same numpy arrays, made from a seed; result ids
 must equal the numpy oracle's exactly.  The score column is float32 in
@@ -212,3 +212,65 @@ def test_similarity_join_matches_reference(cat_filter, forced, k):
     assert (routes.get("topk_similarity", 0) > 0) == forced, routes
     js.shutdown()
     ts.shutdown()
+
+
+def test_similarity_search_under_server_concurrency():
+    """3 concurrent sessions storm filtered similarity searches through the
+    fair scheduler, on both packages' servers — zero wrong results, and
+    each session's ids equal the reference's."""
+    import threading
+
+    from repro.core import SharkSession as JaxSessionCls
+    from repro.server import SharkServer as JaxServer
+    from repro_torch.server import SharkServer
+
+    rng = np.random.default_rng(4)
+    rows = 4000
+    emb = rng.normal(size=(rows, DIM)).astype(np.float32)
+    cat = rng.integers(0, 3, rows).astype(np.int64)
+    found = {}
+    for pkg in ("jax", "torch"):
+        kw = dict(num_workers=2, max_threads=4, max_concurrent_queries=3,
+                  enable_result_cache=False, default_partitions=4)
+        if pkg == "jax":
+            srv = JaxServer(**kw)
+            srv.create_table("docs", JSchema.of(id=JDType.INT64,
+                                                cat=JDType.INT64),
+                             {"id": np.arange(rows, dtype=np.int64),
+                              "cat": cat, "emb": emb})
+            session, column = JaxSessionCls, jcol
+        else:
+            srv = SharkServer(device="cpu", **kw)
+            srv.create_table("docs", Schema.of(id=DType.INT64,
+                                               cat=DType.INT64),
+                             {"id": np.arange(rows, dtype=np.int64),
+                              "cat": cat, "emb": emb})
+            session, column = SharkSession, col
+        wrong = [0, 0, 0]
+        ids = [[], [], []]
+
+        def storm(slot):
+            sess = session(server=srv, client_id=f"sim-{slot}")
+            srng = np.random.default_rng(50 + slot)
+            for _ in range(3):
+                c = int(srng.integers(0, 3))
+                q = srng.normal(size=DIM)
+                got = (sess.table("docs").filter(column("cat") == c)
+                       .similarity_join("emb", q, 15).to_numpy())
+                ids[slot].append(got["id"])
+                if not np.array_equal(got["id"],
+                                      _oracle(emb, cat, c, q, 15)):
+                    wrong[slot] += 1
+
+        threads = [threading.Thread(target=storm, args=(i,))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert sum(wrong) == 0, (pkg, wrong)
+        srv.shutdown()
+        found[pkg] = ids
+    for slot in range(3):
+        for g, w in zip(found["torch"][slot], found["jax"][slot]):
+            np.testing.assert_array_equal(g, w)

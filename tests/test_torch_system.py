@@ -1,0 +1,102 @@
+"""The paper's Listing 1 on the torch port against the JAX reference: the
+twin of tests/test_system.py's `test_paper_listing1_workflow` (sql2rdd ->
+feature extraction -> logistic regression, all in one lineage graph,
+surviving a worker failure).
+
+The body runs on both packages (`torch_twin.twin`; the port's session on
+`device="cpu"`).  The fitted weights must equal the reference's to rtol
+1e-4 (both train in float32 and sum their gradients in another order; the
+reference test's own bar, accuracy above 0.9, is looser), and so must the
+predictions.  The port's model was fitted on a CPU session, so `predict`
+runs on the CPU with no `device=`.  The reference file's LM-training test
+waits for the port's training substrate (ROADMAP A.5) and its XLA dry-run
+test gets no twin.
+"""
+
+import numpy as np
+import pytest
+
+from torch_twin import P, twin
+
+
+def _paper_listing1_workflow():
+    LogisticRegression = P.m("ml").LogisticRegression
+    table_rdd_to_features = P.m("ml").table_rdd_to_features
+    rng = np.random.default_rng(0)
+    n, d = 6000, 8
+    w_true = rng.normal(size=d)
+    X = rng.normal(size=(n, d))
+    y = (X @ w_true > 0).astype(np.float32)
+    sess = P.SharkSession(num_workers=4, max_threads=4)
+    cols = {f"f{i}": X[:, i].astype(np.float32) for i in range(d)}
+    cols["label"] = y
+    sess.create_table("users", P.Schema.of(
+        **{f"f{i}": P.DType.FLOAT32 for i in range(d)}, label=P.DType.FLOAT32),
+        cols)
+    with pytest.warns(DeprecationWarning):
+        rdd, names = sess.sql2rdd("SELECT * FROM users WHERE f0 > -10")
+    feats = table_rdd_to_features(rdd, [f"f{i}" for i in range(d)], "label")
+    clf = LogisticRegression(dims=d, lr=0.5, iterations=5).fit(feats)
+    w_before = clf.w.copy()
+    sess.ctx.scheduler.kill_worker(0)      # node failure mid-workflow
+    clf.iterations = 5
+    clf.fit(feats)                          # lineage recomputes lost parts
+    pred = clf.predict(X)
+    assert (pred == y).mean() > 0.9
+    sess.shutdown()
+    return {"names": names, "w_before": w_before, "w": clf.w,
+            "accuracy": float((pred == y).mean())}
+
+
+def test_paper_listing1_workflow():
+    got = twin(_paper_listing1_workflow, rtol=1e-4)
+    assert got["accuracy"] > 0.9
+
+
+def test_predict_follows_the_fitted_device():
+    """An estimator fitted on a `device="cpu"` session predicts numpy input
+    there with no `device=` (the reference's `predict` runs on any host),
+    and matches the reference's `predict` on the same weights; an explicit
+    `device=` still wins, and one never fitted keeps the card default."""
+    from repro.ml import KMeans as JKMeans
+    from repro.ml import LinearRegression as JLinearRegression
+    from repro.ml import LogisticRegression as JLogisticRegression
+    from repro_torch.core import DType, Schema, SharkSession
+    from repro_torch.ml import KMeans, LinearRegression, LogisticRegression
+
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(500, 3)).astype(np.float32)
+    y = (X @ np.array([1.0, -2.0, 0.5]) > 0).astype(np.float32)
+    sess = SharkSession(num_workers=2, max_threads=2, device="cpu")
+    sess.create_table("p", Schema.of(a=DType.FLOAT32, b=DType.FLOAT32,
+                                     c=DType.FLOAT32, y=DType.FLOAT32),
+                      {"a": X[:, 0], "b": X[:, 1], "c": X[:, 2], "y": y})
+    frame = sess.table("p")
+    fitted = [LogisticRegression(dims=3, iterations=3).fit(
+                  frame, ["a", "b", "c"], "y"),
+              LinearRegression(dims=3, iterations=3).fit(
+                  frame, ["a", "b", "c"], "y"),
+              KMeans(k=2, dims=3, iterations=2).fit(frame, ["a", "b", "c"])]
+    refs = [JLogisticRegression(dims=3), JLinearRegression(dims=3),
+            JKMeans(k=2, dims=3)]
+    for model, ref in zip(fitted, refs):
+        assert str(model.device) == "cpu"
+        if hasattr(model, "w"):
+            ref.w = model.w.copy()
+        else:
+            ref.centroids = model.centroids.copy()
+        got = model.predict(X)
+        assert isinstance(got, np.ndarray)
+        if isinstance(model, LinearRegression):
+            np.testing.assert_allclose(got, ref.predict(X), rtol=1e-5,
+                                       atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got, ref.predict(X))
+        np.testing.assert_array_equal(model.predict(X, device="cpu"), got)
+    np.testing.assert_allclose(fitted[0].predict_proba(X),
+                               refs[0].predict_proba(X), rtol=1e-6)
+    sess.shutdown()
+    import torch
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LogisticRegression(dims=3).predict(X)
