@@ -95,6 +95,30 @@ and the scheduler's statistics, a trace of the warm query, and the
 phase's wall; the `kernels` line gives kernels 1-5 their launches in the
 three rounds as `server_launches`.
 
+Phase 7 (after phase 6) runs the storage tier under a `SharkServer` on the
+card, on benchmarks/spill_bench.py's workload: its `lineitem` schema and
+deterministic loader behind an `ExternalSource` (every partition has
+lineage), its three queries a round with thresholds of their own, its
+server settings, and its budget, a quarter of the working set (the
+catalog's bytes on an unlimited-budget server, which also gives the
+answers).  7a: 6,000,000 rows (TPC-H SF1's lineitem count) in 64
+partitions, spill mode, 3 clients x 3 rounds, one partition segment
+deleted between rounds 2 and 3; 7b: 600,000 rows (spill_bench's default)
+in 8 partitions, spill mode and then drop mode.  Every answer must equal
+the unlimited-budget server's; 7a must spill and read segments back, and
+the round after the deletion must recover it (lost segment, lineage
+fault); drop mode must fault from lineage and write no segment; no
+shuffle block may outlive its query; after every round no block of a
+cold partition may hold a device copy; every colscan and radix launch
+must keep a known route; after each server's `shutdown()` the card's
+memory is back at its level before the phase and the server's own spill
+directory is gone.  It prints each round's storage counters and
+`device_bytes`, each server's wall, p50 / p95 a query and memory
+statistics, 7b's drop / spill wall ratio, the phase's wall, and a trace of
+one warm query 1 in 7a with its host-to-device copies and bytes; the
+`kernels` line gives kernels 1-5 their launches in the phase as
+`storage_launches`.
+
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
 device (and without `--device cpu`), or outside a checkout of the repo,
@@ -106,9 +130,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import glob
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -253,8 +281,9 @@ def traced(torch, device, label: str, fn) -> None:
     """Run `fn()` once under torch.profiler, print one JSON line and return
     it: the wall time (the profiler's own cost per op included), the
     device's busy time (the union of its kernels' and copies' spans) and
-    idle share, the count of device ops (kernels and copies), the device
-    ops by time and the host ops by their own CPU time."""
+    idle share, the count of device ops (kernels and copies), the
+    host-to-device copies and their bytes, the device ops by time and the
+    host ops by their own CPU time."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities):    # the tracer's start-up,
@@ -286,9 +315,18 @@ def traced(torch, device, label: str, fn) -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
     htod = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
                and e.name.startswith("Memcpy HtoD"))
+    # the copies' bytes are in the exported trace's event arguments
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    htod_bytes = sum(int(e.get("args", {}).get("bytes", 0)) for e in events
+                     if str(e.get("name", "")).startswith("Memcpy HtoD"))
     rec = {"trace": label, "wall_ms": wall, "device_busy_ms": busy / 1e3,
            "device_idle_share": 1.0 - busy / 1e3 / wall,
            "device_ops": len(spans), "htod_copies": htod,
+           "htod_bytes": htod_bytes,
            "device_ops_ms": [[k, c, ms] for k, (c, ms) in top],
            "host_self_ms": host}
     print(json.dumps(rec), flush=True)
@@ -1404,6 +1442,342 @@ def phase_server(torch, device, data: dict, od: dict, want: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+
+# benchmarks/spill_bench.py's workload: its lineitem schema and loader
+# (:41-59), its three queries a round (:62-74), its server settings (:86-95)
+# and its budget, a quarter of the working set (:147)
+SPILL_SCHEMA = (("L_ORDERKEY", "INT64"), ("L_SUPPKEY", "INT64"),
+                ("L_QUANTITY", "INT32"), ("L_EXTENDEDPRICE", "FLOAT64"),
+                ("L_RECEIPTDATE", "INT32"))
+SPILL_SERVER = dict(num_workers=4, max_threads=4, max_concurrent_queries=2,
+                    default_shuffle_buckets=8)
+SPILL_CLIENTS = SPILL_ROUNDS = 3
+# 7a: TPC-H SF1's lineitem rows in phase 2's partitions; 7b: spill_bench's
+# own default size, in its own 8 partitions
+STORAGE_PARTS = {"7a": PARTITIONS, "7b": 8}
+
+
+def spill_loader(n: int, seed: int):
+    """spill_bench's deliberately non-free loader (generate + sort): what
+    drop mode pays again on every lineage fault.  `--seed` 0 draws
+    spill_bench's own rows."""
+    def load() -> dict:
+        rng = np.random.default_rng(2 + seed)
+        return {
+            "L_ORDERKEY": np.sort(rng.integers(0, n // 4, n)).astype(
+                np.int64),
+            "L_SUPPKEY": rng.integers(0, 10_000, n).astype(np.int64),
+            "L_QUANTITY": rng.integers(1, 50, n).astype(np.int32),
+            "L_EXTENDEDPRICE": rng.uniform(900, 100_000, n),
+            "L_RECEIPTDATE": rng.integers(8000, 10500, n).astype(np.int32),
+        }
+    return load
+
+
+def spill_queries(r: int) -> list:
+    """A round's three queries, with thresholds of their own so rounds
+    execute rather than hit the result cache."""
+    t = 20_000 + 7_000 * r
+    return [
+        f"SELECT COUNT(*) AS c, AVG(L_EXTENDEDPRICE) AS m FROM lineitem "
+        f"WHERE L_EXTENDEDPRICE BETWEEN {t} AND {t + 40_000}",
+        "SELECT L_RECEIPTDATE, COUNT(*) AS c FROM lineitem "
+        f"WHERE L_RECEIPTDATE < {9_000 + 100 * r} GROUP BY L_RECEIPTDATE",
+        f"SELECT SUM(L_QUANTITY) AS s FROM lineitem "
+        f"WHERE L_ORDERKEY < {(r + 1) * 10_000}",
+    ]
+
+
+def canonical(res: dict) -> tuple:
+    """spill_bench's comparison form: sorted rows, floats to 6 places."""
+    rows = []
+    names = sorted(res)
+    for tup in zip(*(np.asarray(res[n]).tolist() for n in names)):
+        rows.append(tuple(round(v, 6) if isinstance(v, float) else v
+                          for v in tup))
+    return tuple(sorted(rows))
+
+
+def cold_device_memos(srv) -> int:
+    """Device memos held by blocks that are not a resident catalog
+    partition's: the blocks of a partition that went cold, still held by a
+    cached scan batch.  A cold partition must leave nothing on the card."""
+    live = {id(b) for t in srv.catalog.tables().values()
+            for p in t.partitions if p.resident
+            for b in p._columns.values()}
+    bm = srv.ctx.block_manager
+    with bm.lock:
+        held = [v.block for _, batch in bm.blocks.values()
+                for v in getattr(batch, "cols", {}).values()
+                if getattr(v, "block", None) is not None]
+    return sum(len(b.enc._device) for b in held if id(b) not in live)
+
+
+def storage_server(device, rows: int, parts: int, seed: int, cfg,
+                   budget=None, mode=None):
+    from repro_torch.core import DType, Schema
+    from repro_torch.core.catalog import ExternalSource
+    from repro_torch.server import SharkServer
+    srv = SharkServer(device=str(device), cache_budget_bytes=budget,
+                      default_partitions=parts, spill_mode=mode,
+                      pde_config=cfg, **SPILL_SERVER)
+    schema = Schema.of(**{c: getattr(DType, t) for c, t in SPILL_SCHEMA})
+    srv.register_external(ExternalSource("lineitem", schema,
+                                         spill_loader(rows, seed), parts))
+    return srv
+
+
+def storage_reference(torch, device, rows: int, parts: int, seed: int,
+                      cfg, mem_before):
+    """spill_bench's unlimited-budget reference: every query's answer and
+    the working set (the catalog's bytes)."""
+    srv = storage_server(device, rows, parts, seed, cfg)
+    try:
+        sess = srv.session("reference")
+        answers = {q: canonical(sess.sql_np(q))
+                   for r in range(SPILL_ROUNDS) for q in spill_queries(r)}
+        working_set = sum(t.nbytes for t in srv.catalog.tables().values())
+    finally:
+        srv.shutdown()
+    del srv, sess
+    device_back(torch, device, "phase 7: the reference server", mem_before)
+    return answers, working_set
+
+
+def device_back(torch, device, label: str, mem_before) -> None:
+    """Fail unless the card's allocated memory is back at `mem_before`
+    (None on the CPU rehearsal)."""
+    gc.collect()
+    if mem_before is None:
+        return
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated(device)
+    if mem != mem_before:
+        fail(f"{label}: device memory {mem} after shutdown, {mem_before} "
+             f"before the phase")
+
+
+def storage_run(torch, device, part: str, mode: str, rows: int, seed: int,
+                cfg, budget: int, answers: dict, mem_before) -> dict:
+    """One server of phase 7: 3 clients x 3 rounds of spill_bench's
+    queries under `budget`, in `mode`; every check of the phase on it, and
+    for 7a a trace of one warm query 1."""
+    from repro_torch.kernels import ops
+    cuda = device.type == "cuda"
+    label = f"phase 7{part[1]} ({mode})"
+    t0 = time.perf_counter()
+    srv = storage_server(device, rows, STORAGE_PARTS[part], seed, cfg,
+                         budget, mode)
+    storage = srv.storage
+    bm = srv.ctx.block_manager
+    release, leaks = srv._release_shuffles, []
+
+    def checked_release(executor):
+        release(executor)
+        ids = set(executor.created_shuffles)
+        with bm.lock:
+            leaks.extend(k for k in bm.blocks if k[0] == "shuf"
+                         and k[1] in ids)
+
+    srv._release_shuffles = checked_release
+    clients = [srv.session(f"spill-{part}-{i}")
+               for i in range(SPILL_CLIENTS)]
+    lat = [[] for _ in range(3)]        # ms, by query of the round
+    routes, wrong, errors = {}, [], []
+    rounds = []
+    try:
+        for r in range(SPILL_ROUNDS):
+            st0 = storage.stats()
+            t_round = time.perf_counter()
+
+            def client(sess):
+                try:
+                    for i, q in enumerate(spill_queries(r)):
+                        h = sess.submit(q)
+                        res = h.result(timeout=900)
+                        lat[i].append(h.latency_s * 1e3)
+                        if canonical(res.to_numpy()) != answers[q]:
+                            wrong.append(q)
+                        for k, v in res.metrics.segment_routes().items():
+                            routes[k] = routes.get(k, 0) + v
+                except Exception as e:       # failed below, by the caller
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=client, args=(sess,))
+                       for sess in clients]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t_round
+            if cuda:
+                torch.cuda.synchronize()
+            with bm.lock:
+                held = [k for k in bm.blocks if k[0] == "shuf"]
+            if held or leaks or wrong or errors:
+                fail(f"{label} round {r + 1}: {errors[:3]} raised, "
+                     f"{len(wrong)} wrong answers, shuffle blocks held "
+                     f"after their query {leaks[:3]} or after the round "
+                     f"{held[:3]}")
+            cold = cold_device_memos(srv)
+            st = storage.stats()
+            delta = {k: st[k] - st0[k] for k in st if k != "mode"}
+            rec = {"round": r + 1, "wall_s": wall,
+                   "device_bytes": srv.memory.device_bytes(),
+                   "cold_device_memos": cold, "storage": delta}
+            print(f"{label}: {json.dumps(rec)}", flush=True)
+            if cold:
+                fail(f"{label} round {r + 1}: {cold} device memos of cold "
+                     f"partitions' blocks")
+            rounds.append(rec)
+            if part == "7a" and r == 1:
+                # a segment vanishes between rounds 2 and 3, as
+                # tests/test_join_chaos.py deletes one
+                storage.flush()
+                segs = sorted(glob.glob(os.path.join(storage.dir,
+                                                     "spill-*.shk")))
+                if not segs:
+                    fail(f"{label}: no partition segment on disk to delete")
+                os.remove(segs[0])
+                print(f"{label}: deleted {os.path.basename(segs[0])} of "
+                      f"{len(segs)} partition segments", flush=True)
+        wall = time.perf_counter() - t0
+        mem = srv.stats()["memory"]
+        out = {"part": part, "mode": mode, "rows": rows,
+               "partitions": STORAGE_PARTS[part], "budget_bytes": budget,
+               "wall_s": wall, "queries": SPILL_CLIENTS * SPILL_ROUNDS * 3,
+               "p50_ms": [float(np.percentile(v, 50)) for v in lat],
+               "p95_ms": [float(np.percentile(v, 95)) for v in lat],
+               "memory": mem, "storage": storage.stats(),
+               "segment_routes": routes}
+        print(f"{label}: {json.dumps(out)}", flush=True)
+        if part == "7a" and cuda:
+            # one warm query 1 under the budget (its result-cache entry
+            # dropped so it runs): a faulted partition copies the column
+            # it reads to the card once, a resident one copies nothing
+            q = spill_queries(0)[0]
+            srv.result_cache.invalidate_table("lineitem")
+            before = storage.stats()
+            table = srv.catalog.get("lineitem")
+            cold_before = sum(not p.resident for p in table.partitions)
+            # resident partitions whose column is on the card already (a
+            # fault-in by query 2 or 3 copied other columns only)
+            on_card = sum(bool(p._columns["L_EXTENDEDPRICE"].enc._device)
+                          for p in table.partitions if p.resident)
+            del table
+            launched0 = ops.launch_counts()
+            sess = clients[0]
+
+            def query_1():
+                if canonical(sess.sql_np(q)) != answers[q]:
+                    wrong.append(q)
+
+            rec = traced(torch, device, f"{label}: one warm query 1 under "
+                         "the budget", query_1)
+            after = storage.stats()
+            faults = sum(after[k] - before[k] for k in (
+                "spill_reads", "lineage_faults")) - (
+                after["shuffle_faults"] - before["shuffle_faults"])
+            ours = {k: v - launched0[k]
+                    for k, v in ops.launch_counts().items()
+                    if v != launched0[k]}
+            print(f"{label}: the traced query 1: {rec['htod_copies']} HtoD "
+                  f"copies of {rec['htod_bytes']} bytes, {faults} partition "
+                  f"fault-ins; before it {cold_before} of "
+                  f"{STORAGE_PARTS[part]} partitions cold, {on_card} "
+                  f"resident with L_EXTENDEDPRICE on the card (one copy "
+                  f"of it expected a fault-in or a resident partition "
+                  f"without it, none a partition with it); port kernel "
+                  f"launches {json.dumps(ours)}", flush=True)
+            if wrong:
+                fail(f"{label}: the traced query 1 answered wrong")
+        spill_dir = storage.dir
+    finally:
+        srv.shutdown()
+    del clients, srv, storage
+    device_back(torch, device, label, mem_before)
+    if os.path.isdir(spill_dir):
+        fail(f"{label}: the server's own spill directory {spill_dir} "
+             f"outlived shutdown()")
+    return dict(out, rounds=rounds)
+
+
+def phase_storage(torch, device, rows: int, seed: int) -> dict:
+    """Phase 7: the storage tier under a `SharkServer` on the card, on
+    benchmarks/spill_bench.py's workload: 7a spills `rows` rows in 64
+    partitions, a segment deleted between rounds 2 and 3; 7b runs spill
+    and then drop mode over rows / 10 in 8 partitions.  Returns kernels
+    1-5's launches in the phase."""
+    from repro_torch.core.pde import PDEConfig
+    from repro_torch.kernels import colscan as kc, ops
+    from repro_torch.kernels import radix_partition as kr
+
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    gc.collect()
+    mem_before = None
+    if cuda:
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated(device)
+    rehearsal = not cuda
+    cfg = PDEConfig(segment_force_kernels=rehearsal,
+                    reduce_force_compiled=rehearsal)
+    ops.reset_launch_counts()
+    scan0, radix0 = dict(kc.ROUTES), dict(kr.ROUTES)
+    results = {}
+    for part, n in (("7a", rows), ("7b", rows // 10)):
+        t0 = time.perf_counter()
+        answers, working_set = storage_reference(
+            torch, device, n, STORAGE_PARTS[part], seed, cfg, mem_before)
+        budget = working_set // 4
+        print(f"phase {part}: lineitem {n} rows in {STORAGE_PARTS[part]} "
+              f"partitions, working set {working_set} bytes, budget "
+              f"{budget}; the unlimited-budget reference answered "
+              f"{len(answers)} queries in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        for mode in (("spill",) if part == "7a" else ("spill", "drop")):
+            results[part, mode] = storage_run(
+                torch, device, part, mode, n, seed, cfg, budget, answers,
+                mem_before)
+    a, bs, bd = results["7a", "spill"], results["7b", "spill"], \
+        results["7b", "drop"]
+    if a["storage"]["spills"] == 0 or a["storage"]["spill_reads"] == 0:
+        fail(f"phase 7a spilled {a['storage']['spills']} partitions and "
+             f"read {a['storage']['spill_reads']} segments back")
+    # the round after the deleted segment recovered it
+    lost = a["rounds"][2]["storage"]
+    if lost["spill_lost"] + lost["lineage_faults"] == 0:
+        fail(f"phase 7a: the round after the deletion {lost}")
+    if bd["storage"]["lineage_faults"] == 0 or bd["storage"]["spills"] or \
+            bd["storage"]["spill_write_bytes"]:
+        fail(f"phase 7b drop mode: {bd['storage']}")
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in SQL_KERNELS}
+    scan_routes = {k: v - scan0[k] for k, v in kc.ROUTES.items()}
+    radix_routes = {k: v - radix0[k] for k, v in kr.ROUTES.items()}
+    print(f"phase 7: launches {json.dumps(launches)}; colscan routes "
+          f"{json.dumps(scan_routes)}, radix routes "
+          f"{json.dumps(radix_routes)}; 7b drop / spill wall "
+          f"{bd['wall_s'] / bs['wall_s']:.4f}", flush=True)
+    if cuda:
+        if launches["colscan"] == 0 or scan_routes["one_column"] == 0:
+            fail(f"phase 7 never scanned on colscan's one-column path: "
+                 f"{launches} {scan_routes}")
+        if sum(scan_routes.values()) != launches["colscan"] or \
+                radix_routes["one_launch"] != launches["radix_partition"]:
+            fail(f"phase 7: kernel routes {scan_routes} {radix_routes} "
+                 f"for launches {launches}")
+    wall = time.perf_counter() - t_phase
+    if cuda:
+        print(f"phase 7: device memory allocated "
+              f"{torch.cuda.memory_allocated(device)} bytes after every "
+              f"server's shutdown ({mem_before} before the phase)",
+              flush=True)
+    print(f"phase 7: {wall:.3f} s of wall, loads included", flush=True)
+    return launches
+
+
 # ---------------------------------------------------------------- phase 3
 
 # spans of the 8 small-range int features: BITPACK blocks of 1 to 4 bits
@@ -2102,6 +2476,7 @@ def main() -> int:
     sql, data, od, want = phase_sql(torch, device, args.rows, args.seed)
     server = phase_server(torch, device, data, od, want)
     del data, od, want
+    storage = phase_storage(torch, device, args.rows, args.seed)
     launches = {k: v for k, v in sql.items() if k in SQL_KERNELS}
     # phases 3 and 4 keep the SQL phase's ratio to their full sizes
     launches.update(phase_train(torch, device, args.rows * 5 // 3,
@@ -2116,6 +2491,7 @@ def main() -> int:
         rec["launches"] = launches[name]
         if name in SQL_KERNELS:
             rec["server_launches"] = server[name]
+            rec["storage_launches"] = storage[name]
     kernels["colscan"]["two_columns"]["launches"] = \
         sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \

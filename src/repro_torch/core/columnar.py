@@ -24,8 +24,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
-from .compression import (Encoded, Encoding, decode_np, device_stream,
-                          encode, recompress)
+from .compression import (DECODE_MEMO_CHANGES, Encoded, Encoding,
+                          decode_np, device_stream, encode, recompress)
 from .types import DType, Field, Schema
 
 ENUM_DISTINCT_LIMIT = 64  # paper: keep distinct values "if the number is small"
@@ -150,7 +150,8 @@ class ColumnBlock:
             arr = (self.values() if what == "values"
                    else self.group_space()[1])
             t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-            memo[key] = t
+            if not self.enc._cold:
+                memo[key] = t
         return t
 
     def group_space(self):
@@ -168,14 +169,18 @@ class ColumnBlock:
         """Adaptive WARM-tier recompression (pressure hook): re-encode with
         the scheme `choose_recompression` picks from run-length/span/NDV
         signals; keeps the block only if strictly smaller.  Returns bytes
-        freed (encoded delta plus any decoded cache released)."""
+        freed (encoded delta plus any decoded cache released).  A block
+        already its own recompression is not decoded again: the memory
+        manager's WARM pass visits every resident block on each pass."""
         old = self.enc
         pre_decoded = old.decoded_nbytes
-        new = recompress(old)
+        new = old if old._settled else recompress(old)
         old.drop_decoded()
         new.drop_decoded()
         freed = pre_decoded
-        if new is not old:
+        if new is old:
+            old._settled = True
+        else:
             # the device copies are of the old encoding's streams
             old.drop_device()
             freed += old.nbytes - new.nbytes
@@ -288,17 +293,28 @@ class Partition:
     def release_columns(self) -> int:
         """Go cold: drop the resident column blocks (the StorageManager has
         already serialized them if this is a spill, not a drop).  Returns
-        resident bytes freed (encoded + decoded caches)."""
+        resident bytes freed (encoded + decoded caches).  The blocks'
+        device copies go with them, and are never memoized again: a cached
+        scan batch may hold the blocks on, but the card holds nothing of a
+        cold partition."""
         if self._columns is None:
             return 0
-        freed = sum(b.nbytes + b.enc.decoded_nbytes
-                    for b in self._columns.values())
+        memo = sum(b.enc.decoded_nbytes for b in self._columns.values())
+        freed = memo + sum(b.nbytes for b in self._columns.values())
+        for b in self._columns.values():
+            b.enc._cold = True
+            b.drop_device()
         self._columns = None
+        if memo:
+            # the decode memos left the catalog's sum with the blocks
+            DECODE_MEMO_CHANGES[0] += 1
         return freed
 
     def restore_columns(self, columns: Dict[str, ColumnBlock]) -> None:
         self._columns = columns
         self._stats = {n: b.stats for n, b in columns.items()}
+        if any(b.enc.decoded_nbytes for b in columns.values()):
+            DECODE_MEMO_CHANGES[0] += 1
 
     # -- sizes / stats (never fault) -----------------------------------------
 

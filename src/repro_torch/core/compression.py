@@ -76,6 +76,11 @@ class Encoded:
     # dropped with it and, like it, outside `nbytes`.
     _group_space: Optional[tuple] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # True once `recompress` returned this block unchanged: it is its own
+    # recompression (the choice is a function of the block alone), so the
+    # storage tier's WARM pass need not decode it again to learn that.
+    _settled: bool = dataclasses.field(default=False, repr=False,
+                                       compare=False)
     # Device residency of kernel operands: torch copies of this block's
     # arrays on the session's device, keyed by (what, device) and filled by
     # ColumnBlock.device_array.  Like the decode memo it is derived state
@@ -83,6 +88,11 @@ class Encoded:
     # changes or the block leaves memory (the decode-memo rung leaves it).
     _device: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
+    # True once the block's partition went cold (`Partition.release_columns`):
+    # a cached scan batch may still read the block, but its device copies
+    # are made for the call and never memoized, so the card keeps nothing
+    # of a cold partition.
+    _cold: bool = dataclasses.field(default=False, repr=False, compare=False)
 
     @property
     def nbytes(self) -> int:
@@ -322,8 +332,9 @@ def _stream(enc: Encoded, what: str) -> np.ndarray:
 def device_stream(enc: Encoded, what: str, device):
     """Encoded stream `what` ("data", "codes", "dictionary", "words",
     "run_values" or "run_ends") as a torch tensor on
-    `device`, copied there once and memoized on the block (`enc._device`),
-    so every later decode reads it from device memory.  On the CPU the
+    `device`, copied there once and memoized on the block (`enc._device`;
+    a block of a cold partition memoizes nothing), so every later decode
+    reads it from device memory.  On the CPU the
     tensor shares the numpy array's memory where the dtype allows."""
     import torch
     key = (what, str(device))
@@ -331,7 +342,8 @@ def device_stream(enc: Encoded, what: str, device):
     if t is None:
         t = torch.from_numpy(np.ascontiguousarray(_stream(enc, what))).to(
             device)
-        enc._device[key] = t
+        if not enc._cold:
+            enc._device[key] = t
     return t
 
 

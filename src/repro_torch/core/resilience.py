@@ -108,10 +108,7 @@ class ResiliencePolicy:
         from .runtime import FetchFailed, WorkerLost
         if isinstance(exc, (FetchFailed, WorkerLost)):
             return True
-        try:
-            from .storage import SpillCorrupt
-        except ImportError:           # storage tier not ported yet
-            SpillCorrupt = ()
+        from .storage import SpillCorrupt
         if isinstance(exc, SpillCorrupt):
             return True
         try:

@@ -1,5 +1,5 @@
 """Unified memory manager for the server tier (DESIGN.md §6.3), the port of
-`repro.server.memory` without its storage tier (ROADMAP A.2b).
+`repro.server.memory`.
 
 Shark's cached tables are a *cache*, not primary storage (paper §3.2): any
 cached partition can be dropped under memory pressure and transparently
@@ -9,27 +9,38 @@ partitions + in-flight shuffle output) plus the query result cache, and
 enforces a configurable budget.
 
 The budget governs *evictable cache bytes* — cached partition blocks,
-result-cache entries and the column store's host decode memos — exactly
-as in the reference.  Shuffle map outputs are working memory, not cache:
-a running reducer holds a fetch dependency on them.  They are accounted
-and reported (`working_bytes`), and the server releases them when their
-query completes (`BlockManager.drop_shuffle`).  Catalog blocks are primary
-storage here (no storage tier is attached), so the budget never counts
-them.
+result-cache entries, the column store's host decode memos and, with a
+StorageManager attached (DESIGN.md §12), the catalog's resident encoded
+bytes, since the storage tier can release those — exactly as in the
+reference.  Without a storage tier catalog blocks are primary storage and
+never counted.  Shuffle map outputs are working memory, not cache: a
+running reducer holds a fetch dependency on them.  They are accounted and
+reported (`working_bytes`), and the server releases them when their query
+completes (`BlockManager.drop_shuffle`).  With a spill-mode StorageManager
+attached the working set obeys the budget too: when the cache rungs cannot
+satisfy it, shuffle blocks spill (largest first) to checksummed segments
+and fault back in on fetch.
 
 Eviction policy (deterministic, documented order):
   1. cached partition blocks, least-recently-used first — always
      recomputable from lineage;
   2. the column store's host decode memos (`Encoded._decoded`): derived
      state that re-materializes on the next decode;
-  3. query-result-cache entries, LRU — tiny (final aggregates) and costly
+  3. with a StorageManager attached, adaptive recompression of resident
+     catalog partitions (WARM), then
+  4. spilling the least-recently-scanned catalog partition (COLD: to disk,
+     or dropped in drop mode);
+  5. query-result-cache entries, LRU — tiny (final aggregates) and costly
      to recompute, so evicted only when nothing else can satisfy the
-     budget.
-Rungs 2 and 3 are the reference's in the other order (ROADMAP C.6): there
-a result entry of a few hundred bytes goes before megabytes of memos, and
-when the memos alone exceed the budget every result goes and the memos
-are dropped all the same.  The partition rung and the bypass are the
-reference's.
+     budget;
+  6. the bypass (below);
+  7. with a spill-mode StorageManager, the working-set rung: shuffle blocks
+     spill, largest first.
+The reference's order is 1, 5, 2, 3, 4, 6, 7 (ROADMAP C.6, C.7): there a
+result entry of a few hundred bytes goes before megabytes of memos or of
+a partition that faults back with one read, and a catalog over budget
+evicts every result first.  The partition rung, the bypass and what the
+budget governs are the reference's.
 
 If the just-inserted partition alone exceeds what the budget can hold even
 after evicting everything else, it is itself dropped — a cache-admission
@@ -37,14 +48,15 @@ after evicting everything else, it is itself dropped — a cache-admission
 correctness is unaffected.
 
 Device memory is reported, not budgeted (`device_bytes`): the bytes of the
-catalog blocks' device memos (`Encoded._device`, filled by
+resident catalog blocks' device memos (`Encoded._device`, filled by
 `compression.device_stream` and `ColumnBlock.device_array`) and of any
 cached batch that holds CUDA tensors.  The memos are derived copies of
 catalog blocks, so they are bounded by the catalog's encoded bytes; the
 decode-memo rung drops the host memo only (`Encoded.drop_decoded`), never
 a device copy it does not count.  A block's device memo goes when its
-encoding changes or it leaves memory (`Encoded.drop_device`).  On the CPU
-`device_bytes` reads 0: the memos share the numpy arrays there.
+encoding changes or it leaves memory (`Encoded.drop_device`), a COLD
+transition included.  On the CPU `device_bytes` reads 0: the memos share
+the numpy arrays there.
 """
 
 from __future__ import annotations
@@ -92,6 +104,7 @@ class MemoryManager:
         self._catalog = None
         # (catalog epoch, memo changes) -> the decode memos' bytes then
         self._decoded_sum = (None, 0)
+        self.storage = None        # core.storage.StorageManager, optional
         self.chaos = None          # core.faults.ChaosEngine, when installed
         self.bm.memory_manager = self
 
@@ -103,6 +116,17 @@ class MemoryManager:
         (`Encoded._decoded`, see core/compression.py) this manager may
         release under pressure, and whose device memos it reports."""
         self._catalog = catalog
+
+    def attach_storage(self, storage) -> None:
+        """Attach the out-of-core storage tier (DESIGN.md §12): enables the
+        recompression and spill rungs of `enforce()` and adds the catalog's
+        resident encoded bytes to the governed budget.  In spill mode the
+        BlockManager gains the shuffle spill/fault path too (drop mode
+        keeps shuffle output pinned — dropping it mid-query just forces
+        recompute storms)."""
+        self.storage = storage
+        if storage is not None and storage.mode == "spill":
+            self.bm.shuffle_storage = storage
 
     def drop_decoded_caches(self) -> int:
         """Release every catalog table's memoized host decode cache — pure
@@ -125,7 +149,7 @@ class MemoryManager:
         """Everything tracked: cache bytes + in-flight shuffle output."""
         rc = self._result_cache
         return (self.bm.nbytes() + (rc.nbytes if rc is not None else 0)
-                + self.decoded_cache_bytes())
+                + self.decoded_cache_bytes() + self.catalog_resident_bytes())
 
     def decoded_cache_bytes(self) -> int:
         """Memoized host decode caches across catalog tables — real memory
@@ -144,12 +168,22 @@ class MemoryManager:
             self._decoded_sum = (stamp, total)
         return total
 
+    def catalog_resident_bytes(self) -> int:
+        """Resident encoded bytes of catalog tables.  Governed only when a
+        storage tier is attached — without one these bytes are primary
+        storage the manager cannot release, so counting them would just
+        burn the budget on unevictable state."""
+        if self.storage is None or self._catalog is None:
+            return 0
+        return sum(t.resident_nbytes
+                   for t in list(self._catalog._tables.values()))
+
     def cache_bytes(self) -> int:
         """Evictable bytes the budget governs: partition blocks + results +
-        host decode memos."""
+        host decode memos (+ catalog resident bytes when spillable)."""
         rc = self._result_cache
         return (self.bm.part_bytes + (rc.nbytes if rc is not None else 0)
-                + self.decoded_cache_bytes())
+                + self.decoded_cache_bytes() + self.catalog_resident_bytes())
 
     def device_bytes(self) -> int:
         """Device memory held by the catalog blocks' device memos and by
@@ -228,6 +262,15 @@ class MemoryManager:
                 # state that re-materializes on the next decode)
                 if self.drop_decoded_caches() > 0:
                     continue
+                if self.storage is not None:
+                    # WARM: adaptively recompress resident catalog
+                    # partitions (RLE / BITPACK / FOR from stats)
+                    if self._recompress_pass() > 0:
+                        continue
+                    # WARM -> COLD: spill the least-recently-scanned
+                    # partition to disk (or drop it, in drop mode)
+                    if self._spill_coldest() > 0:
+                        continue
                 rc = self._result_cache
                 if rc is not None and rc.nbytes > 0:
                     if rc.evict_lru() > 0:
@@ -243,18 +286,77 @@ class MemoryManager:
                 self.over_budget_events += (
                     self.cache_bytes() > self.budget_bytes)
                 break
+            self._enforce_working_set(protect)
+
+    def _enforce_working_set(self, protect: Optional[Tuple]) -> None:
+        """Working-set rung: with a spill-mode storage tier attached, total
+        accounted bytes (cache + shuffle output) obey the budget too —
+        shuffle blocks spill largest-first and fault back in on fetch.
+        Runs after the cache rungs so catalog state always yields before
+        mid-query working memory does."""
+        if (self.storage is None or self.storage.mode != "spill"
+                or self.bm.shuffle_storage is None):
+            return
+        if self.accounted_bytes() <= self.budget_bytes:
+            return
+        for key in self.bm.shuffle_spill_candidates():
+            if key == protect:
+                continue
+            self.bm.spill_shuffle_block(key)
+            if self.accounted_bytes() <= self.budget_bytes:
+                return
+
+    # -- storage-hierarchy rungs (DESIGN.md §12) ------------------------------
+
+    def _recompress_pass(self) -> int:
+        """One WARM pass: recompress every resident catalog partition.
+        Idempotent — a second pass over already-recompressed blocks frees
+        nothing, so enforce() falls through to the spill rung."""
+        cat = self._catalog
+        if cat is None:
+            return 0
+        freed = 0
+        for table in list(cat._tables.values()):
+            for part in table.partitions:
+                if part.resident:
+                    freed += self.storage.recompress_partition(part)
+        return freed
+
+    def _spill_coldest(self) -> int:
+        """One COLD transition: evict the least-recently-scanned resident
+        catalog partition.  Lineage-bearing partitions go first (their
+        recovery story is complete even if the segment is later lost); in
+        drop mode they are the only candidates, since dropping without
+        lineage would lose data outright."""
+        cat = self._catalog
+        if cat is None:
+            return 0
+        candidates = []
+        for name, table in list(cat._tables.items()):
+            for part in table.partitions:
+                if part.resident and part.resident_nbytes > 0:
+                    candidates.append((part.lineage is None,
+                                       part.last_access, name, part))
+        if self.storage.mode == "drop":
+            candidates = [c for c in candidates if not c[0]]
+        if not candidates:
+            return 0
+        _, _, name, part = min(candidates, key=lambda c: (c[0], c[1]))
+        return self.storage.evict(name, part)
 
     # -- reporting -------------------------------------------------------------
 
     def stats(self) -> Dict[str, int]:
         rc = self._result_cache
         part_bytes = self.bm.part_bytes
+        st = self.storage.stats() if self.storage is not None else {}
         return {
             "budget_bytes": self.budget_bytes or 0,
             "partition_bytes": part_bytes,
             "working_bytes": self.bm.nbytes() - part_bytes,  # shuffle
             "result_cache_bytes": rc.nbytes if rc is not None else 0,
             "decoded_cache_bytes": self.decoded_cache_bytes(),
+            "catalog_resident_bytes": self.catalog_resident_bytes(),
             "cache_bytes": self.cache_bytes(),
             "accounted_bytes": self.accounted_bytes(),
             "device_bytes": self.device_bytes(),
@@ -269,4 +371,14 @@ class MemoryManager:
             "decode_cache_drops": self.decode_cache_drops,
             "decode_cache_dropped_bytes": self.decode_cache_dropped_bytes,
             "chaos_pressure_drops": self.chaos_pressure_drops,
+            # storage tier (zeros when no StorageManager is attached, so
+            # the keys are always there)
+            "spills": st.get("spills", 0),
+            "spill_bytes": st.get("spill_bytes", 0),
+            "spill_reads": st.get("spill_reads", 0),
+            "recompressions": st.get("recompressions", 0),
+            "lineage_faults": st.get("lineage_faults", 0),
+            "shuffle_spills": st.get("shuffle_spills", 0),
+            "shuffle_faults": st.get("shuffle_faults", 0),
+            "shuffle_lost": st.get("shuffle_lost", 0),
         }

@@ -29,11 +29,13 @@ the block store — that sharing is the whole point of the server tier.
 
 The server computes on the GPU unless the caller asks for the CPU
 (`device="cpu"`), and raises without a card, as `SharkSession` does.  The
-out-of-core storage tier (`spill_dir=`, `spill_mode=`) waits for ROADMAP
-A.2b and the device mesh (`mesh=`) for the cluster tier; both raise.
-A catalog block's device copies (`Encoded._device`) live as long as the
-block serves queries: they are released when its table leaves the catalog
-or is replaced, and at `shutdown()`.
+out-of-core storage tier (`spill_dir=`, `spill_mode=`, DESIGN.md §12) is
+opt-in, as in the reference; the device mesh (`mesh=`) waits for the
+cluster tier and raises.  A catalog block's device copies
+(`Encoded._device`) live as long as the block serves queries: they are
+released when its partition goes cold, when its table leaves the catalog
+or is replaced, and at `shutdown()`.  A replaced or dropped table's spill
+segments stay until `shutdown()`, as in the reference.
 """
 
 from __future__ import annotations
@@ -77,10 +79,6 @@ class SharkServer:
                  spill_mode: Optional[str] = None,
                  mesh=None, stage_fusion: str = "on",
                  resilience=None, device=None):
-        if spill_mode is not None or spill_dir is not None:
-            raise NotImplementedError(
-                "spill_dir= / spill_mode=: the storage tier is not ported "
-                "yet (ROADMAP A.2b)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: the cluster tier is not ported yet (ROADMAP queue A, "
@@ -96,6 +94,15 @@ class SharkServer:
         self.catalog = Catalog()
         self.memory = MemoryManager(self.ctx.block_manager,
                                     budget_bytes=cache_budget_bytes)
+        # out-of-core storage tier (DESIGN.md §12): opt-in — without it the
+        # server behaves exactly as before (LRU eviction + recompute only)
+        self.storage = None
+        if spill_mode is not None or spill_dir is not None:
+            from ..core.storage import StorageManager
+            self.storage = StorageManager(spill_dir=spill_dir,
+                                          mode=spill_mode or "spill",
+                                          policy=self.ctx.policy)
+            self.memory.attach_storage(self.storage)
         self.scan_cache = ScanCache()
         self.result_cache = (ResultCache(result_cache_entries)
                              if enable_result_cache else None)
@@ -265,10 +272,14 @@ class SharkServer:
         return self.ctx.scheduler.describe_resilience()
 
     def shutdown(self) -> None:
-        """Stop the workers and release the device: after it the catalog,
-        the scan cache and the result cache hold no CUDA tensor."""
+        """Stop the workers, retire the storage tier (its writer joined,
+        its segments and own directory removed) and release the device:
+        after it the catalog, the scan cache and the result cache hold no
+        CUDA tensor."""
         self.scheduler.shutdown()
         self.scan_cache.clear()
+        if self.storage is not None:
+            self.storage.shutdown()
         for table in self.catalog.tables().values():
             table.drop_device()
         self.ctx.shutdown()

@@ -33,6 +33,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.configs, repro_torch.serving\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.server, repro_torch.server.memory\n"
+        "import repro_torch.core.storage\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "print(bad)")
@@ -94,14 +95,15 @@ def test_model_without_device_needs_a_card():
     assert out == "raised"
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     from repro_torch.core import SharkSession
     from repro_torch.server import SharkServer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SharkSession(device="cpu", mesh=object())
-    # server= attaches now; the server's storage tier waits for A.2b
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2b"):
-        SharkServer(device="cpu", spill_dir="spill")
+    # the storage tier is ported: spill_dir= builds a spill-mode tier
+    srv = SharkServer(device="cpu", spill_dir=str(tmp_path))
+    assert srv.storage.mode == "spill" and srv.memory.storage is srv.storage
+    srv.shutdown()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SharkServer(device="cpu", mesh=object())
 

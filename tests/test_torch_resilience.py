@@ -4,10 +4,8 @@ reference: the twin of tests/test_resilience.py.
 Each body runs on both packages (`torch_twin.twin`; the port's sessions
 on `device="cpu"`), asserts what its reference test asserts, and its
 answers, errors and plain-data locals (policies, health and breaker
-statistics, fault logs) must equal the reference's.  Two cases wait for
-tiers the port does not have yet: the storage tier's `SpillCorrupt`
-(ROADMAP A.2b; `test_infra_errors_are_retryable` classifies the other
-infrastructure errors here) and the cluster tier's `DeviceLost` and
+statistics, fault logs) must equal the reference's.  One case waits for
+a tier the port does not have yet: the cluster tier's `DeviceLost` and
 `ReplicaLost` (`test_cluster_errors_are_retryable`, ROADMAP A.4).  The
 reference's docstring follows.
 
@@ -61,11 +59,12 @@ class TestClassification:
         p = P.ResiliencePolicy()
         assert p.is_retryable(P.m("core.runtime").WorkerLost("w0"))
         assert p.is_retryable(P.m("core.runtime").FetchFailed(3, [1, 2]))
-        # SpillCorrupt comes with the storage tier (ROADMAP A.2b)
+        assert p.is_retryable(P.m("core.storage").SpillCorrupt("bad checksum"))
         assert p.is_retryable(P.ShuffleWaitTimeout(3, [0], 1.0))
         return [p.is_retryable(e) for e in (
             P.m("core.runtime").WorkerLost("w0"),
             P.m("core.runtime").FetchFailed(3, [1, 2]),
+            P.m("core.storage").SpillCorrupt("bad checksum"),
             P.ShuffleWaitTimeout(3, [0], 1.0))]
 
     def test_infra_errors_are_retryable(self):

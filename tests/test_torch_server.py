@@ -8,11 +8,13 @@ server on `device="cpu"`), asserts what its reference test asserts, and
 returns what it observed: answers, and the memory manager's counters
 (`evictions`, `recomputes`, `bypasses`, `partition_misses`,
 `decode_cache_drops`), which must equal the reference's on the same
-inputs.  The storage tier's cases (`spill_dir=`, `spill_mode=`) wait for
-ROADMAP A.2b; here they must raise.
+inputs.  The storage tier's own twins are in test_torch_storage.py; here
+`spill_dir=` / `spill_mode=` must build and attach it.
 """
 
 import gc
+import glob
+import os
 import threading
 import time
 
@@ -73,9 +75,12 @@ def counters(srv):
 def _eviction(pk):
     # budget holds ~2 of 8 scan partitions: the working set does not fit,
     # so caching churns and re-runs recompute from lineage.  One thread a
-    # server keeps the LRU order, and so the counters, deterministic.
+    # server, and no speculative copies of queued tasks (which a loaded
+    # host would launch), keep the LRU order, and so the counters,
+    # deterministic.
     srv = make_server(pk, cache_budget_bytes=300_000,
-                      enable_result_cache=False, max_threads=1)
+                      enable_result_cache=False, max_threads=1,
+                      speculation=False)
     try:
         ref = groupby_ref(make_data())
         first = check_result(srv.sql(QUERY), ref)
@@ -354,10 +359,29 @@ def test_server_exports():
 
 @pytest.mark.parametrize("kw", [{"spill_dir": "x"}, {"spill_mode": "spill"},
                                 {"spill_mode": "drop"}])
-def test_spill_tier_raises_until_ported(kw):
+def test_spill_tier_raises_until_ported(kw, tmp_path):
+    """(Named when the tier raised.)  `spill_dir=` / `spill_mode=` build a
+    StorageManager of the asked mode (`spill` for a directory alone),
+    attach it to the memory manager (its shuffle path in spill mode), and
+    `shutdown()` retires it: its writer joined, no segment left."""
+    from repro_torch.core.storage import StorageManager
     from repro_torch.server import SharkServer
-    with pytest.raises(NotImplementedError, match="A.2b"):
-        SharkServer(device="cpu", **kw)
+    if "spill_dir" in kw:
+        kw = {"spill_dir": str(tmp_path / kw["spill_dir"])}
+    srv = SharkServer(device="cpu", **kw)
+    storage = srv.storage
+    mode = kw.get("spill_mode", "spill")
+    assert isinstance(storage, StorageManager) and storage.mode == mode
+    assert srv.memory.storage is storage
+    assert (srv.ctx.block_manager.shuffle_storage is storage) == \
+        (mode == "spill")
+    writer = storage._writer
+    assert (writer is not None and writer.is_alive()) == (mode == "spill")
+    srv.shutdown()
+    assert storage._writer is None
+    if writer is not None:
+        assert not writer.is_alive()
+    assert not glob.glob(os.path.join(storage.dir, "*.shk*"))
 
 
 def test_mesh_raises_until_ported():
@@ -412,8 +436,9 @@ def test_counters_match_reference_across_a_budget_sweep():
     """The eviction order is the reference's: the same counters at every
     budget, from no pressure to less than one partition."""
     def body(pk, budget):
+        # one thread, no speculative copies: a deterministic LRU order
         srv = make_server(pk, cache_budget_bytes=budget, max_threads=1,
-                          enable_result_cache=False)
+                          enable_result_cache=False, speculation=False)
         try:
             for q in (QUERY, "SELECT COUNT(*) AS c FROM t WHERE a < 7",
                       QUERY):
