@@ -119,6 +119,30 @@ one warm query 1 in 7a with its host-to-device copies and bytes; the
 `kernels` line gives kernels 1-5 their launches in the phase as
 `storage_launches`.
 
+Phase 8 (after phase 7) runs the cluster tier on the card, on
+benchmarks/scale_bench.py's workload: its `uservisits` table (`k` INT64 in
+[0, 64), `x` FLOAT64 U(-100, 100), `v` FLOAT64 U(0, 10), drawn with numpy
+from `--seed`; `--rows` rows in its 8 partitions), its `query_mix(48)` (36
+range scans, 12 GROUP BY k) and its fixed per-replica settings, the card
+as every replica's device.  8a: a `SharkFleet` of 1, 2 and 4 replicas
+(least-loaded routing, 2 warm-up queries, then the storm); 8b: 2
+replicas, the first alive one killed after query 12 is submitted (reroutes
+must happen); 8c: a mesh session over the mix's first 12 queries on
+`MeshContext()` (one slot a card) and on 4 slots sharing `cuda:0`, each
+mesh dispatch holding exactly one `colscan` launch a partition or one
+`radix_split` launch a slot (route one_launch), then on 4 slots a slot
+killed mid group-by (a retry, 3 slots, the same rows) and a trace of one
+warm group-by with its copies by kind; 8d: 2 replicas each over its own
+2-slot mesh (`mesh_factory`), 12 queries (mesh dispatches must happen).
+Every answer is checked against numpy (integers exactly, floats to rtol
+1e-9), no shuffle block may outlive a storm or a query, and after each
+fleet's or session's `shutdown()` the card's memory is back at its level
+before the phase.  It prints each storm's QPS, p50 / p95, reroutes and
+served counts, the 1-to-4 scaling, each mesh's wall, partitions, shipped
+rows and bytes, `stats()` and launches a dispatch, and the phase's wall;
+the `kernels` line gives kernels 1 and 4 their launches in the phase as
+`cluster_launches`.
+
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
 device (and without `--device cpu`), or outside a checkout of the repo,
@@ -282,8 +306,9 @@ def traced(torch, device, label: str, fn) -> None:
     it: the wall time (the profiler's own cost per op included), the
     device's busy time (the union of its kernels' and copies' spans) and
     idle share, the count of device ops (kernels and copies), the
-    host-to-device copies and their bytes, the device ops by time and the
-    host ops by their own CPU time."""
+    host-to-device copies and their bytes, the copies by kind (HtoD, DtoH,
+    DtoD) with their bytes and the copy calls the host made, the device
+    ops by time and the host ops by their own CPU time."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities):    # the tracer's start-up,
@@ -313,6 +338,9 @@ def traced(torch, device, label: str, fn) -> None:
                     )[:12]:
         host.append([e.key[:60], e.count, e.self_cpu_time_total / 1e3])
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    # copies the host issued, to hold the device's copy records against
+    copy_calls = sum(e.count for e in prof.key_averages()
+                     if e.key in ("cudaMemcpyAsync", "cudaMemcpy"))
     htod = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
                and e.name.startswith("Memcpy HtoD"))
     # the copies' bytes are in the exported trace's event arguments
@@ -323,10 +351,18 @@ def traced(torch, device, label: str, fn) -> None:
             events = json.load(f).get("traceEvents", [])
     htod_bytes = sum(int(e.get("args", {}).get("bytes", 0)) for e in events
                      if str(e.get("name", "")).startswith("Memcpy HtoD"))
+    copies = {}         # kind -> [copies, bytes]
+    for e in events:
+        name = str(e.get("name", ""))
+        if name.startswith("Memcpy ") and e.get("ph") == "X":
+            c = copies.setdefault(name.split()[1], [0, 0])
+            c[0] += 1
+            c[1] += int(e.get("args", {}).get("bytes", 0))
     rec = {"trace": label, "wall_ms": wall, "device_busy_ms": busy / 1e3,
            "device_idle_share": 1.0 - busy / 1e3 / wall,
            "device_ops": len(spans), "htod_copies": htod,
-           "htod_bytes": htod_bytes,
+           "htod_bytes": htod_bytes, "copies": copies,
+           "host_copy_calls": copy_calls,
            "device_ops_ms": [[k, c, ms] for k, (c, ms) in top],
            "host_self_ms": host}
     print(json.dumps(rec), flush=True)
@@ -1778,6 +1814,480 @@ def phase_storage(torch, device, rows: int, seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+
+# benchmarks/scale_bench.py's workload: its uservisits schema (:49-58), its
+# query mix (:61-72) and its fixed per-replica settings (:42-45), with the
+# card as every replica's device
+CLUSTER_TABLE = "uservisits"
+CLUSTER_QUERIES = 48
+CLUSTER_PARTS = 8
+REPLICA_KW = dict(num_workers=2, max_threads=2, max_concurrent_queries=2,
+                  max_queue_depth=512, enable_result_cache=False,
+                  default_partitions=CLUSTER_PARTS, default_shuffle_buckets=8,
+                  task_launch_overhead_s=5e-3)
+# 8c and 8d run the mix's first 12 queries; the exchange ships int64 keys
+# and float64 values
+CLUSTER_SHORT = 12
+SHIPPED_ROW_BYTES = 16
+
+
+def uservisits(rows: int, seed: int) -> dict:
+    """scale_bench's table; `--seed` 0 draws its own rows."""
+    rng = np.random.default_rng(42 + seed)
+    return {"k": rng.integers(0, 64, rows).astype(np.int64),
+            "x": rng.uniform(-100.0, 100.0, rows),
+            "v": rng.uniform(0.0, 10.0, rows)}
+
+
+def cluster_queries(n: int) -> list:
+    """scale_bench's `query_mix(n)`: a GROUP BY k every fourth query, range
+    scans with a window sliding over 20 literals otherwise; (sql, window)
+    pairs, window None for the group-by."""
+    out = []
+    for i in range(n):
+        lo = -90 + 7 * (i % 20)
+        if i % 4 == 3:
+            out.append((f"SELECT k, SUM(v) AS s FROM {CLUSTER_TABLE} "
+                        "GROUP BY k", None))
+        else:
+            out.append((f"SELECT COUNT(*) AS c, SUM(v) AS s, AVG(v) AS a "
+                        f"FROM {CLUSTER_TABLE} WHERE x BETWEEN {lo} AND "
+                        f"{lo + 55}", (lo, lo + 55)))
+    return out
+
+
+def cluster_expected(data: dict, queries: list) -> dict:
+    """Each query's answer from numpy over the generated arrays."""
+    k, x, v = data["k"], data["x"], data["v"]
+    out = {}
+    for q, window in queries:
+        if q in out:
+            continue
+        if window is None:
+            out[q] = {"k": np.arange(64, dtype=np.int64),
+                      "s": np.bincount(k, weights=v, minlength=64)}
+        else:
+            m = (x >= window[0]) & (x <= window[1])
+            c = int(m.sum())
+            s_ = float(v[m].sum())
+            out[q] = {"c": np.array([c]), "s": np.array([s_]),
+                      "a": np.array([s_ / c])}
+    return out
+
+
+def cluster_ok(got: dict, want: dict) -> bool:
+    """Integers exactly, floats to rtol 1e-9, rows in key order."""
+    if sorted(got) != sorted(want):
+        return False
+    if "k" in want:
+        order = np.argsort(got["k"], kind="stable")
+        got = {c: np.asarray(a)[order] for c, a in got.items()}
+    for c, w in want.items():
+        g = np.asarray(got[c])
+        if g.shape != w.shape:
+            return False
+        if w.dtype.kind in "iu":
+            if g.dtype.kind not in "iu" or not np.array_equal(g, w):
+                return False
+        elif not np.allclose(g, w, rtol=1e-9, atol=0):
+            return False
+    return True
+
+
+def drained(servers, label: str, timeout: float = 60.0) -> None:
+    """Fail unless every server's store holds no shuffle block within
+    `timeout` (a dead replica's threads drain in the background)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        held = []
+        for srv in servers:
+            bm = srv.ctx.block_manager
+            with bm.lock:
+                held.extend(k for k in bm.blocks if k[0] == "shuf")
+        if not held:
+            return
+        if time.monotonic() > deadline:
+            fail(f"{label}: shuffle blocks held after the storm {held[:3]}")
+        time.sleep(0.02)
+
+
+def cluster_fleet(device, data: dict, replicas: int, mesh_factory=None):
+    """scale_bench's `make_fleet` on `device`, and the list every replica
+    adds to the shuffle blocks of a query it finished still holds."""
+    from repro_torch.cluster import SharkFleet
+    from repro_torch.core import DType, Schema
+    fleet = SharkFleet(num_replicas=replicas, routing="least_loaded",
+                       mesh_factory=mesh_factory, device=str(device),
+                       **REPLICA_KW)
+    fleet.create_table(CLUSTER_TABLE, Schema.of(
+        k=DType.INT64, x=DType.FLOAT64, v=DType.FLOAT64), data,
+        num_partitions=CLUSTER_PARTS)
+    leaks = []
+    for r in fleet.replicas:
+        srv = r.server
+
+        def checked_release(executor, srv=srv, release=srv._release_shuffles):
+            release(executor)
+            ids = set(executor.created_shuffles)
+            bm = srv.ctx.block_manager
+            with bm.lock:
+                leaks.extend(k for k in bm.blocks if k[0] == "shuf"
+                             and k[1] in ids)
+
+        srv._release_shuffles = checked_release
+    return fleet, leaks
+
+
+def cluster_storm(fleet, queries: list, want: dict, label: str,
+                  kill_after: int = -1) -> dict:
+    """scale_bench's `run_storm`: 2 warm-up queries, then every query
+    submitted at once (`kill_after`: the first alive replica is killed
+    after that query is submitted); each answer checked."""
+    for q, _ in queries[:2]:
+        fleet.sql(q)
+    t0 = time.perf_counter()
+    handles = []
+    for i, (q, _) in enumerate(queries):
+        handles.append((q, time.monotonic(), fleet.submit(q)))
+        if i == kill_after:
+            fleet.kill_replica(fleet.alive_replicas()[0].index)
+    wrong, lat = 0, []
+    for q, t_sub, h in handles:
+        res = h.result(timeout=600)
+        wrong += not cluster_ok(res.to_numpy(), want[q])
+        lat.append((h._inner.finished - t_sub) * 1e3)
+    wall = time.perf_counter() - t0
+    rec = {"storm": label, "replicas": len(fleet.replicas),
+           "queries": len(queries), "wall_s": wall,
+           "qps": len(queries) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p95_ms": float(np.percentile(lat, 95)), "wrong": wrong,
+           "reroutes": fleet.reroutes, "served": fleet.stats()["served"]}
+    print(f"phase {label}: {json.dumps(rec)}", flush=True)
+    if wrong:
+        fail(f"phase {label}: {wrong} wrong answers")
+    return rec
+
+
+@contextlib.contextmanager
+def dispatch_launches():
+    """Record each mesh dispatch's kernel launches: `mesh_colscan` and
+    `mesh_group_exchange` wrapped for the block, one record a call (its
+    partitions, slots, attempts and the launch-count deltas across it; the
+    exchange's deltas include its slots' reduce), and the host-to-device
+    copies its staging made (`shard_exec._on` wrapped: copies and bytes,
+    counted on the host, whatever a profiler records).  Launches outside
+    the dispatches (the partial states' shuffle) are not in them."""
+    from repro_torch.cluster import shard_exec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radix_partition as kr
+    calls = []
+    names = ("mesh_colscan", "mesh_group_exchange", "_on")
+    orig = {n: getattr(shard_exec, n) for n in names}
+    staged = [0, 0]         # copies, bytes
+
+    def on(arr, device):
+        t = orig["_on"](arr, device)
+        if device.type == "cuda":
+            staged[0] += 1
+            staged[1] += t.nbytes
+        return t
+
+    def wrap(name, fn):
+        def call(ctx, first, *rest, **kw):
+            l0, r0 = ops.launch_counts(), kr.ROUTES["one_launch"]
+            s0, st0 = ctx.stats(), list(staged)
+            out = fn(ctx, first, *rest, **kw)
+            l1, s1 = ops.launch_counts(), ctx.stats()
+            calls.append({
+                "dispatch": name, "partitions": len(first),
+                "slots": out[1]["devices"],
+                "attempts": s1["dispatches"] - s0["dispatches"],
+                "retries": s1["retries"] - s0["retries"],
+                "colscan": l1["colscan"] - l0["colscan"],
+                "radix_split": l1["radix_partition"]
+                - l0["radix_partition"],
+                "one_launch": kr.ROUTES["one_launch"] - r0,
+                "groupby_sum": l1["groupby_sum"] - l0["groupby_sum"],
+                "staged": [staged[0] - st0[0], staged[1] - st0[1]]})
+            return out
+        return call
+
+    for n, fn in orig.items():
+        setattr(shard_exec, n, on if n == "_on" else wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in orig.items():
+            setattr(shard_exec, n, fn)
+
+
+def dispatch_rule(calls: list, label: str, cuda: bool) -> None:
+    """On the card, one `colscan` launch a placed partition per colscan
+    dispatch; per exchange, one `radix_split` launch a slot on route
+    one_launch and one `groupby_sum` a slot, its received rows reduced
+    where they lie (the CPU rehearsal runs the plain versions: no
+    launch)."""
+    if not calls:
+        fail(f"{label}: no mesh dispatch")
+    for c in calls if cuda else ():
+        if c["dispatch"] == "mesh_colscan":
+            ok = (c["colscan"] == c["partitions"]
+                  and c["radix_split"] == c["groupby_sum"] == 0)
+        else:
+            ok = (c["radix_split"] == c["one_launch"] == c["groupby_sum"]
+                  == c["slots"] and c["colscan"] == 0)
+        if not ok:
+            fail(f"{label}: a mesh dispatch launched {c}")
+
+
+def mesh_run(torch, device, data: dict, queries: list, want: dict, mesh,
+             label: str, mem_before, trace: bool = False) -> dict:
+    """8c on one mesh: a mesh session runs `queries`, each answer checked,
+    every dispatch's launches held to the rule; on 4 slots the one-shot
+    device killer of tests/test_cluster.py on the group-by, and traces of
+    two warm group-bys.  With `mesh` None the single-host session runs the
+    same queries, for comparison."""
+    from repro_torch.cluster import DeviceLost
+    from repro_torch.core import DType, Schema, SharkSession
+    cuda = device.type == "cuda"
+    sess = SharkSession(num_workers=2, default_partitions=CLUSTER_PARTS,
+                        mesh=mesh, device=str(device))
+    sess.create_table(CLUSTER_TABLE, Schema.of(
+        k=DType.INT64, x=DType.FLOAT64, v=DType.FLOAT64), data,
+        num_partitions=CLUSTER_PARTS)
+    bm = sess.ctx.block_manager
+    wrong = parts = shipped = 0
+    try:
+        with dispatch_launches() as calls:
+            # warm-up: a range scan and a group-by (the columns' first
+            # copies, the allocator's first blocks of each size)
+            for q, _ in (queries[0], queries[3]):
+                sess.sql_np(q)
+                sess.release_shuffles()
+            del calls[:]
+            t0 = time.perf_counter()
+            by_kind = {"scan": [], "group_by": []}     # ms a query
+            for q, window in queries:
+                t_q = time.perf_counter()
+                wrong += not cluster_ok(sess.sql_np(q), want[q])
+                by_kind["scan" if window else "group_by"].append(
+                    (time.perf_counter() - t_q) * 1e3)
+                m = sess.metrics()
+                parts += m.mesh_partitions
+                shipped += m.mesh_shipped_rows
+                sess.release_shuffles()
+                with bm.lock:
+                    held = [k for k in bm.blocks if k[0] == "shuf"]
+                if held:
+                    fail(f"{label}: shuffle blocks held after a query "
+                         f"{held[:3]}")
+            wall = time.perf_counter() - t0
+        if mesh is not None:
+            dispatch_rule(calls, label, cuda)
+        per = {}
+        for c in calls:
+            r = per.setdefault(c["dispatch"], {"dispatches": 0, "colscan": 0,
+                                               "radix_split": 0,
+                                               "groupby_sum": 0,
+                                               "staged_bytes": 0})
+            r["dispatches"] += 1
+            for k in ("colscan", "radix_split", "groupby_sum"):
+                r[k] += c[k]
+            r["staged_bytes"] += c["staged"][1]
+        slots = mesh.devices if mesh is not None else []
+        rec = {"mesh": label, "slots": [str(d) for d in slots],
+               "queries": len(queries), "wall_s": wall,
+               "median_ms": {k: float(np.median(v))
+                             for k, v in by_kind.items()},
+               "mesh_partitions": parts, "shipped_rows": shipped,
+               "shipped_bytes": shipped * SHIPPED_ROW_BYTES,
+               "wrong": wrong,
+               "stats": mesh.stats() if mesh is not None else None,
+               "launches": per}
+        print(f"phase {label}: {json.dumps(rec)}", flush=True)
+        want_parts = len(queries) * CLUSTER_PARTS if mesh is not None else 0
+        if wrong or parts != want_parts:
+            fail(f"{label}: {wrong} wrong answers, {parts} mesh partitions")
+        if len(slots) > 1 and shipped == 0:
+            fail(f"{label}: the exchange shipped no row across slots")
+        if len(slots) == 4:
+            q = queries[3][0]                   # the group-by
+            fired = []
+
+            def killer(ctx, ordinal):
+                if not fired:
+                    fired.append(ordinal)
+                    victim = ctx.alive_slots()[-1]
+                    ctx.kill_device(victim)
+                    raise DeviceLost(victim)
+
+            mesh.on_dispatch = killer
+            with dispatch_launches() as kcalls:
+                got = sess.sql_np(q)
+            mesh.on_dispatch = None
+            sess.release_shuffles()
+            m = sess.metrics()
+            dispatch_rule(kcalls, label, cuda)
+            kill = {"retries": mesh.retries, "mesh_retries": m.mesh_retries,
+                    "mesh_devices": m.mesh_devices,
+                    "right": cluster_ok(got, want[q]), "launches": kcalls}
+            print(f"phase {label}: a slot killed mid group-by "
+                  f"{json.dumps(kill)}", flush=True)
+            if not (mesh.retries >= 1 and m.mesh_retries >= 1
+                    and m.mesh_devices == 3 and kill["right"]):
+                fail(f"{label}: the device-loss recompute {kill}")
+            mesh.revive_all()
+            rec["kill"] = kill
+        if trace and cuda:
+            # two traced windows of the same warm group-by: the profiler
+            # has dropped device records at times, so each window's copy
+            # records are held against the copy calls the host made in it
+            q = queries[3][0]
+            rec["traces"] = []
+            for i in range(2):
+                with dispatch_launches() as tcalls:
+                    t = traced(torch, device, f"phase {label}: warm "
+                               f"group-by {i + 1} of 2 on the mesh",
+                               lambda: sess.sql_np(q))
+                sess.release_shuffles()
+                dispatch_rule(tcalls, label, cuda)
+                in_trace = {k: sum(c for name, c, _ in t["device_ops_ms"]
+                                   if k in name)
+                            for k in ("one_launch_kernel", "group_reduce")}
+                records = sum(c for c, _ in t["copies"].values())
+                print(f"phase {label}: traced group-by {i + 1}: busy "
+                      f"{t['device_busy_ms']:.4f} ms of "
+                      f"{t['wall_ms']:.3f}, idle "
+                      f"{t['device_idle_share']:.4f}, copies "
+                      f"{json.dumps(t['copies'])}: {records} records of "
+                      f"{t['host_copy_calls']} copy calls the host made; "
+                      f"staged by the dispatch (counted on the host) "
+                      f"{tcalls[0]['staged'][0]} HtoD copies of "
+                      f"{tcalls[0]['staged'][1]} bytes; "
+                      f"launches in the dispatch: radix_split "
+                      f"{tcalls[0]['radix_split']}, groupby_sum "
+                      f"{tcalls[0]['groupby_sum']}; kernels in the trace "
+                      f"{json.dumps(in_trace)} (the partial states' "
+                      f"shuffle and merge included)", flush=True)
+                rec["traces"].append(t)
+    finally:
+        sess.shutdown()
+    del sess, bm
+    device_back(torch, device, f"phase {label}", mem_before)
+    return rec
+
+
+def phase_cluster(torch, device, rows: int, seed: int) -> dict:
+    """Phase 8: the cluster tier on benchmarks/scale_bench.py's workload.
+    8a a fleet of 1, 2 and 4 replicas, 8b a replica killed mid-storm, 8c a
+    mesh session on one slot and on 4 slots sharing the card (and a slot
+    killed mid group-by) beside the single-host session on the same table,
+    8d 2 replicas each over a 2-slot mesh.  Returns kernels 1, 3 and 4's
+    launches in the phase."""
+    from repro_torch.cluster import MeshContext
+    from repro_torch.kernels import ops
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    gc.collect()
+    mem_before = None
+    if cuda:
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated(device)
+    data = uservisits(rows, seed)
+    queries = cluster_queries(CLUSTER_QUERIES)
+    want = cluster_expected(data, queries)
+    print(f"phase 8: {CLUSTER_TABLE} {rows} rows in {CLUSTER_PARTS} "
+          f"partitions ({sum(a.nbytes for a in data.values())} bytes), "
+          f"{len(queries)} queries ({sum(w is None for _, w in queries)} "
+          f"GROUP BY k); replica settings {json.dumps(REPLICA_KW)} "
+          f"(task_launch_overhead_s is scale_bench's emulated per-task "
+          f"launch overhead)", flush=True)
+    ops.reset_launch_counts()
+
+    def shut(fleet, leaks, label):
+        drained([r.server for r in fleet.replicas], f"phase {label}")
+        if leaks:
+            fail(f"phase {label}: shuffle blocks held after their query "
+                 f"{leaks[:3]}")
+        fleet.shutdown()
+        device_back(torch, device, f"phase {label}", mem_before)
+
+    sweep = {}
+    for n in (1, 2, 4):
+        t0 = time.perf_counter()
+        fleet, leaks = cluster_fleet(device, data, n)
+        load = time.perf_counter() - t0
+        try:
+            sweep[n] = cluster_storm(fleet, queries, want, f"8a ({n})")
+            sweep[n]["load_s"] = load
+        finally:
+            shut(fleet, leaks, f"8a ({n})")
+    scaling = sweep[4]["qps"] / sweep[1]["qps"]
+    print(f"phase 8a: QPS 1 / 2 / 4 replicas {sweep[1]['qps']:.4f} / "
+          f"{sweep[2]['qps']:.4f} / {sweep[4]['qps']:.4f}, scaling 1 to 4 "
+          f"{scaling:.4f}", flush=True)
+
+    fleet, leaks = cluster_fleet(device, data, 2)
+    try:
+        chaos = cluster_storm(fleet, queries, want, "8b (chaos)",
+                              kill_after=len(queries) // 4)
+    finally:
+        shut(fleet, leaks, "8b")
+    if chaos["reroutes"] == 0:
+        fail("phase 8b: the kill rerouted no query")
+
+    short = queries[:CLUSTER_SHORT]
+    card = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    one = MeshContext() if cuda else MeshContext(devices=[card])
+    meshes = {"8c (1 slot)": mesh_run(torch, device, data, short, want, one,
+                                      "8c (1 slot)", mem_before),
+              "8c (4 slots)": mesh_run(
+                  torch, device, data, short, want,
+                  MeshContext(devices=[card] * 4), "8c (4 slots)",
+                  mem_before, trace=True)}
+    host = mesh_run(torch, device, data, short, want, None,
+                    "8c (single host)", mem_before)
+    w1, w4 = (meshes[k]["wall_s"] for k in meshes)
+    print(f"phase 8c: {len(short)} queries on the mesh: 1 slot {w1:.4f} s, "
+          f"4 slots sharing {card} {w4:.4f} s ({w4 / w1:.4f}x); the "
+          f"single-host session {host['wall_s']:.4f} s; median ms "
+          f"(scan, group-by): 1 slot "
+          f"{json.dumps(meshes['8c (1 slot)']['median_ms'])}, 4 slots "
+          f"{json.dumps(meshes['8c (4 slots)']['median_ms'])}, single "
+          f"host {json.dumps(host['median_ms'])}; "
+          f"torch.cuda.device_count() "
+          f"{torch.cuda.device_count() if cuda else 0}", flush=True)
+
+    composed_meshes = {}
+
+    def factory(i):
+        composed_meshes[i] = MeshContext(devices=[card] * 2)
+        return composed_meshes[i]
+
+    fleet, leaks = cluster_fleet(device, data, 2, mesh_factory=factory)
+    try:
+        composed = cluster_storm(fleet, short, want, "8d (composed)")
+    finally:
+        shut(fleet, leaks, "8d")
+    composed["dispatch"] = {i: m.stats() for i, m in composed_meshes.items()}
+    dispatches = sum(s["dispatches"] for s in composed["dispatch"].values())
+    print(f"phase 8d: mesh dispatches in the replicas "
+          f"{json.dumps(composed['dispatch'])}", flush=True)
+    if dispatches == 0:
+        fail("phase 8d: no replica dispatched through its mesh")
+
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in ("colscan", "groupby_sum", "radix_partition")}
+    wall = time.perf_counter() - t_phase
+    print(f"phase 8: launches {json.dumps(launches)}; {wall:.3f} s of wall, "
+          f"loads included", flush=True)
+    if cuda and 0 in launches.values():
+        fail(f"phase 8 never launched {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 3
 
 # spans of the 8 small-range int features: BITPACK blocks of 1 to 4 bits
@@ -2477,6 +2987,7 @@ def main() -> int:
     server = phase_server(torch, device, data, od, want)
     del data, od, want
     storage = phase_storage(torch, device, args.rows, args.seed)
+    cluster = phase_cluster(torch, device, args.rows, args.seed)
     launches = {k: v for k, v in sql.items() if k in SQL_KERNELS}
     # phases 3 and 4 keep the SQL phase's ratio to their full sizes
     launches.update(phase_train(torch, device, args.rows * 5 // 3,
@@ -2492,6 +3003,8 @@ def main() -> int:
         if name in SQL_KERNELS:
             rec["server_launches"] = server[name]
             rec["storage_launches"] = storage[name]
+        if name in cluster:
+            rec["cluster_launches"] = cluster[name]
     kernels["colscan"]["two_columns"]["launches"] = \
         sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \

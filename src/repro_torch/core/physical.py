@@ -178,9 +178,9 @@ class ExecMetrics:
     spill_reads: int = 0
     recompressions: int = 0
     # cluster tier (DESIGN.md §13): partitions whose map side ran on the
-    # device mesh, mesh size at dispatch, rows the cross-device exchange
-    # shipped off their source device, and dispatches recomputed after a
-    # device loss
+    # device mesh, mesh slots at dispatch, rows the cross-slot exchange
+    # shipped off their source slot (no interconnect bytes when slots
+    # share a card), and dispatches recomputed after a device loss
     mesh_partitions: int = 0
     mesh_devices: int = 0
     mesh_shipped_rows: int = 0
@@ -904,31 +904,80 @@ class SegmentRunner:
             # ARE group ids when the dictionary is the group space)
             res = groupby_sum_plain(codes, vals, num_groups)
             route = "code-groupby"
-        res = _host(res)
-        sums = res[:, 0]
-        cnts = np.round(res[:, 1]).astype(np.int64)
-        sel = cnts > 0      # partial states carry only present groups
-        out: Dict[str, ColumnVal] = {}
-        gname = group_cols[0]
         if gv.is_string:
-            out[gname] = ColumnVal(
-                np.flatnonzero(sel).astype(np.int32), gv.sdict, True)
+            def keys_of(sel):
+                return ColumnVal(np.flatnonzero(sel).astype(np.int32),
+                                 gv.sdict, True)
         else:
-            out[gname] = ColumnVal(reps[sel])
-        for spec in aggs:
-            sc = _agg_state_cols(spec)
-            if spec.func == AggFunc.COUNT:
-                out[sc[0]] = ColumnVal(cnts[sel])
-            elif spec.func == AggFunc.SUM:
-                arr = (np.round(sums[sel]).astype(np.int64) if int_sum
-                       else sums[sel].astype(np.float64))
-                out[sc[0]] = ColumnVal(arr)
-            elif spec.func == AggFunc.AVG:
-                out[sc[0]] = ColumnVal(sums[sel].astype(np.float64))
-                out[sc[1]] = ColumnVal(cnts[sel])
-            else:
-                raise ExprCompileError(str(spec.func))
-        return PartitionBatch(out), route
+            def keys_of(sel):
+                return ColumnVal(reps[sel])
+        return (_group_states(_host(res), group_cols[0], keys_of, aggs,
+                              int_sum), route)
+
+
+def slot_groupby(keys, values, key_dtype, group_cols, aggs,
+                 cfg: PDEConfig) -> PartitionBatch:
+    """Partial states of one mesh slot's received rows (`keys` int64,
+    `values` or None, both on the slot's device), reduced there: the
+    group ids come from the keys on the device (`torch.unique`), then
+    the rows take the route the single-host group-by takes for as many
+    rows and groups (`decide_segment_backend`): kernel 3
+    (`groupby_sum`) on a card, its plain version on the CPU or past the
+    kernel's NDV, the numpy oracle for a tiny slot.  Only the states
+    (a row a group) come back to the host."""
+    import torch
+
+    from ..kernels import ops as kernel_ops
+    n = int(keys.shape[0])
+    on_gpu = keys.is_cuda
+    if n == 0 or decide_segment_backend(
+            n, "groupby_mxu", None, on_gpu, cfg).route == "numpy":
+        cols = {group_cols[0]: ColumnVal(
+            _host(keys).astype(key_dtype, copy=False))}
+        if values is not None:
+            for a in aggs:
+                if a.arg is not None:
+                    cols[a.arg.name] = ColumnVal(_host(values))
+        return partial_aggregate(PartitionBatch(cols), group_cols, aggs)
+    reps, codes = torch.unique(keys, sorted=True, return_inverse=True)
+    num_groups = int(reps.shape[0])
+    raw = (values if values is not None
+           else torch.zeros(n, dtype=torch.float64, device=keys.device))
+    vals = _kernel_operand(raw)
+    route = decide_segment_backend(n, "groupby_mxu", num_groups, on_gpu,
+                                   cfg).route
+    if route == "groupby_mxu":
+        res = kernel_ops.groupby_sum(codes, vals, num_groups)
+    else:
+        res = groupby_sum_plain(codes, vals, num_groups)
+    reps = _host(reps).astype(key_dtype, copy=False)
+    return _group_states(_host(res), group_cols[0],
+                         lambda sel: ColumnVal(reps[sel]), aggs,
+                         _is_int(raw))
+
+
+def _group_states(res: np.ndarray, gname: str, keys_of, aggs,
+                  int_sum: bool) -> PartitionBatch:
+    """Partial-state batch of a (groups, 2) [sum, count] group-by result:
+    present groups only, their key column from `keys_of(present)`."""
+    sums = res[:, 0]
+    cnts = np.round(res[:, 1]).astype(np.int64)
+    sel = cnts > 0      # partial states carry only present groups
+    out: Dict[str, ColumnVal] = {gname: keys_of(sel)}
+    for spec in aggs:
+        sc = _agg_state_cols(spec)
+        if spec.func == AggFunc.COUNT:
+            out[sc[0]] = ColumnVal(cnts[sel])
+        elif spec.func == AggFunc.SUM:
+            arr = (np.round(sums[sel]).astype(np.int64) if int_sum
+                   else sums[sel].astype(np.float64))
+            out[sc[0]] = ColumnVal(arr)
+        elif spec.func == AggFunc.AVG:
+            out[sc[0]] = ColumnVal(sums[sel].astype(np.float64))
+            out[sc[1]] = ColumnVal(cnts[sel])
+        else:
+            raise ExprCompileError(str(spec.func))
+    return PartitionBatch(out)
 
 
 def _agg_state_cols(spec: AggSpec) -> List[str]:
@@ -1206,18 +1255,17 @@ class Executor:
                  mesh=None, stage_fusion: str = "on", device="cpu"):
         assert backend in ("compiled", "numpy"), backend
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the cluster tier is not ported yet (ROADMAP queue A, "
-                "cluster tier)")
+            mesh.check_device(device)
         assert exchange in ("coded", "decoded"), exchange
         assert stage_fusion in ("on", "off", "force"), stage_fusion
         self.ctx = ctx
         self.catalog = catalog
         # the device compiled routes and kernels compute on
         self.device = device
-        # the cluster tier's device mesh (DESIGN.md §13.1) is not ported:
-        # always None here, kept for the fault injector's duck typing
-        self.mesh = None
+        # cluster tier (DESIGN.md §13.1): when set, eligible aggregate map
+        # sides run sharded over the mesh's device slots and the compiled
+        # exchange ships buckets across slots
+        self.mesh = mesh
         self.pde = pde
         self.enable_pde = enable_pde
         self.enable_map_pruning = enable_map_pruning
@@ -1473,7 +1521,18 @@ class Executor:
             # function per partition, kernel-lowered when the shape allows
             scanc, runner = self._make_runner(seg, "aggregate")
             src = self._segment_source_rdd(scanc, seg, ensure_nonempty=True)
-            if self._fusion_mode != "off":
+            mesh_partials = None
+            if self.mesh is not None and self.backend == "compiled":
+                # cluster tier: run the map side sharded over the device
+                # mesh; the partial states feed the SAME shuffle/merge
+                # reduce below, so semantics and row order match the
+                # single-host path by construction
+                mesh_partials = self._mesh_partials(src, runner, group_cols,
+                                                    aggs)
+            if mesh_partials is not None:
+                map_rdd = self._prep_exchange(
+                    self.ctx.parallelize(mesh_partials))
+            elif self._fusion_mode != "off":
                 # whole-stage (DESIGN.md §14): the bucket layout is fixed
                 # BEFORE the map fn exists because radix bucketing runs
                 # inside the stage program — one call per partition
@@ -1567,6 +1626,90 @@ class Executor:
         rdd = PipelinedShuffledRDD(dep, groups, reduce_fn)
         rdd.offer_precomputed(pre)
         return Compiled(rdd, names)
+
+    # -- mesh-sharded map side (cluster tier, DESIGN.md §13.1) ----------------
+
+    def _mesh_partials(self, src: RDD, runner: "SegmentRunner",
+                       group_cols, aggs) -> Optional[List[PartitionBatch]]:
+        """Compute the aggregate's partial states on the device mesh.
+
+        Eligibility is the kernel shape check the single-host routes use
+        (`_agg_kernel_shape`) narrowed to numeric columns; anything else
+        returns None and the single-host map side runs (a route of the
+        plan, not a device fallback).  The colscan shape launches one
+        `colscan` a partition on its slot; the group-by shape runs the
+        radix exchange across slots and partial-aggregates each slot's
+        received rows.  Either way the output is a list of partial-state
+        batches that feed the standard shuffle + merge, so the final rows
+        (and their order) are produced by exactly the single-host reduce
+        path.
+        """
+        shape = runner._agg_kernel_shape(group_cols, aggs)
+        if shape is None:
+            return None
+        from ..cluster import shard_exec
+        mesh = self.mesh
+        before = mesh.retries
+        batches = self.ctx.scheduler.run_result_stage(src)
+        try:
+            if shape[0] == "colscan":
+                _, fcol, lo, hi, vcol = shape
+                fvals, avals, int_sum = [], [], False
+                for b in batches:
+                    fv, vv = b.col(fcol), b.col(vcol)
+                    if fv.is_string or vv.is_string:
+                        return None
+                    varr = np.asarray(vv.arr)
+                    int_sum = int_sum or np.issubdtype(varr.dtype, np.integer)
+                    fvals.append(np.asarray(fv.arr, np.float64))
+                    avals.append(varr.astype(np.float64, copy=False))
+                stats, report = shard_exec.mesh_colscan(
+                    mesh, fvals, avals, float(lo), float(hi))
+                out = []
+                for (cnt, s, mn, mx), b in zip(stats, batches):
+                    out.append(runner._colscan_result(
+                        aggs, float(cnt), float(s), float(mn), float(mx),
+                        int_sum))
+                    runner._note("mesh-colscan", b.num_rows, 1,
+                                 float(b.nbytes))
+            else:                                   # ("groupby_mxu", g, v)
+                _, gsrc, vcol = shape
+                keys, vals = [], ([] if vcol is not None else None)
+                kdt = None
+                for b in batches:
+                    gv = b.col(gsrc)
+                    karr = np.asarray(gv.arr)
+                    if gv.is_string or not np.issubdtype(karr.dtype,
+                                                         np.integer):
+                        return None     # exchange hashes integer key lanes
+                    kdt = karr.dtype
+                    keys.append(karr)
+                    if vcol is not None:
+                        vv = b.col(vcol)
+                        if vv.is_string:
+                            return None
+                        vals.append(np.asarray(vv.arr))
+                # each slot reduces its received rows on its device; only
+                # the partial states come back
+                per_dev, report = shard_exec.mesh_group_exchange(
+                    mesh, keys, vals,
+                    reduce=lambda kd, vd: (
+                        slot_groupby(kd, vd, kdt, group_cols, aggs,
+                                     runner.cfg),
+                        int(kd.shape[0])))
+                self.metrics.mesh_shipped_rows += report["shipped_rows"]
+                out = []
+                for pb, rows in per_dev:
+                    # bytes of the received keys in their own dtype
+                    runner._note("mesh-exchange", rows, pb.num_rows,
+                                 float(rows * np.dtype(kdt).itemsize))
+                    out.append(pb)
+        except ExprCompileError:
+            return None
+        self.metrics.mesh_partitions += len(batches)
+        self.metrics.mesh_devices = report["devices"]
+        self.metrics.mesh_retries += mesh.retries - before
+        return out
 
     # -- joins ----------------------------------------------------------------
 

@@ -111,11 +111,8 @@ class ResiliencePolicy:
         from .storage import SpillCorrupt
         if isinstance(exc, SpillCorrupt):
             return True
-        try:
-            from ..cluster.mesh import DeviceLost
-            from ..cluster.fleet import ReplicaLost
-        except ImportError:           # cluster tier not importable here
-            return False
+        from ..cluster.fleet import ReplicaLost
+        from ..cluster.mesh import DeviceLost
         return isinstance(exc, (DeviceLost, ReplicaLost))
 
     def describe(self) -> str:

@@ -30,9 +30,10 @@ the block store — that sharing is the whole point of the server tier.
 The server computes on the GPU unless the caller asks for the CPU
 (`device="cpu"`), and raises without a card, as `SharkSession` does.  The
 out-of-core storage tier (`spill_dir=`, `spill_mode=`, DESIGN.md §12) is
-opt-in, as in the reference; the device mesh (`mesh=`) waits for the
-cluster tier and raises.  A catalog block's device copies
-(`Encoded._device`) live as long as the block serves queries: they are
+opt-in, as in the reference, and so is the device mesh (`mesh=`, a
+`cluster.MeshContext` whose slots are of the server's device type: every
+executor shards eligible aggregate map sides over it).  A catalog block's
+device copies (`Encoded._device`) live as long as the block serves queries: they are
 released when its partition goes cold, when its table leaves the catalog
 or is replaced, and at `shutdown()`.  A replaced or dropped table's spill
 segments stay until `shutdown()`, as in the reference.
@@ -79,13 +80,11 @@ class SharkServer:
                  spill_mode: Optional[str] = None,
                  mesh=None, stage_fusion: str = "on",
                  resilience=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the cluster tier is not ported yet (ROADMAP queue A, "
-                "cluster tier)")
         # the device compiled routes and kernels run on: the GPU unless the
         # caller asks for the CPU (the CPU tests pass device="cpu")
         self.device = resolve_device(device)
+        if mesh is not None:
+            mesh.check_device(self.device)
         self.ctx = SharkContext(num_workers=num_workers,
                                 max_threads=max_threads,
                                 speculation=speculation,
@@ -118,8 +117,8 @@ class SharkServer:
             pde=pde_config or PDEConfig(), enable_pde=enable_pde,
             enable_map_pruning=enable_map_pruning,
             default_shuffle_buckets=default_shuffle_buckets,
-            backend=backend, exchange=exchange, stage_fusion=stage_fusion,
-            device=self.device)
+            backend=backend, exchange=exchange, mesh=mesh,
+            stage_fusion=stage_fusion, device=self.device)
         self.scheduler = FairScheduler(
             self._run_query, max_concurrent=max_concurrent_queries,
             max_queue_depth=max_queue_depth)

@@ -5,10 +5,11 @@ Each body runs on both packages (`torch_twin.twin`; the port's server on
 `device="cpu"`, its storage tier in spill mode under the reference's
 budget), asserts what its reference test asserts, and its answers must
 equal the reference's, byte for byte after a deterministic row sort.
-`TestFleetStorm::test_replica_death_at_submit_and_mid_poll` (replica
-death, `SharkFleet`) and `TestMeshStorm::test_device_loss_storm` (device
-loss, `MeshContext`) wait for the cluster tier (ROADMAP A.4) and have no
-twin here yet.  The reference's docstring follows.
+`TestFleetStorm` runs its fleets' replicas on the CPU.  The reference's
+`TestMeshStorm` needs two XLA devices and skips on one; its body runs
+here on the port alone, on 4 CPU slots (`MeshContext(devices=[cpu] * 4)`),
+its answers held to the port's own fault-free baseline.  The reference's
+docstring follows.
 
 Chaos storm (DESIGN.md §16): the unified fault-injection engine drives
 EVERY fault site against a live server over many seeds, and the answers
@@ -24,15 +25,15 @@ trip and recovery counters prove every site actually fired and every
 recovery path actually ran — a storm that never trips is vacuous.
 
 Separate storms cover the fleet seams (replica death at submit and
-mid-poll, fresh fleet per seed — dead replicas stay dead) and, under the
-multidevice marker, the mesh dispatch seam (device loss; the cluster
+mid-poll, fresh fleet per seed — dead replicas stay dead) and the mesh
+dispatch seam (device loss; the cluster
 tier's documented contract is exact ints/strings and 1e-9 floats, since
 fewer devices regroup the float reduction tree).
 """
 
 import numpy as np
 
-from torch_twin import P, twin
+from torch_twin import TORCH, P, twin
 
 N_SEEDS = 20
 N_FACT = 30_000
@@ -204,3 +205,90 @@ class TestServerStorm:
 
     def test_uninstall_detaches_every_seam(self):
         twin(self._uninstall_detaches_every_seam)
+
+
+class TestFleetStorm:
+    def _replica_death_at_submit_and_mid_poll(self):
+        SharkFleet = P.m("cluster.fleet").SharkFleet
+        rng = np.random.default_rng(5)
+        data = {"k": rng.integers(0, 16, 20_000).astype(np.int64),
+                "v": rng.uniform(0.0, 10.0, 20_000)}
+        schema = P.Schema.of(k=P.DType.INT64, v=P.DType.FLOAT64)
+        q = "SELECT k, SUM(v) AS s, COUNT(*) AS c FROM t GROUP BY k"
+        baseline = None
+        submit_kills = poll_kills = 0
+        for seed in range(4):
+            # fresh fleet per seed: dead replicas stay dead
+            fleet = SharkFleet(
+                num_replicas=3, num_workers=2, enable_result_cache=False,
+                speculation=False, default_partitions=4,
+                default_shuffle_buckets=8,
+                resilience=P.ResiliencePolicy(fleet_poll_s=0.002))
+            try:
+                fleet.create_table("t", schema, data)
+                if baseline is None:
+                    baseline = _canon(fleet.sql_np(q))
+                engine = P.ChaosEngine(P.FaultSchedule(seed=seed, specs=[
+                    P.FaultSpec("fleet.submit", count=1, after=seed % 2),
+                    P.FaultSpec("fleet.poll", count=1, after=seed % 3),
+                ]))
+                engine.install(fleet)
+                try:
+                    for _ in range(4):
+                        _assert_identical(baseline, _canon(fleet.sql_np(q)),
+                                          (seed, engine.stats()))
+                finally:
+                    engine.uninstall()
+                sites = engine.stats()["by_site"]
+                submit_kills += sites.get("fleet.submit", 0)
+                poll_kills += sites.get("fleet.poll", 0)
+                assert len(fleet.alive_replicas()) >= 1
+            finally:
+                fleet.shutdown()
+        assert submit_kills > 0
+        assert poll_kills > 0
+        return baseline
+
+    def test_replica_death_at_submit_and_mid_poll(self):
+        twin(self._replica_death_at_submit_and_mid_poll)
+
+
+class TestMeshStorm:
+    def test_device_loss_storm(self):
+        """The reference body on the port's 4 CPU slots."""
+        P.pkg = TORCH
+        mesh = TORCH.mesh(4)
+        srv = TORCH.server(num_workers=4, enable_result_cache=False,
+                           speculation=False, default_partitions=8,
+                           mesh=mesh)
+        try:
+            rng = np.random.default_rng(9)
+            srv.create_table(
+                "t", P.Schema.of(k=P.DType.INT64, v=P.DType.FLOAT64),
+                {"k": rng.integers(0, 12, 40_000).astype(np.int64),
+                 "v": rng.uniform(0.0, 10.0, 40_000)})
+            q = "SELECT k, SUM(v) AS s, COUNT(*) AS c FROM t GROUP BY k"
+            baseline = _canon(srv.sql_np(q))
+            kills = 0
+            for seed in range(6):
+                mesh.revive_all()
+                engine = P.ChaosEngine(P.FaultSchedule(seed=seed, specs=[
+                    P.FaultSpec("mesh.dispatch", count=1, after=seed % 2)]))
+                engine.install(srv)
+                try:
+                    got = _canon(srv.sql_np(q))
+                finally:
+                    engine.uninstall()
+                # cluster-tier contract: ints exact, floats to 1e-9 (device
+                # loss regroups the float reduction tree)
+                for c in baseline:
+                    if baseline[c].dtype.kind in "iuUO":
+                        assert np.array_equal(baseline[c], got[c]), (seed, c)
+                    else:
+                        assert np.allclose(baseline[c], got[c],
+                                           rtol=1e-9, atol=1e-9), (seed, c)
+                kills += engine.stats()["by_site"].get("mesh.dispatch", 0)
+            assert kills > 0
+            assert mesh.stats()["retries"] > 0
+        finally:
+            srv.shutdown()

@@ -34,6 +34,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.launch.serve\n"
         "import repro_torch.server, repro_torch.server.memory\n"
         "import repro_torch.core.storage\n"
+        "import repro_torch.cluster, repro_torch.cluster.mesh\n"
+        "import repro_torch.cluster.shard_exec, repro_torch.cluster.fleet\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "print(bad)")
@@ -96,16 +98,28 @@ def test_model_without_device_needs_a_card():
 
 
 def test_unported_paths_raise(tmp_path):
+    import torch
+
+    from repro_torch.cluster import MeshContext
+    from repro_torch.configs import get_config
     from repro_torch.core import SharkSession
+    from repro_torch.models.lm import build_model
     from repro_torch.server import SharkServer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SharkSession(device="cpu", mesh=object())
     # the storage tier is ported: spill_dir= builds a spill-mode tier
     srv = SharkServer(device="cpu", spill_dir=str(tmp_path))
     assert srv.storage.mode == "spill" and srv.memory.storage is srv.storage
     srv.shutdown()
+    # the cluster tier is ported: mesh= takes a MeshContext of CPU slots
+    mesh = MeshContext(devices=[torch.device("cpu")] * 2)
+    sess = SharkSession(device="cpu", mesh=mesh)
+    assert sess.executor.mesh is mesh
+    sess.shutdown()
+    srv = SharkServer(device="cpu", mesh=mesh)
+    assert srv.make_executor().mesh is mesh
+    srv.shutdown()
+    # an LM family the port does not run yet raises
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SharkServer(device="cpu", mesh=object())
+        build_model(get_config("yi-9b-smoke"), device="cpu")
 
 
 def test_cpu_session_trains_on_the_cpu():

@@ -6,9 +6,9 @@ Each body runs on both packages (`torch_twin.twin`; the port's servers on
 every shuffle boundary of a star join, during the reduce, inside a fused
 exchange stage with a pipelined reduce, and with the working set spilled
 and a spill segment deleted under it), and its answers must equal the
-reference's.  `test_replica_loss_mid_star_join_reroutes_identically`
-waits for the cluster tier (ROADMAP A.4: `SharkFleet`) and has no twin
-here yet.  The reference's docstring follows.
+reference's; `test_replica_loss_mid_star_join_reroutes_identically`
+runs the storm on a `SharkFleet` of two replicas on the CPU.  The
+reference's docstring follows.
 
 Chaos testing: worker loss at EVERY shuffle boundary of a multi-way join
 (and during the reduce phase), under a SharkServer with concurrent sessions.
@@ -537,6 +537,65 @@ def _worker_loss_mid_fused_stage_with_reduce_started():
         return baseline
     finally:
         srv.shutdown()
+
+
+def _replica_loss_mid_star_join_reroutes_identically():
+    """Cluster-tier chaos (DESIGN.md §13.2): run the star-join storm on a
+    2-replica fleet and kill the replica serving the first in-flight query.
+    Every handle bound to the dead replica must re-route to the survivor and
+    recompute the full multi-boundary join from that replica's own lineage —
+    results identical to the failure-free run, and the dead replica's
+    draining threads must still release their shuffle blocks."""
+    SharkFleet = P.m("cluster").SharkFleet
+    rng = np.random.default_rng(11)
+    fleet = SharkFleet(num_replicas=2, routing="least_loaded",
+                       num_workers=4, max_threads=4,
+                       enable_result_cache=False, max_concurrent_queries=2,
+                       default_partitions=6, default_shuffle_buckets=8,
+                       task_launch_overhead_s=5e-3)
+    try:
+        fleet.create_table("fact", P.Schema.of(
+            sk=P.DType.INT64, mk=P.DType.INT64, rev=P.DType.FLOAT64),
+            {"sk": rng.integers(0, 8, N_FACT).astype(np.int64),
+             "mk": rng.integers(0, 300, N_FACT).astype(np.int64),
+             "rev": rng.uniform(0, 10, N_FACT)})
+        fleet.create_table("small_d", P.Schema.of(
+            skey=P.DType.INT64, sval=P.DType.INT64, sname=P.DType.STRING),
+            {"skey": np.arange(8, dtype=np.int64),
+             "sval": np.arange(8, dtype=np.int64) % 3,
+             "sname": np.array([f"grp-{i % 3}" for i in range(8)])})
+        fleet.create_table("mid_d", P.Schema.of(
+            mkey=P.DType.INT64, mval=P.DType.INT64),
+            {"mkey": np.arange(300, dtype=np.int64),
+             "mval": np.arange(300, dtype=np.int64) % 9})
+
+        baseline = _canon(fleet.sql_np(QUERY))
+        assert baseline, "baseline produced no groups"
+
+        handles = [fleet.submit(QUERY) for _ in range(6)]
+        fleet.kill_replica(handles[0].replica_index)
+        for h in handles:
+            assert _canon(h.result(timeout=120).to_numpy()) == baseline, \
+                "replica loss mid-join diverged from the failure-free run"
+        assert fleet.reroutes >= 1, "kill landed after the storm drained"
+
+        deadline = time.monotonic() + 60
+        while True:
+            leaked = [k for r in fleet.replicas
+                      for k in r.server.ctx.block_manager.blocks
+                      if k[0] == "shuf"]
+            if not leaked:
+                break
+            assert time.monotonic() < deadline, \
+                f"shuffle blocks leaked after replica loss: {leaked[:5]}"
+            time.sleep(0.02)
+        return sorted(baseline.items())
+    finally:
+        fleet.shutdown()
+
+
+def test_replica_loss_mid_star_join_reroutes_identically():
+    twin(_replica_loss_mid_star_join_reroutes_identically)
 
 
 def test_worker_loss_with_dictionary_preserving_shuffle():

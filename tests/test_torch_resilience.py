@@ -4,10 +4,9 @@ reference: the twin of tests/test_resilience.py.
 Each body runs on both packages (`torch_twin.twin`; the port's sessions
 on `device="cpu"`), asserts what its reference test asserts, and its
 answers, errors and plain-data locals (policies, health and breaker
-statistics, fault logs) must equal the reference's.  One case waits for
-a tier the port does not have yet: the cluster tier's `DeviceLost` and
-`ReplicaLost` (`test_cluster_errors_are_retryable`, ROADMAP A.4).  The
-reference's docstring follows.
+statistics, fault logs) must equal the reference's; the cluster tier's
+`DeviceLost` and `ReplicaLost` included (`test_cluster_errors_are_retryable`).
+The reference's docstring follows.
 
 Unit tests for the resilience policy layer (DESIGN.md §16).
 
@@ -69,6 +68,18 @@ class TestClassification:
 
     def test_infra_errors_are_retryable(self):
         twin(self._infra_errors_are_retryable)
+
+    def _cluster_errors_are_retryable(self):
+        ReplicaLost = P.m("cluster.fleet").ReplicaLost
+        DeviceLost = P.m("cluster.mesh").DeviceLost
+        p = P.ResiliencePolicy()
+        assert p.is_retryable(DeviceLost(1))
+        assert p.is_retryable(ReplicaLost("all dead"))
+        return [p.is_retryable(DeviceLost(1)),
+                p.is_retryable(ReplicaLost("all dead")), str(DeviceLost(1))]
+
+    def test_cluster_errors_are_retryable(self):
+        twin(self._cluster_errors_are_retryable)
 
     def _app_errors_are_not(self):
         p = P.ResiliencePolicy()

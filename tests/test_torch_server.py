@@ -384,10 +384,29 @@ def test_spill_tier_raises_until_ported(kw, tmp_path):
     assert not glob.glob(os.path.join(storage.dir, "*.shk*"))
 
 
-def test_mesh_raises_until_ported():
+def test_mesh_serves_a_group_by_on_cpu_slots():
+    import torch
+    from repro_torch.cluster import MeshContext
     from repro_torch.server import SharkServer
-    with pytest.raises(NotImplementedError, match="cluster tier"):
-        SharkServer(device="cpu", mesh=object())
+    srv = SharkServer(device="cpu", default_partitions=4,
+                      mesh=MeshContext(devices=[torch.device("cpu")] * 2))
+    try:
+        rng = np.random.default_rng(4)
+        k = rng.integers(0, 9, 4_000).astype(np.int64)
+        v = rng.uniform(0.0, 10.0, 4_000)
+        srv.create_table("t", TORCH.schema(k="INT64", v="FLOAT64"),
+                         {"k": k, "v": v})
+        res = srv.sql("SELECT k, SUM(v) AS s FROM t GROUP BY k")
+        got = res.to_numpy()
+        assert res.metrics.mesh_devices == 2
+        assert res.metrics.mesh_partitions == 4
+        order = np.argsort(got["k"])
+        assert np.array_equal(got["k"][order], np.arange(9))
+        np.testing.assert_allclose(
+            got["s"][order], np.bincount(k, weights=v, minlength=9),
+            rtol=1e-9)
+    finally:
+        srv.shutdown()
 
 
 def test_session_on_server_computes_on_its_device():

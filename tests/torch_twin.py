@@ -34,8 +34,9 @@ RTOL = 1e-12
 class Pkg:
     """One package under test: `pk.mod("core.pde")` imports
     `<root>.core.pde`; `pk.X` finds X in `<root>.core`;
-    `pk.session(**kw)` / `pk.server(**kw)` build a session or a server
-    (on the CPU for the port)."""
+    `pk.session(**kw)` / `pk.server(**kw)` / `pk.fleet(**kw)` build a
+    session, a server or a fleet (on the CPU for the port); `pk.mesh(n)` a
+    MeshContext of n device slots."""
 
     def __init__(self, name: str, root: str, device_kw: dict):
         self.name = name
@@ -59,6 +60,21 @@ class Pkg:
     def server(self, **kw):
         return self.mod("server").SharkServer(**self.device_kw, **kw)
 
+    def mesh(self, n: int = 1, **kw):
+        """A MeshContext of n device slots: the reference's first n XLA
+        devices (it must have n), the port's n CPU slots."""
+        mod = self.mod("cluster")
+        if self is TORCH:
+            import torch
+            return mod.MeshContext(devices=[torch.device("cpu")] * n, **kw)
+        mesh = mod.MeshContext(max_devices=n, **kw)
+        assert len(mesh.devices) == n, (len(mesh.devices), n)
+        return mesh
+
+    def fleet(self, **kw):
+        """A SharkFleet (its replicas on the CPU for the port)."""
+        return self.mod("cluster").SharkFleet(**self.device_kw, **kw)
+
     def schema(self, **types: str):
         """Schema.of(name=DType.<types[name]>) in this package."""
         return self.Schema.of(**{c: getattr(self.DType, t)
@@ -71,8 +87,8 @@ PKGS = (JAX, TORCH)
 
 
 class _View:
-    """A module of the current package; its `SharkSession` and
-    `SharkServer` compute on the CPU for the port."""
+    """A module of the current package; its `SharkSession`,
+    `SharkServer` and `SharkFleet` compute on the CPU for the port."""
 
     def __init__(self, pk: Pkg, path: str):
         object.__setattr__(self, "_pk", pk)
@@ -87,6 +103,8 @@ class _View:
             return self._pk.session
         if attr == "SharkServer" and self._pk is TORCH:
             return self._pk.server
+        if attr == "SharkFleet" and self._pk is TORCH:
+            return self._pk.fleet
         if attr == "SharkContext" and self._pk is TORCH:
             return lambda *a, **kw: self._mod.SharkContext(
                 *a, **self._pk.device_kw, **kw)
@@ -95,12 +113,16 @@ class _View:
 
 class _Current:
     """`P`: the package a twin body runs on.  `P.X` is `<root>.core.X`,
-    `P.m("core.pde").X` is `<root>.core.pde.X`."""
+    `P.m("core.pde").X` is `<root>.core.pde.X`, `P.mesh(n)` the package's
+    `pk.mesh(n)`."""
 
     pkg: Pkg = JAX
 
     def m(self, path: str) -> _View:
         return _View(self.pkg, path)
+
+    def mesh(self, n: int = 1, **kw):
+        return self.pkg.mesh(n, **kw)
 
     def __getattr__(self, attr: str) -> Any:
         if attr.startswith("__"):
