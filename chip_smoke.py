@@ -74,7 +74,7 @@ a bf16 prefill launch on a SIMT route fails the run), traces of one
 prefill and one decode step, and peak device memory; then, on a float32
 copy of the same weights, it holds the kernels' prefill logits against
 the plain versions' and one decode step against the full forward over
-S + 1 tokens.  The CPU rehearsal serves the smoke variant.
+S + 1 tokens.  The CPU rehearsal serves the smoke variant (phase 9 too).
 
 Phase 6 (run right after phase 2, on its tables) serves them through a
 `SharkServer` on the card: `lineitem` and `orders` registered as
@@ -142,6 +142,27 @@ served counts, the 1-to-4 scaling, each mesh's wall, partitions, shipped
 rows and bytes, `stats()` and launches a dispatch, and the phase's wall;
 the `kernels` line gives kernels 1 and 4 their launches in the phase as
 `cluster_launches`.
+
+Phase 9 (after phase 5, whose model and caches it releases first, printing
+the device memory allocated before and after) serves the dense family:
+Yi-9B (arXiv:2403.04652 as the registry defines it: 48 layers, d_model
+4096, 32 query heads over 4 kv heads of 128, d_ff 11008, vocab 64,000,
+about 8.8 B parameters, random bf16 weights drawn on the card from
+`--seed`) at full width and depth on phase 5's requests, with phase 5's
+prints and checks: 48 `flash_attention_fwd` launches a prefill, every one
+on the tensor-core route, k and v handed to the kernel with their 4 kv
+heads; float32 kernels vs plain and decode vs the full forward within
+1e-3.  Then Phi3-medium-14b (40 heads over 10), Qwen2.5-3b (16 over 2,
+QKV bias, tied embeddings) and StarCoder2-15b (48 over 4, QKV bias,
+LayerNorm, GELU) at full width and 2 layers (the only cut), each serving
+1 x 1,000 + 8 tokens with its biases and norm parameters drawn from the
+seed, checked the same way.  The `kernels` line gives kernel 11 its
+phase-9 launches as `dense_launches`.  Phase 1 also holds kernel 11
+against its plain version with k and v of fewer heads (GQA: Yi-9B's
+prefill shape, and g = 4, 8, 12, ragged, both routes), checks that one
+GQA call is one kernel, and times it at Yi-9B's shape beside its bound
+and `scaled_dot_product_attention(..., enable_gqa=True)` as row `11G`
+(`kernels[...]["gqa"]`).
 
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -2580,14 +2601,19 @@ def phase_search(torch, device, rows: int, seed: int) -> dict:
 # 112 in the shared attention; 64 SSD heads of P = 112, N = 64, chunk 256
 LM_BATCH, LM_SEQ = 4, 2048
 ATT_HEADS, ATT_HD = 32, 112
+# Yi-9B's prefill attention: 32 query heads over 4 kv heads of 128
+GQA_HEADS, GQA_KV, GQA_HD = 32, 4, 128
 SSD_HEADS, SSD_P, SSD_N, SSD_CHUNK, SSD_TILE = 64, 112, 64, 256, 64
 BF16_STEP = 2.0 ** -7            # one bfloat16 rounding step, relative
 
 
-def flash_cost(b, h, s, hd, itemsize):
-    """(bytes, flops) of causal attention: q, k, v read and o written once;
-    two hd-long dot products per (row, col <= row) pair."""
-    return 4.0 * b * h * s * hd * itemsize, 4.0 * b * h * hd * s * (s + 1) / 2
+def flash_cost(b, h, s, hd, itemsize, kv=None):
+    """(bytes, flops) of causal attention: q and k, v (kv heads, default h)
+    read and o written once; two hd-long dot products per (row, col <=
+    row) pair of each query head."""
+    kv = h if kv is None else kv
+    return ((2.0 * h + 2.0 * kv) * b * s * hd * itemsize,
+            4.0 * b * h * hd * s * (s + 1) / 2)
 
 
 def ssd_cost(b, s, h, p, n, itemsize):
@@ -2646,6 +2672,31 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
                  f"err {rel}")
         err["flash_attention_fwd"] = max(err["flash_attention_fwd"], float(
             (got - want).abs().max()))
+    # GQA (k, v with kv heads, each query head reading kv head h // g) at
+    # Yi-9B's prefill shape and at the other dense configurations' groups
+    # (g = 4, 8, 12), ragged S, both routes; the same tolerances
+    err_gqa = 0.0
+    for b, h, kv, s, hd, dt, causal in (
+            (LM_BATCH, GQA_HEADS, GQA_KV, LM_SEQ, GQA_HD, bf16, True),
+            (1, 40, 10, 1000, 128, bf16, True),
+            (1, 16, 2, 1000, 128, bf16, True),
+            (1, 48, 4, 1000, 128, bf16, False),
+            (1, 16, 2, 777, 128, f32, True),
+            (2, 24, 2, 300, 64, f32, False)):
+        h = kv * max(1, h // kv // cut)
+        q = t(rng.normal(size=(b, s, h, hd)), dt).transpose(1, 2)
+        # each kv head's values offset from the others', so that a query
+        # head reading a wrong kv head cannot pass
+        off = np.arange(kv)[:, None]
+        k = t(rng.normal(size=(b, s, kv, hd)) + 0.5 * off, dt).transpose(1, 2)
+        v = t(rng.normal(size=(b, s, kv, hd)) + 3.0 * off, dt).transpose(1, 2)
+        got = kf.flash_attention_fwd(q, k, v, causal).float()
+        want = kf.flash_attention_fwd_plain(q, k, v, causal).float()
+        rel = float((got - want).abs().max() / want.abs().max())
+        if not (np.isfinite(rel) and rel < (0.03 if dt == bf16 else 1e-4)):
+            fail(f"GQA flash ({b}, {h} over {kv}, {s}, {hd}, {dt}, "
+                 f"causal={causal}) rel err {rel}")
+        err_gqa = max(err_gqa, float((got - want).abs().max()))
     # SSD: rtol = atol = 1e-3 on y and the final state (the reference's
     # kernel test); a bf16 y is rounded once to bf16 on both sides, so two
     # values that close may still round one bf16 step apart
@@ -2680,8 +2731,9 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
                               float((st - sp).abs().max()))
     if device.type == "cuda":
         torch.cuda.synchronize()
-    print(f"phase 1: flash and SSD kernels match their plain versions, max "
-          f"abs err {json.dumps(err)}", flush=True)
+    print(f"phase 1: flash (MHA and GQA) and SSD kernels match their plain "
+          f"versions, max abs err {json.dumps(err)}, GQA {err_gqa}",
+          flush=True)
 
     timer = Timer(torch, device)
     b, s = LM_BATCH, LM_SEQ
@@ -2709,8 +2761,15 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
             lambda: ks.ssd_scan_plain(x, dtt, a, bm, cm, SSD_CHUNK, d=d),
             None, sb, sf),
     }
+    # row 11G: Yi-9B's prefill attention, k and v with 4 kv heads
+    gh = GQA_KV * max(1, GQA_HEADS // GQA_KV // cut)
+    qg = t(rng.normal(size=(b, s, gh, GQA_HD)), bf16).transpose(1, 2)
+    kg, vg = (t(rng.normal(size=(b, s, GQA_KV, GQA_HD)), bf16).transpose(1, 2)
+              for _ in range(2))
     if device.type == "cuda":
         one_kernel("bf16 ssd_scan", cases["ssd_scan"][0])
+        one_kernel("bf16 GQA flash_attention_fwd (32 heads over 4)",
+                   lambda: kf.flash_attention_fwd(qg, kg, vg))
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
         b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
@@ -2726,6 +2785,45 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
             "library_device_ms": (timer.graphed(lib, calls=5, replays=4)
                                   if lib is not None else None),
         }
+    # the library yardstick groups k/v itself where the installed torch
+    # takes `enable_gqa`; else it is timed on k/v repeated beforehand
+    sdpa_gqa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qg, kg, vg, is_causal=True, enable_gqa=True)
+    try:
+        sdpa_gqa()
+        lib_call = "scaled_dot_product_attention(enable_gqa=True)"
+    except TypeError:
+        kr, vr = (x.repeat_interleave(gh // GQA_KV, dim=1) for x in (kg, vg))
+        sdpa_gqa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qg, kr, vr, is_causal=True)
+        lib_call = "scaled_dot_product_attention on k/v repeated beforehand"
+    gb, gf = flash_cost(b, gh, s, GQA_HD, 2, GQA_KV)
+    g_ms, g_by = bound(gb, gf, BF16_OPS_PER_S)
+    gqa = {
+        "row": "11G", "name": "flash_attention_fwd", "route": "cuda",
+        "source": SOURCES["flash_attention_fwd"],
+        "replaces": TPU_KERNELS["flash_attention_fwd"],
+        "shape": [b, gh, GQA_KV, s, GQA_HD], "launches": 0,
+        "max_abs_err": err_gqa,
+        "ms": timer(lambda: kf.flash_attention_fwd(qg, kg, vg), reps=10,
+                    warmup=2),
+        "device_ms": timer.graphed(lambda: kf.flash_attention_fwd(qg, kg,
+                                                                  vg),
+                                   calls=5, replays=4),
+        "plain_ms": timer(lambda: kf.flash_attention_fwd_plain(qg, kg, vg),
+                          reps=3, warmup=1),
+        "bound_ms": g_ms, "bound_by": g_by,
+        "library_ms": timer(sdpa_gqa, reps=10, warmup=2),
+        "library_device_ms": timer.graphed(sdpa_gqa, calls=5, replays=4),
+        "library_call": lib_call,
+    }
+    if gqa["device_ms"] is not None:
+        gqa["tflops"] = gf / (gqa["device_ms"] * 1e-3) / 1e12
+        gqa["library_tflops"] = gf / (gqa["library_device_ms"] * 1e-3) / 1e12
+    out["flash_attention_fwd"]["gqa"] = gqa
+    print(f"phase 1: GQA flash (row 11G) {gf / 1e9:.1f} GFLOP / "
+          f"{gb / 1e6:.1f} MB at {gqa['shape']}: {json.dumps(gqa)}",
+          flush=True)
     flash, ssd = out["flash_attention_fwd"], out["ssd_scan"]
     if flash["device_ms"] is not None:
         # achieved rates of the tensor-core routes over the causal flops
@@ -2772,14 +2870,19 @@ def plain_routes():
         ops.flash_attention_fwd, ops.ssd_scan = saved
 
 
-def phase_serve(torch, device, seed: int) -> dict:
-    """Serve Zamba2-7B (81 slots, d_model 3584, bf16 weights drawn on the
-    device from `--seed`) through ServeEngine: per request, the prefill and
-    decode times and the launches of one prefill; then both requests
-    through `generate`, the counted main path; then, on a float32 copy of
-    the same weights, the kernels' prefill against the plain versions' and
-    one decode step against the full forward over S + 1 tokens."""
-    from repro_torch.configs import get_config
+def serve_model(torch, device, seed: int, label: str, cfg, requests,
+                per_prefill: dict, trace: bool = True, draw=None) -> dict:
+    """Serve `cfg` (bf16 weights drawn on the device from `seed`, then
+    `draw(model, generator)` if given) through ServeEngine: per request,
+    the prefill and decode times and the launches of one prefill, which
+    must be `per_prefill` ({kernel: launches}), every bf16 flash and SSD
+    launch on its tensor-core route; traces of one prefill and one decode
+    step of the batched request; then every request through `generate`,
+    the counted main path, and peak device memory; then, on a float32
+    copy of the same weights, the kernels' prefill against the plain
+    versions' and one decode step against the full forward over S + 1
+    tokens.  Returns the main path's launches of `per_prefill`'s
+    kernels."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ks
@@ -2787,8 +2890,14 @@ def phase_serve(torch, device, seed: int) -> dict:
     from repro_torch.serving import ServeEngine
 
     cuda = device.type == "cuda"
-    # the CPU rehearsal serves the smoke variant (same family and code path)
-    cfg = get_config("zamba2-7b" if cuda else "zamba2-7b-smoke")
+    kernels = tuple(per_prefill)
+    # every bf16 prefill launch of flash and of the SSD scan takes the
+    # tensor-core route
+    route_tables = {name: (routes, per_prefill[kernel])
+                    for name, kernel, routes in (
+                        ("flash", "flash_attention_fwd", kf.ROUTES),
+                        ("ssd", "ssd_scan", ks.ROUTES))
+                    if kernel in per_prefill}
 
     def sync():
         if cuda:
@@ -2798,34 +2907,39 @@ def phase_serve(torch, device, seed: int) -> dict:
         return float((a.float() - b.float()).abs().max()
                      / b.float().abs().max())
 
+    def reset_counts():
+        ops.reset_launch_counts()
+        for routes, _ in route_tables.values():
+            for r in routes:
+                routes[r] = 0
+
+    def check_routes(what: str, times: int) -> dict:
+        taken = {}
+        for name, (routes, n) in route_tables.items():
+            taken[name] = dict(routes)
+            want = {"tensor_core": n * times, "simt": 0}
+            if cuda and taken[name] != want:
+                fail(f"{label}: {what} took {name} routes {taken[name]}, "
+                     f"expected {want}")
+        return taken
+
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = lm.build_model(cfg, device,
-                           torch.Generator(device=device).manual_seed(seed))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = lm.build_model(cfg, device, gen)
+    if draw is not None:
+        draw(model, gen)
     sync()
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"phase 5: {cfg.name} ({cfg.n_layers} slots, d_model "
-          f"{cfg.d_model}, {n_params} parameters, {n_bytes} bytes) built on "
+    print(f"{label}: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv "
+          f"heads, {n_params} parameters, {n_bytes} bytes) built on "
           f"{device} in {time.perf_counter() - t0:.3f} s", flush=True)
     rng = np.random.default_rng(seed + 6)
     prompts = [rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
-               for b, s, _ in REQUESTS]
-    n_groups = cfg.n_layers // cfg.attn_every
-    per_prefill = {"flash_attention_fwd": n_groups,
-                   "ssd_scan": cfg.n_layers - n_groups}
-    # every bf16 prefill launch of flash and of the SSD scan takes the
-    # tensor-core route
-    routes_per_prefill = {"tensor_core": n_groups, "simt": 0}
-    ssd_routes_per_prefill = {"tensor_core": cfg.n_layers - n_groups,
-                              "simt": 0}
-
-    def reset_counts():
-        ops.reset_launch_counts()
-        for routes in (kf.ROUTES, ks.ROUTES):
-            for r in routes:
-                routes[r] = 0
+               for b, s, _ in requests]
 
     def prefill(toks, max_seq):
         return lm.prefill_fn(cfg, model, {"tokens": toks}, max_seq)
@@ -2835,7 +2949,7 @@ def phase_serve(torch, device, seed: int) -> dict:
         return (h[:, -1:] @ lm._unembed(cfg, model)).float()
 
     bf16_logits = []
-    for (b, s, new), prompt in zip(REQUESTS, prompts):
+    for (b, s, new), prompt in zip(requests, prompts):
         max_seq = s + new
         toks = torch.from_numpy(prompt).to(device)
         reset_counts()
@@ -2843,19 +2957,14 @@ def phase_serve(torch, device, seed: int) -> dict:
         logits, caches = prefill(toks, max_seq)
         sync()
         first_ms = (time.perf_counter() - t) * 1e3
-        counts = {k: ops.launch_counts()[k] for k in LM_KERNELS}
-        routes, ssd_routes = dict(kf.ROUTES), dict(ks.ROUTES)
+        counts = {k: ops.launch_counts()[k] for k in kernels}
         if cuda and counts != per_prefill:
-            fail(f"one prefill launched {counts}, expected {per_prefill}")
-        if cuda and routes != routes_per_prefill:
-            fail(f"one bf16 prefill took flash routes {routes}, expected "
-                 f"{routes_per_prefill}")
-        if cuda and ssd_routes != ssd_routes_per_prefill:
-            fail(f"one bf16 prefill took ssd routes {ssd_routes}, expected "
-                 f"{ssd_routes_per_prefill}")
+            fail(f"{label}: one prefill launched {counts}, expected "
+                 f"{per_prefill}")
+        routes = check_routes("one bf16 prefill", 1)
         if not (logits.shape == (b, 1, cfg.vocab)
                 and bool(torch.isfinite(logits).all())):
-            fail(f"prefill logits {tuple(logits.shape)} not finite")
+            fail(f"{label}: prefill logits {tuple(logits.shape)} not finite")
         with plain_routes():
             logits_plain, _ = prefill(toks, max_seq)
         t = time.perf_counter()
@@ -2874,32 +2983,31 @@ def phase_serve(torch, device, seed: int) -> dict:
                 first_dec = logits_d
             tok = torch.argmax(logits_d[:, -1], dim=-1)
         if not bool(torch.isfinite(logits_d).all()):
-            fail("decode logits not finite")
+            fail(f"{label}: decode logits not finite")
         first_tok = torch.argmax(logits[:, -1], dim=-1)
         full = full_forward_last(torch.cat([toks.long(), first_tok[:, None]],
                                            dim=1))
         bf16_logits.append((logits, logits_plain, first_dec, full))
-        print(f"phase 5: request {b} x {s} + {new}: prefill first "
+        print(f"{label}: request {b} x {s} + {new}: prefill first "
               f"{first_ms:.3f} ms, warm {warm_ms:.3f} ms "
               f"({b * s / warm_ms * 1e3:.1f} tokens/s); decode first step "
               f"{steps[0]:.3f} ms, warm {float(np.median(steps[1:])):.3f} "
               f"ms/step (median of {len(steps) - 1}); bf16 gaps: kernels vs "
               f"plain rel {rel(logits, logits_plain):.4g}, decode vs full "
               f"forward rel {rel(first_dec, full):.4g}; launches per "
-              f"prefill {json.dumps(counts)}, flash routes "
-              f"{json.dumps(routes)}, ssd routes {json.dumps(ssd_routes)}",
+              f"prefill {json.dumps(counts)}, routes {json.dumps(routes)}",
               flush=True)
-        if cuda and b == LM_BATCH:
-            traced(torch, device, f"phase 5: one prefill, {b} x {s}",
+        if cuda and trace and b == requests[0][0]:
+            traced(torch, device, f"{label}: one prefill, {b} x {s}",
                    lambda: prefill(toks, max_seq))
-            traced(torch, device, "phase 5: one warm decode step",
+            traced(torch, device, f"{label}: one warm decode step",
                    lambda: lm.decode_fn(cfg, model, tok[:, None], caches,
                                         s + DECODE_STEPS))
         del caches, logits_d
 
-    # the main path: both requests through ServeEngine.generate
+    # the main path: every request through ServeEngine.generate
     reset_counts()
-    for (b, s, new), prompt in zip(REQUESTS, prompts):
+    for (b, s, new), prompt in zip(requests, prompts):
         eng = ServeEngine(cfg, model, max_seq=s + new, temperature=0.0,
                           seed=seed)
         t = time.perf_counter()
@@ -2907,30 +3015,23 @@ def phase_serve(torch, device, seed: int) -> dict:
         gen_s = time.perf_counter() - t
         if not (out.shape == (b, new) and out.dtype == np.int32
                 and ((out >= 0) & (out < cfg.vocab)).all()):
-            fail(f"generate returned {out.shape} {out.dtype}")
-        print(f"phase 5: generate {b} x {s} + {new} tokens in {gen_s:.3f} s "
+            fail(f"{label}: generate returned {out.shape} {out.dtype}")
+        print(f"{label}: generate {b} x {s} + {new} tokens in {gen_s:.3f} s "
               f"({b * new / gen_s:.1f} new tokens/s incl. prefill); first "
               f"tokens {out[0, :8].tolist()}", flush=True)
-    launches = {k: ops.launch_counts()[k] for k in LM_KERNELS}
-    routes, ssd_routes = dict(kf.ROUTES), dict(ks.ROUTES)
-    want = {k: v * len(REQUESTS) for k, v in per_prefill.items()}
-    want_routes = {k: v * len(REQUESTS) for k, v in routes_per_prefill.items()}
-    want_ssd = {k: v * len(REQUESTS)
-                for k, v in ssd_routes_per_prefill.items()}
+    launches = {k: ops.launch_counts()[k] for k in kernels}
+    want = {k: v * len(requests) for k, v in per_prefill.items()}
     if cuda and launches != want:
-        fail(f"generate launched {launches}, expected {want}")
-    if cuda and routes != want_routes:
-        fail(f"generate took flash routes {routes}, expected {want_routes}")
-    if cuda and ssd_routes != want_ssd:
-        fail(f"generate took ssd routes {ssd_routes}, expected {want_ssd}")
+        fail(f"{label}: generate launched {launches}, expected {want}")
+    routes = check_routes("generate", len(requests))
     if cuda:
-        print(f"phase 5: peak device memory serving bf16 "
+        print(f"{label}: peak device memory serving bf16 "
               f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
 
     # consistency, on a float32 copy of the same weights
     model.float()
     for (b, s, new), prompt, (lk16, lp16, ld16, lf16) in zip(
-            REQUESTS, prompts, bf16_logits):
+            requests, prompts, bf16_logits):
         toks = torch.from_numpy(prompt).to(device)
         logits, caches = prefill(toks, s + new)
         with plain_routes():
@@ -2940,19 +3041,97 @@ def phase_serve(torch, device, seed: int) -> dict:
         del caches
         full = full_forward_last(torch.cat([toks.long(), tok[:, None]], dim=1))
         r_plain, r_dec = rel(logits, logits_plain), rel(logits_d, full)
-        print(f"phase 5: request {b} x {s}, float32 weights: kernels vs "
+        print(f"{label}: request {b} x {s}, float32 weights: kernels vs "
               f"plain rel {r_plain:.4g}, decode vs full forward rel "
               f"{r_dec:.4g}; the bf16 route's own rounding: plain bf16 vs "
               f"plain float32 rel {rel(lp16, logits_plain):.4g}, kernels "
               f"bf16 vs float32 rel {rel(lk16, logits):.4g}", flush=True)
         if not (r_plain < CONSISTENCY_REL and r_dec < CONSISTENCY_REL):
-            fail(f"float32 consistency beyond {CONSISTENCY_REL}: kernels vs "
-                 f"plain {r_plain}, decode vs full forward {r_dec}")
-    print(f"phase 5: main-path launches {json.dumps(launches)}, flash "
-          f"routes {json.dumps(routes)}, ssd routes {json.dumps(ssd_routes)}",
-          flush=True)
+            fail(f"{label}: float32 consistency beyond {CONSISTENCY_REL}: "
+                 f"kernels vs plain {r_plain}, decode vs full forward "
+                 f"{r_dec}")
+    print(f"{label}: main-path launches {json.dumps(launches)}, routes "
+          f"{json.dumps(routes)}", flush=True)
     del model
     return launches
+
+
+def phase_serve(torch, device, seed: int) -> dict:
+    """Phase 5: serve Zamba2-7B (81 slots, d_model 3584) at full size;
+    `serve_model` says what is timed and checked."""
+    from repro_torch.configs import get_config
+    # the CPU rehearsal serves the smoke variant (same family and code path)
+    cfg = get_config("zamba2-7b" if device.type == "cuda"
+                     else "zamba2-7b-smoke")
+    n_groups = cfg.n_layers // cfg.attn_every
+    return serve_model(torch, device, seed, "phase 5", cfg, REQUESTS,
+                       {"flash_attention_fwd": n_groups,
+                        "ssd_scan": cfg.n_layers - n_groups})
+
+
+# ---------------------------------------------------------------- phase 9
+
+# Yi-9B (arXiv:2403.04652) served at full width and depth on phase 5's
+# requests; the other three dense configurations at full width and 2
+# layers (the only cut), 1 x 1,000 prompt tokens + 8 new each
+DENSE_ARCH = "yi-9b"
+DENSE_COVER = ("phi3-medium-14b", "qwen2.5-3b", "starcoder2-15b")
+DENSE_COVER_LAYERS = 2
+DENSE_COVER_REQUESTS = ((1, 1000, 8),)
+
+
+def draw_biases_and_norms(model, gen) -> None:
+    """The parameters the reference initializes to constants (QKV biases,
+    the GELU MLP's biases, norm shifts to zero, norm scales to one) drawn
+    from `gen`: N(0, 0.1^2), scales 1 + N(0, 0.1^2), so that the bias and
+    LayerNorm paths compute with non-trivial values."""
+    import torch
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        norm = ".ln" in f".{name}" or name.startswith("final_norm")
+        if leaf in ("bq", "bk", "bv", "fc_b", "proj_b") or (
+                norm and leaf in ("w", "b")):
+            x = torch.randn(p.shape, generator=gen, device=p.device) * 0.1
+            p.data.copy_(x + (1.0 if leaf == "w" else 0.0))
+
+
+def phase_dense(torch, device, seed: int) -> dict:
+    """Phase 9: the dense family.  Yi-9B at full width and depth (48
+    layers, 32 heads over 4 kv heads of 128) through `serve_model` on
+    phase 5's requests: 48 `flash_attention_fwd` launches a prefill, all
+    on the tensor-core route; then Phi3-medium-14b (g = 4), Qwen2.5-3b (g =
+    8, QKV bias, tied embeddings) and StarCoder2-15b (g = 12, QKV bias,
+    LayerNorm, GELU) at full width and 2 layers, each on 1 x 1,000 + 8
+    tokens with its biases and norm parameters drawn from the seed.
+    Returns Yi-9B's main-path launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    # the CPU rehearsal serves the smoke variants (same family and path)
+    cfg = get_config(DENSE_ARCH if cuda else DENSE_ARCH + "-smoke")
+    launches = serve_model(torch, device, seed, "phase 9", cfg, REQUESTS,
+                           {"flash_attention_fwd": cfg.n_layers})
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    for arch in DENSE_COVER:
+        if cuda:
+            c = dataclasses.replace(get_config(arch),
+                                    n_layers=DENSE_COVER_LAYERS)
+        else:
+            c = get_config(arch + "-smoke")
+        serve_model(torch, device, seed, f"phase 9 ({arch}, "
+                    f"{c.n_layers} layers)", c, DENSE_COVER_REQUESTS,
+                    {"flash_attention_fwd": c.n_layers}, trace=False,
+                    draw=draw_biases_and_norms)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    print(f"phase 9: {time.perf_counter() - t_phase:.3f} s of wall, builds "
+          f"included", flush=True)
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2994,10 +3173,22 @@ def main() -> int:
                                 args.seed))
     launches.update(phase_search(torch, device, args.rows // 6, args.seed))
     launches.update(phase_serve(torch, device, args.seed))
+    # phase 5's model and caches are gone with its frame; release the
+    # allocator's cache before phase 9 builds Yi-9B
+    if device.type == "cuda":
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 9: device memory allocated {held} bytes after phase "
+              f"5, {torch.cuda.memory_allocated()} after its release "
+              f"({torch.cuda.memory_reserved()} reserved)", flush=True)
+    dense = phase_dense(torch, device, args.seed)
     if device.type == "cuda":
         idle = [k for k, v in launches.items() if v == 0]
         if idle:
             fail(f"kernels never launched on their main path: {idle}")
+        if not dense.get("flash_attention_fwd"):
+            fail(f"phase 9 never launched flash_attention_fwd: {dense}")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
         if name in SQL_KERNELS:
@@ -3005,6 +3196,9 @@ def main() -> int:
             rec["storage_launches"] = storage[name]
         if name in cluster:
             rec["cluster_launches"] = cluster[name]
+        if name in dense:
+            rec["dense_launches"] = dense[name]
+            rec["gqa"]["launches"] = dense[name]
     kernels["colscan"]["two_columns"]["launches"] = \
         sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \

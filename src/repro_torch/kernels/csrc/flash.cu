@@ -1,24 +1,31 @@
 // Causal flash attention, forward — the Hopper kernels behind
-// kernels/flash_attention.py (the hybrid family's shared-attention
-// prefill).
+// kernels/flash_attention.py (the prefill attention of the dense family's
+// every layer and of the hybrid family's shared block).
 //
 // Replaces: repro/kernels/flash_attention.py:flash_attention_fwd
 // (_flash_fwd_kernel).
 //
 // Computes o = softmax(q k^T / sqrt(hd)) v per (batch, head), with the
 // causal mask col <= row by absolute index, for q (B, H, S, hd) and k, v
-// (B, H, T, hd).  Scores, the running max m, the running denominator l and
-// the output accumulator are float32; the output is acc / max(l, 1e-30) in
-// q's dtype, as the reference kernel's finalize writes it.  Every operand
-// is read through its batch, head and sequence strides, so a (B, S, H, hd)
-// tensor seen as (B, H, S, hd) is not copied; any S and T (rows past S and
-// keys past T are masked).
+// (B, KV, T, hd) with H % KV == 0: grouped-query attention, query head h
+// reading kv head h / (H / KV) (KV == H is MHA).  k and v are never
+// repeated: the grid stays (query tiles, B * H), and the H / KV query heads
+// of one kv head are adjacent in blockIdx.y, so their blocks read the same
+// k / v tiles close together in time and L2 serves the repeats.  Scores,
+// the running max m, the running denominator l and the output accumulator
+// are float32; the output is acc / max(l, 1e-30) in q's dtype, as the
+// reference kernel's finalize writes it.  Every operand is read through
+// its batch, head and sequence strides, so a (B, S, H, hd) tensor seen as
+// (B, H, S, hd) is not copied; any S and T (rows past S and keys past T are
+// masked).
 //
 // What bounds it on an H100: operations.  Causal attention at Zamba2's
 // prefill shape (B=4, H=32, S=2048, hd=112) does 4 * B * H * hd * S(S+1)/2
 // = 120 GFLOP against 235 MB of q, k, v and o, 510 flops a byte: above the
 // card's bf16 ridge (989 TFLOP/s over 3.35 TB/s = 295 flops a byte), so the
-// bound is 0.12 ms at the bf16 tensor-core rate.
+// bound is 0.12 ms at the bf16 tensor-core rate.  At Yi-9B's (B=4, H=32
+// over KV=4, S=2048, hd=128) it does 137 GFLOP against 151 MB (q and o
+// 134 MB, k and v 17 MB read once): 0.139 ms, operation-bound.
 //
 // Two kernels; the wrapper picks one by dtype and head dim (route 1 for
 // bfloat16 with hd % 8 == 0, route 0 otherwise) and counts each route.
@@ -139,9 +146,9 @@ size_t smem_bytes(int hd) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int heads, int s_len,
-          int t_len, int hd, int causal, float scale, Strides qs, Strides ks,
-          Strides vs, Strides os) {
+          const T* __restrict__ v, T* __restrict__ o, int heads, int group,
+          int s_len, int t_len, int hd, int causal, float scale, Strides qs,
+          Strides ks, Strides vs, Strides os) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_qt = reinterpret_cast<T*>(smem_raw);            // [hd][kPitchT]
   T* s_kt = s_qt + hd * kPitchT;                       // [hd][kPitchT]
@@ -154,9 +161,10 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y - b * heads;
+  const int kvh = h / group;               // the query head's kv head
   const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + h * ks.h;
-  const T* vp = v + b * vs.b + h * vs.h;
+  const T* kp = k + b * ks.b + kvh * ks.h;
+  const T* vp = v + b * vs.b + kvh * vs.h;
   T* op = o + b * os.b + h * os.h;
   const T zero = from_f<T>(0.f);
 
@@ -528,8 +536,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap q_map,
              const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map, TmaCoords qc,
              TmaCoords kc, TmaCoords vc, __nv_bfloat16* __restrict__ o,
-             Strides os, int heads, int s_len, int t_len, int hd, int causal,
-             float scale_log2) {
+             Strides os, int heads, int group, int s_len, int t_len, int hd,
+             int causal, float scale_log2) {
   using Plan = TcPlan<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -543,6 +551,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap q_map,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y - b * heads;
+  const int kvh = h / group;               // the query head's kv head
   // consumer warpgroups that own at least one row, and the key tiles that
   // warpgroup g reads (causal: up to its last row's diagonal)
   const int groups = q0 + 64 < s_len ? 2 : 1;
@@ -579,9 +588,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(full, Plan::kStageBytes);
         for (int bx = 0; bx < Plan::kBoxes; ++bx) {
           tma_load(k_s + bx * kKBoxBytes, &k_map, full, kc, bx * kBoxCols,
-                   kt * kTcBK, h, b);
+                   kt * kTcBK, kvh, b);
           tma_load(k_s + Plan::kTileBytes + bx * kKBoxBytes, &v_map, full, vc,
-                   bx * kBoxCols, kt * kTcBK, h, b);
+                   bx * kBoxCols, kt * kTcBK, kvh, b);
         }
       }
     }
@@ -802,7 +811,7 @@ int encode_operand(CUtensorMap* map, TmaCoords* at, const void* ptr,
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
-              int h, int s, int t, int hd, int causal, Strides qs,
+              int h, int kv, int s, int t, int hd, int causal, Strides qs,
               Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   // set once, on the first (eager) call: a call inside a CUDA graph
   // capture sets nothing
@@ -813,15 +822,15 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
   CUtensorMap qm, km, vm;
   TmaCoords qc, kc, vc;
   int err = encode_operand(&qm, &qc, q, b, h, s, hd, qs, kTcBQ);
-  if (err == 0) err = encode_operand(&km, &kc, k, b, h, t, hd, ks, kTcBK);
-  if (err == 0) err = encode_operand(&vm, &vc, v, b, h, t, hd, vs, kTcBK);
+  if (err == 0) err = encode_operand(&km, &kc, k, b, kv, t, hd, ks, kTcBK);
+  if (err == 0) err = encode_operand(&vm, &vc, v, b, kv, t, hd, vs, kTcBK);
   if (err != 0) return err;
   const float scale_log2 =
       static_cast<float>(kLog2e / sqrt(static_cast<double>(hd)));
   const dim3 grid((s + kTcBQ - 1) / kTcBQ, b * h);
   flash_fwd_tc<HD><<<grid, kTcThreads, TcPlan<HD>::kSmem, stream>>>(
-      qm, km, vm, qc, kc, vc, static_cast<__nv_bfloat16*>(o), os, h, s, t,
-      hd, causal, scale_log2);
+      qm, km, vm, qc, kc, vc, static_cast<__nv_bfloat16*>(o), os, h, h / kv,
+      s, t, hd, causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -836,7 +845,7 @@ bool tma_ok(const void* p, Strides st, int b, int h, int rows) {
 
 template <typename T>
 int launch_simt(const void* q, const void* k, const void* v, void* o, int b,
-                int h, int s, int t, int hd, int causal, Strides qs,
+                int h, int kv, int s, int t, int hd, int causal, Strides qs,
                 Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(hd);
   // raise the kernel's dynamic shared-memory limit once, to the most any
@@ -849,51 +858,52 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((s + kBQ - 1) / kBQ, b * h);
   flash_fwd_simt<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h, s, t, hd, causal,
-      scale, qs, ks, vs, os);
+      static_cast<const T*>(v), static_cast<T*>(o), h, h / kv, s, t, hd,
+      causal, scale, qs, ks, vs, os);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // route 0: flash_fwd_simt (float32 or bfloat16); route 1: flash_fwd_tc
-// (bfloat16, hd % 8 == 0, TMA-legal bases and strides).  Strides are in
-// elements.  Returns a cudaError_t.
+// (bfloat16, hd % 8 == 0, TMA-legal bases and strides).  q has h heads, k
+// and v kv heads (h % kv == 0).  Strides are in elements.  Returns a
+// cudaError_t.
 extern "C" int shark_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
-    int route, int b, int h, int s, int t, int hd, int causal,
+    int route, int b, int h, int kv, int s, int t, int hd, int causal,
     long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss,
     void* stream) {
-  if (hd < 1 || hd > kMaxHd || s < 1 || t < 1 || b < 1 || h < 1
-      || static_cast<long long>(b) * h > 65535)
+  if (hd < 1 || hd > kMaxHd || s < 1 || t < 1 || b < 1 || h < 1 || kv < 1
+      || h % kv != 0 || static_cast<long long>(b) * h > 65535)
     return cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if (dtype != kBFloat16 || hd % 8 != 0 || !tma_ok(q, qs, b, h, s)
-        || !tma_ok(k, ks, b, h, t) || !tma_ok(v, vs, b, h, t)
+        || !tma_ok(k, ks, b, kv, t) || !tma_ok(v, vs, b, kv, t)
         || reinterpret_cast<uintptr_t>(o) % 4 != 0 || os.s % 2 != 0)
       return cudaErrorInvalidValue;
     if (hd <= 64)
-      return launch_tc<64>(q, k, v, o, b, h, s, t, hd, causal, qs, ks, vs,
-                           os, st);
+      return launch_tc<64>(q, k, v, o, b, h, kv, s, t, hd, causal, qs, ks,
+                           vs, os, st);
     if (hd <= 112)
-      return launch_tc<112>(q, k, v, o, b, h, s, t, hd, causal, qs, ks, vs,
-                            os, st);
-    return launch_tc<128>(q, k, v, o, b, h, s, t, hd, causal, qs, ks, vs,
-                          os, st);
+      return launch_tc<112>(q, k, v, o, b, h, kv, s, t, hd, causal, qs, ks,
+                            vs, os, st);
+    return launch_tc<128>(q, k, v, o, b, h, kv, s, t, hd, causal, qs, ks,
+                          vs, os, st);
   }
   if (route != 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case kFloat32:
-      return launch_simt<float>(q, k, v, o, b, h, s, t, hd, causal, qs, ks,
-                                vs, os, st);
+      return launch_simt<float>(q, k, v, o, b, h, kv, s, t, hd, causal, qs,
+                                ks, vs, os, st);
     case kBFloat16:
-      return launch_simt<__nv_bfloat16>(q, k, v, o, b, h, s, t, hd, causal,
-                                        qs, ks, vs, os, st);
+      return launch_simt<__nv_bfloat16>(q, k, v, o, b, h, kv, s, t, hd,
+                                        causal, qs, ks, vs, os, st);
     default:
       return cudaErrorInvalidValue;
   }

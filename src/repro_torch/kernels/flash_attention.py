@@ -1,10 +1,12 @@
-"""Causal flash attention, forward (the shared-attention prefill of the
-`hybrid` family).
+"""Causal flash attention, forward (the prefill attention of every `dense`
+layer and of the `hybrid` family's shared block).
 
 `flash_attention_fwd(q, k, v, causal)` returns `softmax(q k^T / sqrt(hd))
 v` with the causal mask `col <= row` (absolute indices), for q (B, H, S,
-hd) and k, v (B, H, T, hd) in the reference kernel's layout: MHA, one k/v
-head per query head (GQA callers repeat k/v heads first).  Scores,
+hd) and k, v (B, KV, T, hd) in the reference kernel's layout, with H a
+multiple of KV: grouped-query attention, query head h reading kv head
+h // (H // KV), the reference model's grouping (KV == H is MHA).  k and v
+are read as they are, never repeated; any other head count raises.  Scores,
 running max, running denominator and the output accumulator are float32;
 the output has q's dtype and is divided by `max(l, 1e-30)`, as the
 reference kernel's finalize does.  bfloat16 and float32 inputs; hd up to
@@ -18,15 +20,16 @@ counted in `ROUTES`:
 - `tensor_core`: bfloat16 with hd % 8 == 0 (hd <= 128) runs the TMA and
   wgmma kernel on the bf16 tensor cores, P rounded to bfloat16 before the
   P V product as flash kernels do.  TMA needs 16-byte aligned bases and
-  strides of a multiple of 8 elements: the wrapper raises on anything else
-  rather than copy.
+  strides of a multiple of 8 elements, checked on each operand's own
+  shape: the wrapper raises on anything else rather than copy.
 - `simt`: float32 (bf16 tensor cores would lose its 1e-4 tolerance, TF32
   keeps about three digits), and bfloat16 at any other hd, run the float32
   FMA kernel on the CUDA cores.
 Both take each operand's batch, head and sequence strides, so a (B, S, H,
 hd) tensor seen through `.transpose(1, 2)` needs no copy; the output is
 allocated in q's layout.  On CPU tensors the wrapper runs
-`flash_attention_fwd_plain`, the masked softmax in float32.
+`flash_attention_fwd_plain`, the masked softmax in float32 over the
+queries grouped by kv head.
 """
 
 from __future__ import annotations
@@ -54,30 +57,43 @@ def flash_route(dtype: torch.dtype, hd: int) -> str:
             else "simt")
 
 
+def _groups(q: torch.Tensor, k: torch.Tensor) -> int:
+    """Query heads per kv head; raises unless k's heads divide q's."""
+    h, kv = q.shape[1], k.shape[1]
+    if kv < 1 or h % kv:
+        raise ValueError(f"flash_attention_fwd groups query heads by kv "
+                         f"head: q's {h} heads are no multiple of k's {kv}")
+    return h // kv
+
+
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = True
                               ) -> torch.Tensor:
     """Plain PyTorch version (any device): the full masked softmax in
-    float32, cast to q's dtype."""
-    hd = q.shape[-1]
-    s, t = q.shape[2], k.shape[2]
-    qf = q.float() / math.sqrt(hd)
-    sc = torch.einsum("bhsd,bhtd->bhst", qf, k.float())
+    float32, cast to q's dtype.  GQA the reference model's way: q seen as
+    (B, KV, H / KV, S, hd) against the raw k and v."""
+    b, h, s, hd = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    g = _groups(q, k)
+    qf = q.float().reshape(b, kv, g, s, hd) / math.sqrt(hd)
+    sc = torch.einsum("bkgsd,bktd->bkgst", qf, k.float())
     if causal:
         mask = torch.ones(s, t, dtype=torch.bool, device=q.device).tril()
         sc = torch.where(mask, sc, torch.tensor(NEG_INF, device=q.device))
-    return torch.einsum("bhst,bhtd->bhsd", torch.softmax(sc, dim=-1),
-                        v.float()).to(q.dtype)
+    out = torch.einsum("bkgst,bktd->bkgsd", torch.softmax(sc, dim=-1),
+                       v.float())
+    return out.reshape(b, h, s, hd).to(q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention_fwd takes q (B, H, S, hd) and k, v "
-                         f"(B, H, T, hd); got {tuple(q.shape)}, "
+                         f"(B, KV, T, hd); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+    if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
-                         f"in batch, heads or head dim")
+                         f"in batch or head dim")
+    _groups(q, k)
     if not (q.dtype == k.dtype == v.dtype
             and q.dtype in (torch.bfloat16, torch.float32)):
         raise TypeError(f"q, k, v must share bfloat16 or float32, got "
@@ -116,14 +132,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd_plain(q, k, v, causal)
     _check(q, k, v)
     b, h, s, hd = (int(x) for x in q.shape)
-    t = int(k.shape[2])
+    kv, t = int(k.shape[1]), int(k.shape[2])
     route = flash_route(q.dtype, hd)
     if route == "tensor_core":
         _check_tma(q, k, v)
     out = torch.empty_like(q)      # q's layout when dense, else contiguous
     rc = _build.kernel_fn("flash")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.dtype_code(q), _ROUTE_CODES[route], b, h, s, t, hd,
+        _build.dtype_code(q), _ROUTE_CODES[route], b, h, kv, s, t, hd,
         int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], _build.stream_handle(q.device))
     _build.check_launch("flash_attention_fwd", rc)

@@ -132,8 +132,9 @@ def train_grad(x, y, w, kind: str = "logistic") -> torch.Tensor:
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Causal attention forward, q (B, H, S, hd), k, v (B, H, T, hd), MHA;
-    float32 softmax, output in q's dtype (the hybrid prefill's attention)."""
+    """Causal attention forward, q (B, H, S, hd), k, v (B, KV, T, hd), H a
+    multiple of KV (GQA; KV == H is MHA); float32 softmax, output in q's
+    dtype (the dense and hybrid prefills' attention)."""
     return _fa.flash_attention_fwd(q, k, v, causal)
 
 

@@ -4,9 +4,11 @@
         --batch 4 --prompt-len 32 --new-tokens 32 [--device cpu]
 
 It runs on the card unless `--device cpu` is given, and raises without
-one.  The port runs the `ssm` and `hybrid` families (zamba2-7b,
-mamba2-370m and their `-smoke` variants); weights are random, drawn from
-seed 0, as the reference's CLI draws them.
+one.  The port runs the `dense` family (phi3-medium-14b, yi-9b,
+qwen2.5-3b, starcoder2-15b), the `ssm` family (mamba2-370m) and the
+`hybrid` family (zamba2-7b), and their `-smoke` variants (`--arch
+yi-9b-smoke --device cpu` serves on the CPU); weights are random, drawn
+from seed 0, as the reference's CLI draws them.
 """
 
 from __future__ import annotations

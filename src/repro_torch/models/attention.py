@@ -1,13 +1,16 @@
-"""GQA self-attention (RoPE, optional QKV bias): prefill and decode.
+"""GQA self-attention (RoPE, optional QKV bias): prefill and decode, for
+every `dense` layer and the `hybrid` family's shared block.
 
 Prefill runs causal attention through `kernels.ops.flash_attention_fwd`:
 the hand-written kernel (`kernels/csrc/flash.cu`) on the card, its plain
-masked softmax on the CPU.  `_blockwise_attention` is the reference's
-route (an online softmax over KV chunks in plain torch) and the port's
-oracle for it.  Decode attends one query against the KV cache with a
-length mask, in plain torch, writing the new k/v into the preallocated
-cache in place.  MLA, cross-attention and the int8 cache wait (ROADMAP
-A.5).
+masked softmax on the CPU.  Neither repeats k/v heads: the kernel reads
+kv head h // (H // KV) for query head h, and the plain version groups the
+queries by kv head, as the reference does.  `_blockwise_attention` is the
+reference's route (an online softmax over KV chunks in plain torch) and
+the port's oracle for it.  Decode attends one query against the KV cache
+with a length mask, in plain torch, writing the new k/v into the
+preallocated cache in place.  MLA, cross-attention and the int8 cache
+wait (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -127,14 +130,11 @@ def self_attention(p: GQA, x: torch.Tensor, positions: torch.Tensor,
     if rope_theta > 0:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    kh, vh = k, v
-    if n_kv != n_heads:   # the kernel is MHA: repeat each kv head
-        kh = k.repeat_interleave(n_heads // n_kv, dim=2)
-        vh = v.repeat_interleave(n_heads // n_kv, dim=2)
-    # (B,S,H,hd) seen as (B,H,S,hd): the kernel reads the strides, and its
-    # output comes back in q's layout, so the transpose copies nothing
-    out = ops.flash_attention_fwd(q.transpose(1, 2), kh.transpose(1, 2),
-                                  vh.transpose(1, 2), causal).transpose(1, 2)
+    # (B,S,H,hd) seen as (B,H,S,hd), k and v as (B,KV,T,hd): the kernel
+    # reads the strides and groups the query heads by kv head, and its
+    # output comes back in q's layout, so nothing is copied or repeated
+    out = ops.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal).transpose(1, 2)
     y = out.reshape(b, s, n_heads * head_dim) @ p.wo
     if return_kv:
         return y, (k, v)

@@ -6,7 +6,8 @@ caller makes them with `jax.tree.map(np.asarray, params)` — unstacks the
 leading layer axes onto the port's per-layer modules, and loads the result
 into `model`, taking each array's dtype.  Names map one to one:
 `{"group_mamba": {"mamba": {"in_proj": (G, n, d, o)}}}` becomes
-`group_mamba.<g>.<i>.mamba.in_proj`.
+`group_mamba.<g>.<i>.mamba.in_proj`, and a dense tree's
+`{"layers": {"ln1": {"w": (L, d)}}}` becomes `layers.<i>.ln1.w`.
 
 numpy gives JAX's bfloat16 arrays the `ml_dtypes` bfloat16 dtype, which
 `torch.from_numpy` refuses; such an array crosses as its uint16 bits and
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .lm import FAMILIES, LM
+from .lm import LM, check_ported
 
 # reference tree keys whose arrays carry stacked leading layer axes
 STACKED_AXES = {"layers": 1, "group_mamba": 2, "tail_mamba": 1}
@@ -49,9 +50,7 @@ def _leaves(tree, path: Tuple[str, ...] = ()
 def state_from_jax(np_params: dict, cfg: ModelConfig
                    ) -> Dict[str, torch.Tensor]:
     """The port's state dict (CPU tensors) of a reference parameter tree."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
-                                  f"see ROADMAP A.5")
+    check_ported(cfg)
     state = {}
     for (top, *rest), arr in _leaves(np_params):
         lead = STACKED_AXES.get(top, 0)

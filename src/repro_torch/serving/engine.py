@@ -1,7 +1,9 @@
 """Batched serving engine: prefill, then one decode step per new token
 against caches allocated at `max_seq`, with greedy or temperature
-sampling.  It computes on the model's device (the card unless the model
-was built on the CPU); the sampled tokens stay there until the end."""
+sampling, for every family `models/lm.py` builds (dense: phi3-medium-14b,
+yi-9b, qwen2.5-3b, starcoder2-15b; ssm: mamba2-370m; hybrid: zamba2-7b).
+It computes on the model's device (the card unless the model was built on
+the CPU); the sampled tokens stay there until the end."""
 
 from __future__ import annotations
 

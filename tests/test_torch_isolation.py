@@ -31,6 +31,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.models, repro_torch.models.lm\n"
         "import repro_torch.models.convert, repro_torch.models.flash\n"
         "import repro_torch.configs, repro_torch.serving\n"
+        "import repro_torch.configs.yi_9b, repro_torch.configs.qwen2_5_3b\n"
+        "import repro_torch.configs.phi3_medium_14b\n"
+        "import repro_torch.configs.starcoder2_15b\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.server, repro_torch.server.memory\n"
         "import repro_torch.core.storage\n"
@@ -117,9 +120,12 @@ def test_unported_paths_raise(tmp_path):
     srv = SharkServer(device="cpu", mesh=mesh)
     assert srv.make_executor().mesh is mesh
     srv.shutdown()
-    # an LM family the port does not run yet raises
+    # the dense family is ported; an LM family the port does not run yet
+    # raises
+    assert len(build_model(get_config("yi-9b-smoke"), device="cpu").layers) \
+        == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("yi-9b-smoke"), device="cpu")
+        build_model(get_config("phi3.5-moe-42b-a6.6b-smoke"), device="cpu")
 
 
 def test_cpu_session_trains_on_the_cpu():

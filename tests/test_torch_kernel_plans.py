@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import REGISTRY
 from repro_torch.kernels import _build
 from repro_torch.kernels import colscan as tcs
 from repro_torch.kernels import dictdecode as tdd
@@ -52,6 +53,42 @@ def test_flash_routes_are_counted_only_on_the_card():
     tfa.flash_attention_fwd(q, q, q)
     assert tfa.ROUTES == before
     assert set(tfa.ROUTES) == {"tensor_core", "simt"}
+
+
+ATTENTION_CONFIGS = sorted(
+    n for n, c in REGISTRY.items() if c.family in ("dense", "hybrid"))
+
+
+def test_attention_configs_cover_the_dense_and_hybrid_families():
+    assert ATTENTION_CONFIGS == ["phi3-medium-14b", "qwen2.5-3b",
+                                 "starcoder2-15b", "yi-9b", "zamba2-7b"]
+
+
+@pytest.mark.parametrize("name", ATTENTION_CONFIGS)
+def test_attention_configs_group_and_take_the_tensor_cores(name):
+    """Every registered dense and hybrid configuration hands kernel 11
+    whole groups of query heads (n_heads % n_kv_heads == 0) and a head dim
+    that takes the tensor-core route in bfloat16 (the dense four: 128)."""
+    cfg = REGISTRY[name]
+    assert cfg.n_heads % cfg.n_kv_heads == 0
+    assert cfg.hd <= tfa.MAX_HEAD_DIM
+    assert tfa.flash_route(torch.bfloat16, cfg.hd) == "tensor_core"
+    if cfg.family == "dense":
+        assert cfg.hd == 128 and cfg.n_kv_heads < cfg.n_heads
+
+
+def test_check_tma_checks_k_and_v_on_their_own_shapes():
+    """GQA: q (B, H, S, hd) and k, v (B, KV, T, hd) in the model's strided
+    layout pass; a k whose own row stride is off eight raises even though
+    q's is legal."""
+    q = torch.zeros(2, 100, 32, 128, dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.zeros(2, 100, 4, 128, dtype=torch.bfloat16).transpose(1, 2)
+    tfa._check(q, kv, kv)
+    tfa._check_tma(q, kv, kv)
+    wide = torch.zeros(2, 100, 4 * 128 + 4, dtype=torch.bfloat16)
+    odd = wide[..., :4 * 128].view(2, 100, 4, 128).transpose(1, 2)
+    with pytest.raises(ValueError, match="k's stride"):
+        tfa._check_tma(q, odd, kv)
 
 
 def test_check_tma_takes_the_models_strided_view():
@@ -171,11 +208,11 @@ def test_dtype_codes_keyed_by_torch_dtype():
 
 def test_build_signatures_match_the_wrappers():
     """The bound argument counts of the redesigned entry points: flash
-    takes a route code; group takes codes, values, n, G, its plan word,
+    takes a route code and the kv head count; group takes codes, values, n, G, its plan word,
     the output (scratch follows it) and the stream; ssd takes a route code
     and a nullable D; decode takes input, table, output, n, table length,
     its plan word and the stream."""
-    assert len(_build.SIGNATURES["flash"][1]) == 25
+    assert len(_build.SIGNATURES["flash"][1]) == 26
     assert len(_build.SIGNATURES["group"][1]) == 7
     assert len(_build.SIGNATURES["ssd"][1]) == 22
     assert len(_build.SIGNATURES["decode"][1]) == 7

@@ -666,6 +666,112 @@ def test_cuda_flash_raises_on_what_its_routes_cannot_take():
         tfa.flash_attention_fwd(shifted, shifted, shifted)
 
 
+def _gqa_inputs(rng, b, s, h, n_kv, hd, dt):
+    """q (B, H, S, hd) and k, v (B, KV, S, hd) on the card in the model's
+    layout, each kv head's values offset from the others' (k by 0.5, v by
+    3 a head), so that a query head reading a wrong kv head cannot pass."""
+    q = _t(rng.normal(size=(b, s, h, hd))).to(dt).cuda().transpose(1, 2)
+    k = _t(rng.normal(size=(b, s, n_kv, hd))
+           + 0.5 * np.arange(n_kv)[:, None]).to(dt).cuda().transpose(1, 2)
+    v = _t(rng.normal(size=(b, s, n_kv, hd))
+           + 3.0 * np.arange(n_kv)[:, None]).to(dt).cuda().transpose(1, 2)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("g", [1, 4, 8, 12])
+@pytest.mark.parametrize("s", [65, 1000, 2048])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_flash_gqa_routes_match_plain(dtype, g, s, hd):
+    """Grouped-query attention on both routes: q with 2g heads over k and
+    v with 2 kv heads, causal and not, against the plain version (rel max
+    error < 0.03 in bfloat16, < 1e-4 in float32); the output in q's
+    layout; one kernel a call, k and v never repeated."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(g * 100 + s + hd)
+    q, k, v = _gqa_inputs(rng, 2, s, 2 * g, 2, hd, dt)
+    route = "tensor_core" if dt == torch.bfloat16 else "simt"
+    for causal in (True, False):
+        before = dict(tfa.ROUTES)
+        got = tfa.flash_attention_fwd(q, k, v, causal)
+        assert tfa.ROUTES[route] == before[route] + 1
+        assert got.shape == q.shape and got.stride() == q.stride()
+        want = tfa.flash_attention_fwd_plain(q, k, v, causal).float()
+        rel = float((got.float() - want).abs().max() / want.abs().max())
+        assert rel < (0.03 if dt == torch.bfloat16 else 1e-4), (causal, rel)
+    assert graph_nodes(lambda: tfa.flash_attention_fwd(q, k, v)) \
+        == {"kernel": 1}
+
+
+# csrc/flash.cu's kv-head indexing, and the query-head indexing of the MHA
+# kernel it replaced: with them swapped back, the source computes what the
+# kernel computed before it took KV heads
+MHA_INDEXING = (
+    ("const T* kp = k + b * ks.b + kvh * ks.h;",
+     "const T* kp = k + b * ks.b + h * ks.h;", 1),
+    ("const T* vp = v + b * vs.b + kvh * vs.h;",
+     "const T* vp = v + b * vs.b + h * vs.h;", 1),
+    ("kt * kTcBK, kvh, b);", "kt * kTcBK, h, b);", 2),
+    ("encode_operand(&km, &kc, k, b, kv, t,",
+     "encode_operand(&km, &kc, k, b, h, t,", 1),
+    ("encode_operand(&vm, &vc, v, b, kv, t,",
+     "encode_operand(&vm, &vc, v, b, h, t,", 1),
+    ("!tma_ok(k, ks, b, kv, t) || !tma_ok(v, vs, b, kv, t)",
+     "!tma_ok(k, ks, b, h, t) || !tma_ok(v, vs, b, h, t)", 1),
+)
+
+
+def _mha_flash_library():
+    """csrc/flash.cu with MHA_INDEXING swapped back, built with the
+    package's nvcc flags beside the kernels; its entry point bound with
+    the same signature."""
+    import ctypes
+    import subprocess
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "flash.cu").read_text()
+    for gqa, mha, count in MHA_INDEXING:
+        assert src.count(gqa) == count, (
+            f"csrc/flash.cu changed: {gqa!r} not found {count} times; "
+            f"update MHA_INDEXING")
+        src = src.replace(gqa, mha)
+    out = _build.build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / "test_flash_mha.cu", out / "test_flash_mha.so"
+    cu.write_text(src)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(cu)], check=True, capture_output=True)
+    fn = getattr(ctypes.CDLL(str(so)), _build.SIGNATURES["flash"][0])
+    fn.argtypes, fn.restype = _build.SIGNATURES["flash"][1], ctypes.c_int
+    return fn
+
+
+@pytest.mark.cuda
+def test_cuda_flash_mha_is_bit_identical_to_the_mha_kernel():
+    """KV == H: the GQA kernel gives the same bits as the kernel with
+    query-head indexing (MHA_INDEXING) at Zamba2-7B's prefill shape (4,
+    32, 2048, 112) in bfloat16 on the tensor-core route, and at a ragged
+    float32 shape on the SIMT route, both in the model's layout."""
+    from repro_torch.kernels import _build
+    _cuda_or_skip()
+    mha = _mha_flash_library()
+    rng = np.random.default_rng(11)
+    for (b, h, s, hd), dt in (((4, 32, 2048, 112), torch.bfloat16),
+                              ((2, 8, 1000, 112), torch.float32)):
+        q, k, v = _flash_inputs(rng, b, s, h, hd, dt, "model")
+        got = tfa.flash_attention_fwd(q, k, v)
+        want = torch.empty_like(q)
+        route = tfa._ROUTE_CODES[tfa.flash_route(dt, hd)]
+        rc = mha(q.data_ptr(), k.data_ptr(), v.data_ptr(), want.data_ptr(),
+                 _build.dtype_code(q), route, b, h, h, s, s, hd, 1,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *want.stride()[:3], _build.stream_handle(q.device))
+        assert rc == 0
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, h, s, hd, dt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [1, 7, 50, 1024])
 @pytest.mark.parametrize("code_dtype", ["int32", "int64"])

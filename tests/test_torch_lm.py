@@ -1,12 +1,17 @@
-"""The port's LM serving path (`ssm` and `hybrid` families) against the JAX
-reference, at smoke size on the CPU.
+"""The port's LM serving path (`dense`, `ssm` and `hybrid` families)
+against the JAX reference, at smoke size on the CPU.
 
 The reference's parameters (`lm.init_params`) are carried into the port by
 `models/convert.params_from_jax`; the same numpy tokens, made from a seed,
-go to both.  Three configurations: `zamba2-7b-smoke` (2 groups of 1 shared
+go to both.  Configurations: `zamba2-7b-smoke` (2 groups of 1 shared
 attention + 3 Mamba2 blocks, no tail), a tail variant of it (n_layers=10,
-attn_every=4: 2 groups and 2 tail blocks, as the full model has a tail)
-and `mamba2-370m-smoke`.
+attn_every=4: 2 groups and 2 tail blocks, as the full model has a tail),
+`mamba2-370m-smoke`, the four dense smoke variants (each with one kv head,
+`smoke_variant`'s rule) and `yi-9b-gqa`, yi-9b-smoke with 8 query heads
+over 2 kv heads, so that grouped-query attention runs with real groups.
+The reference inits QKV biases, LayerNorm shifts and the GELU MLP's
+biases to zero and LayerNorm scales to one; the bias tests draw those
+leaves from a seed on the reference's tree before conversion.
 
 Tolerances, relative to the reference tensor's max magnitude:
 - float32 weights (every bf16 leaf cast to float32 on both sides): prefill
@@ -40,11 +45,18 @@ VARIANTS = {
     "zamba2-7b-smoke": {},
     "zamba2-tail": dict(n_layers=10, attn_every=4),
     "mamba2-370m-smoke": {},
+    "yi-9b-smoke": {},
+    "phi3-medium-14b-smoke": {},
+    "qwen2.5-3b-smoke": {},
+    "starcoder2-15b-smoke": {},
+    "yi-9b-gqa": dict(n_heads=8, n_kv_heads=2),
 }
+# the registry configuration each variant changes
+BASES = {"zamba2-tail": "zamba2-7b-smoke", "yi-9b-gqa": "yi-9b-smoke"}
 
 
 def _configs(variant, ngroups=1):
-    name = "zamba2-7b-smoke" if variant == "zamba2-tail" else variant
+    name = BASES.get(variant, variant)
     kw = VARIANTS[variant]
 
     def make(c):
@@ -56,9 +68,29 @@ def _configs(variant, ngroups=1):
     return make(jget_config(name)), make(get_config(name))
 
 
-def _models(variant, dtype, seed=0, ngroups=1):
+def _draw_zero_inits(params, seed):
+    """The reference's constant-initialized leaves drawn from `seed`: QKV
+    biases and the GELU MLP's biases N(0, 0.1^2), LayerNorm scales 1 + N(0,
+    0.1^2) and shifts N(0, 0.1^2), each in its own dtype."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        key = path[-1].key
+        if key not in ("bq", "bk", "bv", "fc_b", "proj_b", "w", "b"):
+            return a
+        if key == "w" and not (path[-2].key.startswith("ln")
+                               or path[-2].key == "final_norm"):
+            return a
+        x = rng.normal(scale=0.1, size=a.shape).astype(np.float32)
+        return jnp.asarray(x + (1.0 if key == "w" else 0.0), a.dtype)
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
+def _models(variant, dtype, seed=0, ngroups=1, biases=False):
     jcfg, cfg = _configs(variant, ngroups)
     params, _ = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
+    if biases:
+        params = _draw_zero_inits(params, seed + 100)
     if dtype == "float32":
         params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
     model = convert.params_from_jax(jax.tree.map(np.asarray, params), cfg,
@@ -87,11 +119,9 @@ def test_registry_matches_reference(name, smoke):
     assert sorted(REGISTRY) == sorted(JREGISTRY)
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_prefill_caches_and_decode_match_reference(variant, dtype):
-    jcfg, cfg, params, model = _models(variant, dtype)
-    toks = _tokens(cfg, 1)
+def _match_prefill_and_decode(jcfg, cfg, params, model, dtype, toks):
+    """Prefill logits, every cache tensor and three decode steps' logits
+    of the port against the reference's, at the file's tolerances."""
     tol = 1e-4 if dtype == "float32" else 3e-2
 
     def jrun():
@@ -124,6 +154,42 @@ def test_prefill_caches_and_decode_match_reference(variant, dtype):
                                       torch.from_numpy(tok)[:, None], caches,
                                       S + i)
         assert _rel(logits, want[i + 1][0]) < tol, i
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_caches_and_decode_match_reference(variant, dtype):
+    jcfg, cfg, params, model = _models(variant, dtype)
+    _match_prefill_and_decode(jcfg, cfg, params, model, dtype,
+                              _tokens(cfg, 1))
+
+
+@pytest.mark.parametrize("variant", ["qwen2.5-3b-smoke",
+                                     "starcoder2-15b-smoke"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_drawn_biases_and_norms_match_reference(variant, dtype):
+    """Qwen2.5's QKV biases, StarCoder2's QKV biases, LayerNorm scales and
+    shifts and GELU MLP biases, drawn from a seed (not the zero / one
+    init), through prefill, the caches and three decode steps; in float32
+    `generate`'s greedy tokens too."""
+    jcfg, cfg, params, model = _models(variant, dtype, seed=12, biases=True)
+    assert cfg.qkv_bias
+    drawn = [float(np.abs(np.asarray(a, np.float32)).min())
+             for a in (params["layers"]["attn"]["bq"],
+                       params["layers"]["attn"]["bv"])]
+    assert min(drawn) > 0
+    if cfg.norm == "ln":
+        assert float(np.abs(np.asarray(params["layers"]["ln1"]["b"])).max()) \
+            > 0
+        assert float(np.abs(np.asarray(params["layers"]["mlp"]["fc_b"],
+                                       np.float32)).max()) > 0
+    _match_prefill_and_decode(jcfg, cfg, params, model, dtype,
+                              _tokens(cfg, 13))
+    if dtype == "float32":
+        toks = _tokens(cfg, 14)
+        want = JServeEngine(jcfg, params, max_seq=S + NEW).generate(toks, NEW)
+        got = ServeEngine(cfg, model, max_seq=S + NEW).generate(toks, NEW)
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("variant", ["mamba2-370m-smoke", "zamba2-7b-smoke"])
@@ -225,14 +291,9 @@ def test_short_prompt_fills_the_conv_cache_tail():
     assert _rel(logits_d, full.numpy()) < 1e-4
 
 
-def test_build_model_draws_the_reference_init():
-    """Each leaf has the reference's shape and dtype, and its draws the
-    reference's distribution: constants exact, and the standard deviations
-    of the two draws within 5 / sqrt(n) of each other, relative (each
-    estimate's relative standard error is about 1 / sqrt(2n))."""
-    cfg = get_config("zamba2-7b-smoke")
-    jparams, _ = jlm.init_params(jget_config("zamba2-7b-smoke"),
-                                 jax.random.PRNGKey(0))
+def _draws_the_reference_init(name):
+    cfg = get_config(name)
+    jparams, _ = jlm.init_params(jget_config(name), jax.random.PRNGKey(0))
     want = convert.state_from_jax(jax.tree.map(np.asarray, jparams), cfg)
     model = lm.build_model(cfg, "cpu", torch.Generator().manual_seed(0))
     got = model.state_dict()
@@ -247,6 +308,23 @@ def test_build_model_draws_the_reference_init():
             assert abs(float(g.std()) / float(w.std()) - 1) < tol, k
 
 
+def test_build_model_draws_the_reference_init():
+    """Each leaf has the reference's shape and dtype, and its draws the
+    reference's distribution: constants exact, and the standard deviations
+    of the two draws within 5 / sqrt(n) of each other, relative (each
+    estimate's relative standard error is about 1 / sqrt(2n))."""
+    _draws_the_reference_init("zamba2-7b-smoke")
+
+
+@pytest.mark.parametrize("name", ["yi-9b-smoke", "qwen2.5-3b-smoke",
+                                  "starcoder2-15b-smoke"])
+def test_build_model_draws_the_reference_init_dense(name):
+    """The same for dense trees: RMSNorm and SwiGLU with an lm_head (Yi),
+    QKV biases and tied embeddings (Qwen2.5), LayerNorm, GELU and QKV
+    biases (StarCoder2)."""
+    _draws_the_reference_init(name)
+
+
 def test_converter_carries_bfloat16_bits():
     x = jnp.asarray(np.random.default_rng(0).normal(size=(3, 5)),
                     jnp.bfloat16)
@@ -258,7 +336,8 @@ def test_converter_carries_bfloat16_bits():
                                   np.asarray(x, np.float32))
 
 
-@pytest.mark.parametrize("name", ["yi-9b-smoke", "phi3.5-moe-42b-a6.6b",
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "phi3.5-moe-42b-a6.6b",
                                   "llama-3.2-vision-11b", "whisper-base"])
 def test_unported_families_raise_when_built(name):
     cfg = get_config(name)            # looking a config up works
@@ -266,9 +345,33 @@ def test_unported_families_raise_when_built(name):
         lm.build_model(cfg, "cpu")
 
 
+@pytest.mark.parametrize("kw", [dict(kv_cache_quant=True),
+                                dict(attn_scores_dtype="bf16")])
+def test_dense_options_not_ported_raise(kw):
+    """A dense configuration asking for the int8 KV cache or bf16 scores
+    raises, when built and when served by a model built without it,
+    rather than compute another function."""
+    cfg = dataclasses.replace(get_config("yi-9b-smoke"), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+        lm.build_model(cfg, "cpu")
+    model = lm.build_model(get_config("yi-9b-smoke"), "cpu")
+    toks = torch.from_numpy(_tokens(cfg, 15))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+        lm.prefill_fn(cfg, model, {"tokens": toks}, MAXS)
+
+
 def test_cli_serves_on_the_cpu(capsys):
     from repro_torch.launch import serve
     out = serve.main(["--arch", "zamba2-7b-smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "9",
+                      "--new-tokens", "3"])
+    assert out.shape == (2, 3) and out.dtype == np.int32
+    assert "on cpu" in capsys.readouterr().out
+
+
+def test_cli_serves_a_dense_arch_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", "yi-9b-smoke", "--device", "cpu",
                       "--batch", "2", "--prompt-len", "9",
                       "--new-tokens", "3"])
     assert out.shape == (2, 3) and out.dtype == np.int32

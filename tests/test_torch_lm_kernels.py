@@ -92,6 +92,86 @@ def test_flash_plain_ragged_matches_reference_blockwise(s, hd, dtype):
     assert rel < (0.03 if dtype == "bfloat16" else 1e-4), rel
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 12])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_plain_gqa_matches_reference_kernel(causal, g, dtype):
+    """Grouped-query attention: the plain version takes k and v with KV
+    heads (query head h reads kv head h // g) and equals the reference's
+    Pallas kernel fed k and v repeated g times on the reference side only
+    (the kernel is MHA; the reference model groups its queries instead)."""
+    rng = np.random.default_rng(100 + g)
+    b, n_kv, s, hd = 1, 2, 128, 32
+    h = n_kv * g
+    jq, tq = _pair(rng.normal(size=(b, h, s, hd)), dtype)
+    # each kv head offset apart, so that a wrong head cannot pass
+    off = 3.0 * np.arange(n_kv)[None, :, None, None]
+    jk, tk = _pair(rng.normal(size=(b, n_kv, s, hd)), dtype)
+    jv, tv = _pair(rng.normal(size=(b, n_kv, s, hd)) + off, dtype)
+    want = jflash(jq, jnp.repeat(jk, g, axis=1), jnp.repeat(jv, g, axis=1),
+                  causal, 64, 64, interpret=True)
+    got = tfa.flash_attention_fwd_plain(tq, tk, tv, causal)
+    assert got.dtype == TORCH_DTYPES[dtype] and got.shape == (b, h, s, hd)
+    rel = _rel(_np(got), want)
+    assert rel < (0.03 if dtype == "bfloat16" else 1e-4), rel
+    assert torch.equal(tops.flash_attention_fwd(tq, tk, tv, causal), got)
+
+
+@pytest.mark.parametrize("s,g", [(77, 2), (300, 8), (1000, 12)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_plain_gqa_ragged_matches_reference_blockwise(s, g, dtype):
+    """GQA at a ragged S against the reference model's
+    `_blockwise_attention`, which groups its queries by kv head and never
+    repeats k/v."""
+    rng = np.random.default_rng(s + g)
+    b, n_kv, hd = 1, 2, 64
+    h = n_kv * g
+    off = 3.0 * np.arange(n_kv)[None, None, :, None]
+    jq, tq = _pair(rng.normal(size=(b, s, h, hd)), dtype)
+    jk, tk = _pair(rng.normal(size=(b, s, n_kv, hd)), dtype)
+    jv, tv = _pair(rng.normal(size=(b, s, n_kv, hd)) + off, dtype)
+    pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], (b, s))
+    want = jatt._blockwise_attention(jq, jk, jv, pos, 256, True)
+    got = tfa.flash_attention_fwd_plain(tq.transpose(1, 2),
+                                        tk.transpose(1, 2),
+                                        tv.transpose(1, 2)).transpose(1, 2)
+    rel = _rel(_np(got), want)
+    assert rel < (0.03 if dtype == "bfloat16" else 1e-4), rel
+
+
+@pytest.mark.parametrize("h,n_kv", [(6, 4), (8, 3), (4, 8)])
+def test_flash_raises_unless_kv_heads_divide_query_heads(h, n_kv):
+    """k's heads must divide q's (the wrapper's check and its plain
+    version's); nothing is repeated or truncated to make them fit."""
+    q = torch.zeros(1, h, 16, 32)
+    kv = torch.zeros(1, n_kv, 16, 32)
+    with pytest.raises(ValueError, match="multiple"):
+        tops.flash_attention_fwd(q, kv, kv)
+    with pytest.raises(ValueError, match="multiple"):
+        tfa._check(q.bfloat16(), kv.bfloat16(), kv.bfloat16())
+
+
+def test_model_attention_passes_kv_heads_unrepeated(monkeypatch):
+    """`self_attention` hands the kernel k and v with KV heads, in the
+    model's (B, S, KV, hd) storage seen as (B, KV, S, hd): no repeat and
+    no copy."""
+    seen = []
+
+    def spy(q, k, v, causal=True):
+        seen.append((tuple(q.shape), tuple(k.shape), k.is_contiguous()))
+        return tfa.flash_attention_fwd_plain(q, k, v, causal)
+
+    monkeypatch.setattr(tops, "flash_attention_fwd", spy)
+    p = tatt.GQA(64, 8, 2, 16, device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 10, 64, generator=torch.Generator().manual_seed(1)) \
+        .bfloat16()
+    pos = torch.arange(10, dtype=torch.int32)[None].expand(2, 10)
+    y = tatt.self_attention(p, x, pos, 8, 2, 16, 10000.0)
+    assert y.shape == (2, 10, 64)
+    assert seen == [((2, 8, 10, 16), (2, 2, 10, 16), False)]
+
+
 @pytest.mark.parametrize("kv_chunk,n_kv", [(32, 4), (48, 2), (1024, 1)])
 def test_blockwise_attention_matches_reference(kv_chunk, n_kv):
     """The port's `_blockwise_attention` (GQA, ragged KV chunks) against

@@ -8,9 +8,12 @@ The body runs on both packages (`torch_twin.twin`; the port's session on
 1e-4 (both train in float32 and sum their gradients in another order; the
 reference test's own bar, accuracy above 0.9, is looser), and so must the
 predictions.  The port's model was fitted on a CPU session, so `predict`
-runs on the CPU with no `device=`.  The reference file's LM-training test
-waits for the port's training substrate (ROADMAP A.5) and its XLA dry-run
-test gets no twin.
+runs on the CPU with no `device=`.  `test_serving_greedy_deterministic`
+is the twin of the reference file's serving test: two engines over the
+same yi-9b-smoke weights (the reference's, carried over by
+`models/convert.params_from_jax`) give the same greedy tokens.  The
+reference file's LM-training test waits for the port's training substrate
+(ROADMAP A.5) and its XLA dry-run test gets no twin.
 """
 
 import numpy as np
@@ -100,3 +103,25 @@ def test_predict_follows_the_fitted_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             LogisticRegression(dims=3).predict(X)
+
+
+def test_serving_greedy_deterministic():
+    import jax
+    import torch
+    from repro.configs import get_config as jget_config
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert, lm
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("yi-9b-smoke")
+    params, _ = jlm.init_params(jget_config("yi-9b-smoke"),
+                                jax.random.PRNGKey(0))
+    model = convert.params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                    lm.build_model(cfg, "cpu"))
+    assert model.embed.tok.dtype == torch.bfloat16
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    out1 = ServeEngine(cfg, model, max_seq=48).generate(prompts, 8)
+    out2 = ServeEngine(cfg, model, max_seq=48).generate(prompts, 8)
+    assert out1.shape == (2, 8) and out1.dtype == np.int32
+    np.testing.assert_array_equal(out1, out2)
