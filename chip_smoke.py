@@ -74,7 +74,8 @@ a bf16 prefill launch on a SIMT route fails the run), traces of one
 prefill and one decode step, and peak device memory; then, on a float32
 copy of the same weights, it holds the kernels' prefill logits against
 the plain versions' and one decode step against the full forward over
-S + 1 tokens.  The CPU rehearsal serves the smoke variant (phase 9 too).
+S + 1 tokens.  The CPU rehearsal serves the smoke variant (phases 9 and
+10 too).
 
 Phase 6 (run right after phase 2, on its tables) serves them through a
 `SharkServer` on the card: `lineitem` and `orders` registered as
@@ -163,6 +164,28 @@ prefill shape, and g = 4, 8, 12, ragged, both routes), checks that one
 GQA call is one kernel, and times it at Yi-9B's shape beside its bound
 and `scaled_dot_product_attention(..., enable_gqa=True)` as row `11G`
 (`kernels[...]["gqa"]`).
+
+Phase 10 (after phase 9, whose models it releases first, printing the
+device memory allocated before and after) serves the moe family:
+DeepSeek-V2-Lite (arXiv:2405.04434 as the registry defines it: 27 layers,
+d_model 2048, MLA with 16 heads, kv_lora 512, nope 128, rope 64, v 128;
+layer 0 dense with d_ff 10944, then 64 routed experts of 1408 top-6 and 2
+shared; about 15.7 B random bf16 weights drawn on the card from
+`--seed`) at full width and depth on phase 5's requests, at the
+reference's capacity factor of 1.25, with phase 5's prints and checks
+(no kernel is on its path: MLA and the experts are plain torch, as they
+are plain JAX in the reference), every weight, cache and logit on the
+card, per request the peak device memory and the router statistics
+(`frac_dropped` summed over layers, the largest expert load over the
+mean); its float32 checks run on the 1 x 1,000 request at the drop-free
+capacity (E / k: decode routes dropless, and only without drops is it
+the full forward's function), gated at 1e-3, with the gaps at 1.25
+reported beside them.  Then Phi-3.5-MoE (GQA, 32 heads over 8 kv heads
+of 128, 16 experts of 6,400 top-2) at full width and 2 of its 32 layers
+on 1 x 1,000 + 8 tokens: 2 tensor-core `flash_attention_fwd` launches a
+prefill, float32 kernels vs plain and decode vs full forward, drop-free,
+within 1e-3.  The `kernels` line gives kernel 11 its phase-10 launches as
+`moe_launches`, and the run fails if phase 10 launched no flash.
 
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -2870,19 +2893,32 @@ def plain_routes():
         ops.flash_attention_fwd, ops.ssd_scan = saved
 
 
+def on_card(label: str, what: str, tensors) -> None:
+    """Fail unless every tensor lies on the card."""
+    off = sorted({str(t.device) for t in tensors if t.device.type != "cuda"})
+    if off:
+        fail(f"{label}: {what} not on the card: {off}")
+
+
 def serve_model(torch, device, seed: int, label: str, cfg, requests,
-                per_prefill: dict, trace: bool = True, draw=None) -> dict:
+                per_prefill: dict, trace: bool = True, draw=None,
+                checks=None, check_cfg=None) -> dict:
     """Serve `cfg` (bf16 weights drawn on the device from `seed`, then
     `draw(model, generator)` if given) through ServeEngine: per request,
-    the prefill and decode times and the launches of one prefill, which
-    must be `per_prefill` ({kernel: launches}), every bf16 flash and SSD
-    launch on its tensor-core route; traces of one prefill and one decode
-    step of the batched request; then every request through `generate`,
-    the counted main path, and peak device memory; then, on a float32
-    copy of the same weights, the kernels' prefill against the plain
-    versions' and one decode step against the full forward over S + 1
-    tokens.  Returns the main path's launches of `per_prefill`'s
-    kernels."""
+    the prefill and decode times, peak device memory and the launches of
+    one prefill, which must be `per_prefill` ({kernel: launches}), every
+    bf16 flash and SSD launch on its tensor-core route, and every weight,
+    cache and logit on the card; for a `moe` model the router statistics
+    of the prompt; traces of one prefill and one decode step of the
+    batched request; then every request through `generate`, the counted
+    main path, and peak device memory; then, on a float32 copy of the same
+    weights, the kernels' prefill against the plain versions' and one
+    decode step against the full forward over S + 1 tokens, on the
+    requests numbered in `checks` (default: all), computed with
+    `check_cfg` (default: `cfg`; a `moe` model's drop-free capacity, where
+    the full forward drops nothing that decode keeps) and gated at
+    CONSISTENCY_REL; the same gaps with `cfg` are reported beside them.
+    Returns the main path's launches of `per_prefill`'s kernels."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ks
@@ -2941,17 +2977,35 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
     prompts = [rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
                for b, s, _ in requests]
 
-    def prefill(toks, max_seq):
-        return lm.prefill_fn(cfg, model, {"tokens": toks}, max_seq)
+    def prefill(toks, max_seq, c=cfg):
+        return lm.prefill_fn(c, model, {"tokens": toks}, max_seq)
 
-    def full_forward_last(toks):
-        h = lm._backbone_full(cfg, model, toks)
-        return (h[:, -1:] @ lm._unembed(cfg, model)).float()
+    def full_forward_last(toks, c=cfg):
+        h = lm._backbone_full(c, model, toks)
+        return (h[:, -1:] @ lm._unembed(c, model)).float()
+
+    def router_stats(toks) -> str:
+        """The MoE layers' statistics over one full forward of the prompt:
+        `frac_dropped` summed over layers (the reference's `aux`), and the
+        largest expert load over the mean load, largest and median over
+        layers."""
+        stats = []
+        lm._backbone_full(cfg, model, toks, stats=stats)
+        dropped = sum(float(st["frac_dropped"]) for st in stats)
+        skew = [float(st["expert_load"].max() / st["expert_load"].mean())
+                for st in stats]
+        return (f"router: frac_dropped summed over {len(stats)} layers "
+                f"{dropped:.6g} (mean {dropped / len(stats):.6g}), largest "
+                f"expert load over the mean {max(skew):.4g} (median over "
+                f"layers {float(np.median(skew)):.4g})")
 
     bf16_logits = []
+    peak = 0
     for (b, s, new), prompt in zip(requests, prompts):
         max_seq = s + new
         toks = torch.from_numpy(prompt).to(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t = time.perf_counter()
         logits, caches = prefill(toks, max_seq)
@@ -2965,6 +3019,10 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
         if not (logits.shape == (b, 1, cfg.vocab)
                 and bool(torch.isfinite(logits).all())):
             fail(f"{label}: prefill logits {tuple(logits.shape)} not finite")
+        if cuda:
+            on_card(label, "weights, caches or logits",
+                    [*model.parameters(), *model.buffers(),
+                     *caches.values(), logits])
         with plain_routes():
             logits_plain, _ = prefill(toks, max_seq)
         t = time.perf_counter()
@@ -2988,6 +3046,11 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
         full = full_forward_last(torch.cat([toks.long(), first_tok[:, None]],
                                            dim=1))
         bf16_logits.append((logits, logits_plain, first_dec, full))
+        mem = ""
+        if cuda:
+            req_peak = torch.cuda.max_memory_allocated()
+            peak = max(peak, req_peak)
+            mem = f"; peak device memory {req_peak} bytes"
         print(f"{label}: request {b} x {s} + {new}: prefill first "
               f"{first_ms:.3f} ms, warm {warm_ms:.3f} ms "
               f"({b * s / warm_ms * 1e3:.1f} tokens/s); decode first step "
@@ -2995,8 +3058,11 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
               f"ms/step (median of {len(steps) - 1}); bf16 gaps: kernels vs "
               f"plain rel {rel(logits, logits_plain):.4g}, decode vs full "
               f"forward rel {rel(first_dec, full):.4g}; launches per "
-              f"prefill {json.dumps(counts)}, routes {json.dumps(routes)}",
-              flush=True)
+              f"prefill {json.dumps(counts)}, routes {json.dumps(routes)}"
+              f"{mem}", flush=True)
+        if cfg.family == "moe":
+            print(f"{label}: request {b} x {s}: {router_stats(toks)}",
+                  flush=True)
         if cuda and trace and b == requests[0][0]:
             traced(torch, device, f"{label}: one prefill, {b} x {s}",
                    lambda: prefill(toks, max_seq))
@@ -3006,6 +3072,8 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
         del caches, logits_d
 
     # the main path: every request through ServeEngine.generate
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     reset_counts()
     for (b, s, new), prompt in zip(requests, prompts):
         eng = ServeEngine(cfg, model, max_seq=s + new, temperature=0.0,
@@ -3025,31 +3093,64 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
         fail(f"{label}: generate launched {launches}, expected {want}")
     routes = check_routes("generate", len(requests))
     if cuda:
-        print(f"{label}: peak device memory serving bf16 "
-              f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        print(f"{label}: peak device memory serving bf16 {peak} bytes",
+              flush=True)
 
-    # consistency, on a float32 copy of the same weights
-    model.float()
-    for (b, s, new), prompt, (lk16, lp16, ld16, lf16) in zip(
-            requests, prompts, bf16_logits):
-        toks = torch.from_numpy(prompt).to(device)
-        logits, caches = prefill(toks, s + new)
+    def f32_gaps(c, toks, s, max_seq):
+        """(kernels vs plain, decode vs full forward, logits, plain
+        logits) of one request on the float32 weights, computed with c."""
+        logits, caches = prefill(toks, max_seq, c)
         with plain_routes():
-            logits_plain, _ = prefill(toks, s + new)
+            logits_plain, _ = prefill(toks, max_seq, c)
         tok = torch.argmax(logits[:, -1], dim=-1)
-        logits_d, _ = lm.decode_fn(cfg, model, tok[:, None], caches, s)
+        logits_d, _ = lm.decode_fn(c, model, tok[:, None], caches, s)
         del caches
-        full = full_forward_last(torch.cat([toks.long(), tok[:, None]], dim=1))
-        r_plain, r_dec = rel(logits, logits_plain), rel(logits_d, full)
-        print(f"{label}: request {b} x {s}, float32 weights: kernels vs "
-              f"plain rel {r_plain:.4g}, decode vs full forward rel "
-              f"{r_dec:.4g}; the bf16 route's own rounding: plain bf16 vs "
-              f"plain float32 rel {rel(lp16, logits_plain):.4g}, kernels "
-              f"bf16 vs float32 rel {rel(lk16, logits):.4g}", flush=True)
+        full = full_forward_last(torch.cat([toks.long(), tok[:, None]], dim=1),
+                                 c)
+        return (rel(logits, logits_plain), rel(logits_d, full), logits,
+                logits_plain)
+
+    # consistency, on a float32 copy of the same weights (DeepSeek-V2-Lite's
+    # are 62.8 GB: the allocator's cache goes first)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    model.float()
+    gated = check_cfg or cfg
+    for i, ((b, s, new), prompt) in enumerate(zip(requests, prompts)):
+        if checks is not None and i not in checks:
+            continue
+        lk16, lp16, ld16, lf16 = bf16_logits[i]
+        toks = torch.from_numpy(prompt).to(device)
+        r_plain, r_dec, logits, logits_plain = f32_gaps(gated, toks, s,
+                                                        s + new)
+        what = ""
+        if check_cfg is not None:
+            what = (f" (capacity factor {check_cfg.moe.capacity_factor:g}, "
+                    f"drop-free)")
+        print(f"{label}: request {b} x {s}, float32 weights{what}: kernels "
+              f"vs plain rel {r_plain:.4g}, decode vs full forward rel "
+              f"{r_dec:.4g}", flush=True)
         if not (r_plain < CONSISTENCY_REL and r_dec < CONSISTENCY_REL):
             fail(f"{label}: float32 consistency beyond {CONSISTENCY_REL}: "
                  f"kernels vs plain {r_plain}, decode vs full forward "
                  f"{r_dec}")
+        if check_cfg is not None:
+            # the bf16 runs served cfg: their rounding is read against
+            # float32 at cfg too
+            r_plain, r_dec, logits, logits_plain = f32_gaps(cfg, toks, s,
+                                                            s + new)
+            print(f"{label}: request {b} x {s}, float32 weights at the "
+                  f"served capacity factor {cfg.moe.capacity_factor:g} "
+                  f"(reported, not gated: the full forward may drop the "
+                  f"last token, dropless decode never does): kernels vs "
+                  f"plain rel {r_plain:.4g}, decode vs full forward rel "
+                  f"{r_dec:.4g}", flush=True)
+        print(f"{label}: request {b} x {s}, the bf16 route's own rounding: "
+              f"plain bf16 vs plain float32 rel "
+              f"{rel(lp16, logits_plain):.4g}, kernels bf16 vs float32 rel "
+              f"{rel(lk16, logits):.4g}", flush=True)
     print(f"{label}: main-path launches {json.dumps(launches)}, routes "
           f"{json.dumps(routes)}", flush=True)
     del model
@@ -3133,6 +3234,89 @@ def phase_dense(torch, device, seed: int) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 10
+
+# DeepSeek-V2-Lite (arXiv:2405.04434) served at full width and depth on
+# phase 5's requests at the reference's capacity factor; Phi-3.5-MoE at
+# full width and 2 of its 32 layers (84 GB of bf16 weights at full depth:
+# it needs four cards), 1 x 1,000 + 8 tokens.  The float32 checks run on
+# the 1 x 1,000 request only: DeepSeek-V2-Lite's float32 weights are 62.8
+# GB, and a drop-free 4 x 2,048 buffer would add about 15 GB
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_COVER = "phi3.5-moe-42b-a6.6b"
+MOE_COVER_LAYERS = 2
+MOE_COVER_REQUESTS = ((1, 1000, 8),)
+MOE_CHECKS = (1,)          # REQUESTS[1], 1 x 1,000 + 16
+MOE_CAPACITY = 1.25        # repro/models/moe.py MoEConfig's default
+
+
+def drop_free(cfg):
+    """`cfg` with the smoke variants' capacity (E / k): no assignment
+    drops, so decode (dropless) and the full forward compute the same
+    function."""
+    import dataclasses
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)
+        / cfg.moe.top_k))
+
+
+def phase_moe(torch, device, seed: int) -> dict:
+    """Phase 10: the moe family.  DeepSeek-V2-Lite at full width and depth
+    (27 layers, MLA, 64 routed experts top-6 and 2 shared, layer 0 dense)
+    through `serve_model` on phase 5's requests at capacity factor 1.25:
+    no kernel on its path (MLA and the experts are plain torch, as in the
+    reference), every tensor on the card, the router statistics of each
+    prompt, float32 decode vs the full forward within CONSISTENCY_REL on
+    the drop-free capacity; then Phi-3.5-MoE at full width and 2 layers
+    (GQA: 32 heads over 8 kv heads of 128, 16 experts of 6,400, top-2) on
+    1 x 1,000 + 8 tokens: 2 tensor-core `flash_attention_fwd` launches a
+    prefill, float32 kernels vs plain too.  Returns Phi-3.5-MoE's
+    main-path launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+
+    def served(arch):
+        # the CPU rehearsal serves the smoke variants (same family and
+        # path) at the served capacity factor
+        c = get_config(arch if cuda else arch + "-smoke")
+        return dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=MOE_CAPACITY))
+
+    cfg = served(MOE_ARCH)
+    serve_model(torch, device, seed, "phase 10", cfg, REQUESTS, {},
+                checks=MOE_CHECKS, check_cfg=drop_free(cfg))
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    c = served(MOE_COVER)
+    if cuda:
+        c = dataclasses.replace(c, n_layers=MOE_COVER_LAYERS)
+    launches = serve_model(torch, device, seed, f"phase 10 ({MOE_COVER}, "
+                           f"{c.n_layers} layers)", c, MOE_COVER_REQUESTS,
+                           {"flash_attention_fwd": c.n_layers}, trace=False,
+                           check_cfg=drop_free(c))
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"phase 10: {time.perf_counter() - t_phase:.3f} s of wall, builds "
+          f"included", flush=True)
+    return launches
+
+
+def release(torch, device, label: str, after: str) -> None:
+    """Free what the last phase left (its models and caches are gone
+    with its frame) and the allocator's cache; print the memory held."""
+    if device.type == "cuda":
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{label}: device memory allocated {held} bytes after "
+              f"{after}, {torch.cuda.memory_allocated()} after its release "
+              f"({torch.cuda.memory_reserved()} reserved)", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -3175,20 +3359,18 @@ def main() -> int:
     launches.update(phase_serve(torch, device, args.seed))
     # phase 5's model and caches are gone with its frame; release the
     # allocator's cache before phase 9 builds Yi-9B
-    if device.type == "cuda":
-        held = torch.cuda.memory_allocated()
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"phase 9: device memory allocated {held} bytes after phase "
-              f"5, {torch.cuda.memory_allocated()} after its release "
-              f"({torch.cuda.memory_reserved()} reserved)", flush=True)
+    release(torch, device, "phase 9", "phase 5")
     dense = phase_dense(torch, device, args.seed)
+    release(torch, device, "phase 10", "phase 9")
+    moe = phase_moe(torch, device, args.seed)
     if device.type == "cuda":
         idle = [k for k, v in launches.items() if v == 0]
         if idle:
             fail(f"kernels never launched on their main path: {idle}")
         if not dense.get("flash_attention_fwd"):
             fail(f"phase 9 never launched flash_attention_fwd: {dense}")
+        if not moe.get("flash_attention_fwd"):
+            fail(f"phase 10 never launched flash_attention_fwd: {moe}")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
         if name in SQL_KERNELS:
@@ -3199,6 +3381,8 @@ def main() -> int:
         if name in dense:
             rec["dense_launches"] = dense[name]
             rec["gqa"]["launches"] = dense[name]
+        if name in moe:
+            rec["moe_launches"] = moe[name]
     kernels["colscan"]["two_columns"]["launches"] = \
         sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \

@@ -5,10 +5,12 @@
 
 It runs on the card unless `--device cpu` is given, and raises without
 one.  The port runs the `dense` family (phi3-medium-14b, yi-9b,
-qwen2.5-3b, starcoder2-15b), the `ssm` family (mamba2-370m) and the
-`hybrid` family (zamba2-7b), and their `-smoke` variants (`--arch
-yi-9b-smoke --device cpu` serves on the CPU); weights are random, drawn
-from seed 0, as the reference's CLI draws them.
+qwen2.5-3b, starcoder2-15b), the `ssm` family (mamba2-370m), the
+`hybrid` family (zamba2-7b) and the `moe` family (deepseek-v2-lite-16b,
+phi3.5-moe-42b-a6.6b), and their `-smoke` variants (`--arch
+yi-9b-smoke --device cpu` or `--arch deepseek-v2-lite-16b-smoke --device
+cpu` serves on the CPU); weights are random, drawn from seed 0, as the
+reference's CLI draws them.
 """
 
 from __future__ import annotations

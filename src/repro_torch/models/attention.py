@@ -9,8 +9,16 @@ queries by kv head, as the reference does.  `_blockwise_attention` is the
 reference's route (an online softmax over KV chunks in plain torch) and
 the port's oracle for it.  Decode attends one query against the KV cache
 with a length mask, in plain torch, writing the new k/v into the
-preallocated cache in place.  MLA, cross-attention and the int8 cache
-wait (ROADMAP A.5).
+preallocated cache in place.
+
+MLA (Multi-head Latent Attention, DeepSeek-V2) is plain torch, as the
+reference's is plain JAX (it reaches no Pallas kernel): the prefill
+decompresses K and V per KV chunk inside its online-softmax loop, so the
+full (S, H, nope + v) tensors never exist, and the decode scores the
+query against the compressed cache (c_kv, k_rope) with W_uk absorbed
+into the query and W_uv applied after the weighting.  Its RoPE angle base
+is 10000.0, whatever the config's `rope_theta`, as in the reference.
+Cross-attention and the int8 cache wait (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import torch
 from torch import nn
 
 from ..kernels import ops
-from .common import _param, apply_rope, dense_init
+from .common import _param, apply_rope, dense_init, rmsnorm
 
 NEG_INF = -1e30
 
@@ -171,3 +179,129 @@ def decode_attention(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(cache_v.dtype).float()
     out = torch.einsum("bgxt,btgd->bgxd", w, cache_v.float())
     return out.reshape(b, 1, n_heads * head_dim).to(x.dtype) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# MLA - Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+MLA_ROPE_THETA = 10000.0
+
+
+class MLA(nn.Module):
+    """`mla_init`'s parameters: wq (d, H*(nope+rope)), wdkv (d, kv_lora),
+    wkr (d, rope), wuk (kv_lora, H*nope), wuv (kv_lora, H*v), wo (H*v, d),
+    and kv_norm (kv_lora,) float32 ones."""
+
+    def __init__(self, d_model: int, n_heads: int, kv_lora: int,
+                 nope_dim: int, rope_dim: int, v_dim: int,
+                 dtype=torch.bfloat16, device=None, generator=None):
+        super().__init__()
+
+        def mk(i, o):
+            return _param(dense_init(i, o, dtype, device, generator))
+
+        self.wq = mk(d_model, n_heads * (nope_dim + rope_dim))
+        self.wdkv = mk(d_model, kv_lora)
+        self.wkr = mk(d_model, rope_dim)
+        self.wuk = mk(kv_lora, n_heads * nope_dim)
+        self.wuv = mk(kv_lora, n_heads * v_dim)
+        self.wo = mk(n_heads * v_dim, d_model)
+        self.kv_norm = _param(torch.ones(kv_lora, dtype=torch.float32,
+                                         device=device))
+
+
+def _mla_qkv(p: MLA, x: torch.Tensor, positions: torch.Tensor,
+             n_heads: int, nope_dim: int, rope_dim: int):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,S,kv_lora),
+    k_rope (B,S,1,rope)), RoPE applied, all in x's dtype."""
+    b, s, _ = x.shape
+    q = (x @ p.wq).reshape(b, s, n_heads, nope_dim + rope_dim)
+    q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
+    q_rope = apply_rope(q_rope, positions, MLA_ROPE_THETA)
+    c_kv = rmsnorm(x @ p.wdkv, p.kv_norm)
+    k_rope = (x @ p.wkr).reshape(b, s, 1, rope_dim)
+    k_rope = apply_rope(k_rope, positions, MLA_ROPE_THETA)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_attention(p: MLA, x: torch.Tensor, positions: torch.Tensor,
+                  n_heads: int, nope_dim: int, rope_dim: int, v_dim: int,
+                  kv_chunk: int = 1024, return_kv: bool = False):
+    """Prefill MLA, causal.  x: (B,S,D); positions (B,S).  K and V are
+    decompressed per KV chunk inside the online-softmax loop, so full
+    (S, H, nope + v) tensors never exist.  The reference asserts S % kv_chunk
+    == 0 (after kv_chunk = min(kv_chunk, S)); the port takes a shorter
+    last chunk instead, which changes nothing where the reference runs.
+    With `return_kv`, also (c_kv (B,S,kv_lora), k_rope (B,S,rope)), what
+    the decode caches."""
+    b, s, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, positions, n_heads,
+                                            nope_dim, rope_dim)
+    scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+    kv_chunk = min(kv_chunk, s)
+    wuk = p.wuk.reshape(-1, n_heads, nope_dim)
+    wuv = p.wuv.reshape(-1, n_heads, v_dim)
+    qn = q_nope.float() * scale
+    qr = q_rope.float() * scale
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=x.device)
+
+    m = torch.full((b, s, n_heads), NEG_INF, dtype=torch.float32,
+                   device=x.device)
+    l = torch.zeros((b, s, n_heads), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((b, s, n_heads, v_dim), dtype=torch.float32,
+                      device=x.device)
+    for start in range(0, s, kv_chunk):
+        ckv = c_kv[:, start:start + kv_chunk]
+        kr = k_rope[:, start:start + kv_chunk, 0]
+        kpos = start + torch.arange(ckv.shape[1], device=x.device)
+        k_nope = torch.einsum("bcl,lhd->bchd", ckv, wuk)     # decompress K
+        v = torch.einsum("bcl,lhv->bchv", ckv, wuv)          # decompress V
+        sc = torch.einsum("bshd,bchd->bshc", qn, k_nope.float())
+        sc = sc + torch.einsum("bshr,bcr->bshc", qr, kr.float())
+        mask = kpos[None, None, None, :] <= positions[:, :, None, None]
+        sc = torch.where(mask, sc, neg)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        pr = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + pr.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bshc,bchv->bshv", pr,
+                                                   v.float())
+        m = m_new
+    out = (acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype)
+    y = out.reshape(b, s, n_heads * v_dim) @ p.wo
+    if return_kv:
+        return y, (c_kv, k_rope[:, :, 0, :])
+    return y
+
+
+def mla_decode(p: MLA, x: torch.Tensor, cache_ckv: torch.Tensor,
+               cache_kr: torch.Tensor, cur_len: int, n_heads: int,
+               nope_dim: int, rope_dim: int, v_dim: int) -> torch.Tensor:
+    """One-token MLA decode against the compressed cache (cache_ckv
+    (B,Smax,kv_lora), cache_kr (B,Smax,rope)); the token's c_kv and k_rope
+    are written at cur_len IN PLACE.  Scores take W_uk into the query
+    (q_nope W_uk^T against c_kv) and the weighted c_kv goes through W_uv
+    after the softmax, in float32, as the reference computes them.
+    Returns the attention output (B,1,D)."""
+    b = x.shape[0]
+    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, pos, n_heads, nope_dim,
+                                            rope_dim)
+    cache_ckv[:, cur_len:cur_len + 1] = c_kv.to(cache_ckv.dtype)
+    cache_kr[:, cur_len:cur_len + 1] = k_rope[:, :, 0].to(cache_kr.dtype)
+    t = cache_ckv.shape[1]
+    scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+    wuk = p.wuk.reshape(-1, n_heads, nope_dim).float()
+    wuv = p.wuv.reshape(-1, n_heads, v_dim).float()
+    ckv = cache_ckv.float()
+    q_abs = torch.einsum("bshd,lhd->bshl", q_nope.float(), wuk)
+    sc = torch.einsum("bshl,btl->bsht", q_abs, ckv) * scale
+    sc = sc + torch.einsum("bshr,btr->bsht", q_rope.float() * scale,
+                           cache_kr.float())
+    mask = torch.arange(t, device=x.device)[None, None, None, :] <= cur_len
+    sc = torch.where(mask, sc, torch.tensor(NEG_INF, device=x.device))
+    w = torch.softmax(sc, dim=-1)
+    ctx = torch.einsum("bsht,btl->bshl", w, ckv)
+    out = torch.einsum("bshl,lhv->bshv", ctx, wuv)
+    return out.reshape(b, 1, n_heads * v_dim).to(x.dtype) @ p.wo

@@ -135,11 +135,18 @@ class MLP(nn.Module):
                                              device=device))
 
 
+def swiglu(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+           down: torch.Tensor) -> torch.Tensor:
+    """(silu(x gate) * (x up)) down, the activation in float32; batched
+    over a leading expert axis when x and the weights have one."""
+    g = torch.matmul(x, gate)
+    u = torch.matmul(x, up)
+    return torch.matmul(F.silu(g.float()).to(x.dtype) * u, down)
+
+
 def mlp_apply(kind: str, p: MLP, x: torch.Tensor) -> torch.Tensor:
     if kind == "swiglu":
-        g = x @ p.gate
-        u = x @ p.up
-        return (F.silu(g.float()).to(x.dtype) * u) @ p.down
+        return swiglu(x, p.gate, p.up, p.down)
     h = x @ p.fc + p.fc_b
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)

@@ -5,14 +5,20 @@
   ssm    — a stack of Mamba2 (SSD) blocks (Mamba2-370m)
   hybrid — groups of [1 SHARED attention slot + k Mamba2 blocks], then a
            tail of Mamba2 blocks (Zamba2-7B)
+  moe    — the dense block with its MLP replaced by routed experts
+           (`models/moe.py`), with GQA (Phi-3.5-MoE) or MLA attention and
+           an optional dense layer 0 (DeepSeek-V2-Lite: `layer0`, MLA and
+           an MLP of `moe.dense_d_ff`); decode routes dropless
 
-The `moe`, `vlm` and `encdec` families raise `NotImplementedError` when a
-model is built (ROADMAP A.5), and so does a dense configuration that asks
-for what the port does not compute yet: the int8 KV cache
-(`kv_cache_quant`) or scores in another dtype than float32
-(`attn_scores_dtype`).  `attn_impl` and `attn_chunk_remat` choose the
-reference's route or backward, not the forward's function, and are not
-read.
+The `vlm` and `encdec` families raise `NotImplementedError` when a model
+is built (ROADMAP A.5), and so does a configuration that asks for what
+the port does not compute yet: on a GQA `dense` or `moe` configuration,
+the int8 KV cache (`kv_cache_quant`) or scores in another dtype than
+float32 (`attn_scores_dtype`); on a `moe` one, expert parallelism
+(`moe_impl="ep_shardmap"`).  An MLA configuration reads neither cache
+field, as the reference's does not.  `attn_impl` and `attn_chunk_remat`
+choose the reference's route or backward, not the forward's function,
+and are not read.
 
 The reference stacks each family's layers on a leading axis and runs them
 under `lax.scan`; the port keeps one module per layer (`nn.ModuleList`,
@@ -24,15 +30,19 @@ meaning on one card and are left out.
 Entry points: `build_model`, `prefill_fn` (full-sequence forward that
 writes the caches, allocated at `max_seq`), `decode_fn` (one token against
 the caches, updated in place).  On the card the prefill runs the two
-hand-written kernels where the reference runs their oracles: every dense
-layer's attention and the shared attention through `flash_attention_fwd`
-(grouped-query, k/v never repeated), every Mamba2 block's SSD through
-`ssd_scan`.
+hand-written kernels where the reference runs their oracles: every GQA
+layer's attention (dense, GQA moe) and the shared attention through
+`flash_attention_fwd` (grouped-query, k/v never repeated), every Mamba2
+block's SSD through `ssd_scan`.  MLA and the experts are plain torch, as
+they are plain JAX in the reference.  The reference's `aux` (the MoE
+layers' `frac_dropped`, summed), which prefill ignores, is what
+`_backbone_full(..., stats=[])` collects: each MoE layer's statistics.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -41,11 +51,12 @@ from ..configs.base import ModelConfig
 from ..core.runtime import resolve_device
 from . import attention as att
 from . import mamba2 as m2
+from . import moe as moe_mod
 from .common import (MLP, Embed, Norm, _param, dense_init, embed_lookup,
                      mlp_apply, norm_apply)
 
 Caches = Dict[str, torch.Tensor]
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 # ===========================================================================
@@ -53,17 +64,35 @@ FAMILIES = ("dense", "ssm", "hybrid")
 # ===========================================================================
 
 class DecoderLayer(nn.Module):
-    """One dense block: {ln1, attn, ln2, mlp}, the reference's
-    `_decoder_layer_init` names."""
+    """One decoder block, the reference's `_decoder_layer_init` names:
+    {ln1, attn, ln2, mlp}, or {ln1, attn, ln2, moe} with `use_moe`; attn
+    is MLA when the config has `mla`, else GQA."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator,
+                 use_moe: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg.norm, cfg.d_model, device)
-        self.attn = att.GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                            cfg.qkv_bias, dtype, device, generator)
+        if cfg.mla is not None:
+            m = cfg.mla
+            self.attn = att.MLA(cfg.d_model, cfg.n_heads, m.kv_lora,
+                                m.nope_dim, m.rope_dim, m.v_dim, dtype,
+                                device, generator)
+        else:
+            self.attn = att.GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.hd, cfg.qkv_bias, dtype, device,
+                                generator)
         self.ln2 = Norm(cfg.norm, cfg.d_model, device)
-        self.mlp = MLP(cfg.mlp, cfg.d_model, cfg.d_ff, dtype, device,
-                       generator)
+        if use_moe:
+            self.moe = moe_mod.MoE(cfg.d_model, cfg.moe, dtype, device,
+                                   generator)
+        else:
+            self.mlp = MLP(cfg.mlp, cfg.d_model, cfg.d_ff, dtype, device,
+                           generator)
+
+    @property
+    def ffn(self) -> nn.Module:
+        """The block's second half: `moe` or `mlp`."""
+        return self.moe if hasattr(self, "moe") else self.mlp
 
 
 class MambaLayer(nn.Module):
@@ -89,6 +118,18 @@ class SharedAttention(nn.Module):
                        generator)
 
 
+def _dense_layer0(cfg: ModelConfig) -> ModelConfig:
+    """The config of a `moe` model's dense layer 0: its MLP is
+    `moe.dense_d_ff` wide."""
+    return dataclasses.replace(cfg, d_ff=cfg.moe.dense_d_ff)
+
+
+def _first_dense(cfg: ModelConfig) -> bool:
+    """Whether the model has a separate dense `layer0` before its stacked
+    `layers` (a `moe` model with `moe.first_dense`)."""
+    return cfg.family == "moe" and cfg.moe.first_dense
+
+
 def _hybrid_layout(cfg: ModelConfig):
     """(groups, Mamba2 blocks per group, tail blocks)."""
     per = cfg.attn_every  # group = 1 shared-attn slot + (per-1) mamba
@@ -98,9 +139,10 @@ def _hybrid_layout(cfg: ModelConfig):
 
 class LM(nn.Module):
     """`init_params`'s tree as modules: embed, final_norm, lm_head (unless
-    tied), and layers (dense, ssm) or group_mamba / tail_mamba /
-    shared_attn (hybrid).  Matrices and biases bfloat16, norms and SSM
-    vectors float32."""
+    tied), and layers (dense, ssm, moe; with `moe.first_dense`, also the
+    dense layer0) or group_mamba / tail_mamba / shared_attn (hybrid).
+    Matrices and biases bfloat16, norms, SSM vectors and the MoE router
+    float32."""
 
     def __init__(self, cfg: ModelConfig, device, generator):
         super().__init__()
@@ -116,10 +158,14 @@ class LM(nn.Module):
             return nn.ModuleList(MambaLayer(cfg, dtype, device, generator)
                                  for _ in range(n))
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             self.layers = nn.ModuleList(
-                DecoderLayer(cfg, dtype, device, generator)
-                for _ in range(cfg.n_layers))
+                DecoderLayer(cfg, dtype, device, generator,
+                             use_moe=cfg.family == "moe")
+                for _ in range(cfg.n_layers - _first_dense(cfg)))
+            if _first_dense(cfg):
+                self.layer0 = DecoderLayer(_dense_layer0(cfg), dtype,
+                                           device, generator)
         elif cfg.family == "ssm":
             self.layers = mamba_layers(cfg.n_layers)
         else:
@@ -138,7 +184,13 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
             f"runs {FAMILIES}; see ROADMAP A.5")
-    if cfg.family != "dense":
+    if cfg.family == "moe" and cfg.moe_impl == "ep_shardmap":
+        raise NotImplementedError(
+            f"{cfg.name}: expert parallelism (moe_impl='ep_shardmap', a "
+            f"mesh of several cards) is not ported yet; see ROADMAP A.5")
+    # an MLA model caches (c_kv, k_rope) and scores in float32 whatever
+    # these two fields say, as the reference's does
+    if cfg.family not in ("dense", "moe") or cfg.mla is not None:
         return
     if cfg.kv_cache_quant:
         raise NotImplementedError(
@@ -168,17 +220,36 @@ def build_model(cfg: ModelConfig, device=None,
 # Caches
 # ===========================================================================
 
+def _cache_names(cfg: ModelConfig):
+    """The stacked layers' two cache names: c_kv and k_rope with MLA, k
+    and v with GQA."""
+    return ("ckv", "kr") if cfg.mla is not None else ("k", "v")
+
+
 def _grow_caches(cfg: ModelConfig, b: int, max_seq: int, dtype,
                  device) -> Caches:
     """Zeroed caches sized to max_seq, for prefill to write into and
-    decode to update in place: the attention k/v (L or G, B, max_seq, KV,
-    hd) in the activation dtype, the SSM states (..., B, H, P, N) float32,
-    the conv states (..., B, d_conv-1, conv_dim) in the activation
-    dtype."""
-    if cfg.family == "dense":
-        kv = (cfg.n_layers, b, max_seq, cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.zeros(kv, dtype=dtype, device=device),
-                "v": torch.zeros(kv, dtype=dtype, device=device)}
+    decode to update in place, under the reference's names: the attention
+    k/v (L or G, B, max_seq, KV, hd) in the activation dtype; an MLA
+    model's ckv (L, B, max_seq, kv_lora) and kr (L, B, max_seq, rope);
+    a `moe` model's dense layer 0 under k0 / v0 (B, max_seq, ...): its
+    k / v, or its c_kv / k_rope with MLA; the SSM states (..., B, H, P,
+    N) float32, the conv states (..., B, d_conv-1, conv_dim) in the
+    activation dtype."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.family in ("dense", "moe"):
+        if cfg.mla is not None:
+            widths = ((cfg.mla.kv_lora,), (cfg.mla.rope_dim,))
+        else:
+            widths = ((cfg.n_kv_heads, cfg.hd),) * 2
+        n = cfg.n_layers - _first_dense(cfg)
+        out = {nm: zeros(n, b, max_seq, *w)
+               for nm, w in zip(_cache_names(cfg), widths)}
+        if _first_dense(cfg):
+            out["k0"], out["v0"] = (zeros(b, max_seq, *w) for w in widths)
+        return out
     s = cfg.ssm
     nh = s.n_heads(cfg.d_model)
     conv_dim = s.d_inner(cfg.d_model) + 2 * s.ngroups * s.d_state
@@ -216,24 +287,46 @@ def _store_states(caches: Caches, ssm_key: str, conv_key: str, idx,
 # Full-sequence forward (prefill)
 # ===========================================================================
 
-def _attn_mlp_full(cfg: ModelConfig, ln_a: Norm, attn: att.GQA, ln_m: Norm,
-                   mlp: MLP, x, positions, cache_k=None, cache_v=None):
-    """norm -> GQA self-attention (kernel 11) -> residual, norm -> MLP ->
-    residual; with caches (B, max_seq, KV, hd), k after RoPE and v are
-    written into their first S rows."""
+def _ffn(cfg: ModelConfig, ffn: nn.Module, h, stats: Optional[List] = None,
+         dropless: bool = False):
+    """The block's second half on the normed h: the MLP, or the routed
+    experts (appending their statistics to `stats` when given)."""
+    if not isinstance(ffn, moe_mod.MoE):
+        return mlp_apply(cfg.mlp, ffn, h)
+    if stats is None:
+        return moe_mod.moe_apply(ffn, h, cfg.moe, dropless=dropless)
+    y, st = moe_mod.moe_apply(ffn, h, cfg.moe, return_stats=True,
+                              dropless=dropless)
+    stats.append(st)
+    return y
+
+
+def _attn_mlp_full(cfg: ModelConfig, ln_a: Norm, attn: nn.Module,
+                   ln_m: Norm, ffn: nn.Module, x, positions, cache_a=None,
+                   cache_b=None, stats: Optional[List] = None):
+    """norm -> self-attention -> residual, norm -> MLP or experts ->
+    residual.  The attention is MLA when the config has `mla` (plain
+    torch), else GQA (kernel 11).  With caches (B, max_seq, ...), the
+    layer's k after RoPE and v (GQA) or c_kv and k_rope (MLA) are written
+    into their first S rows."""
     h = norm_apply(cfg.norm, x, ln_a)
-    if cache_k is None:
-        a = att.self_attention(attn, h, positions, cfg.n_heads,
-                               cfg.n_kv_heads, cfg.hd, cfg.rope_theta)
+    want_kv = cache_a is not None
+    if cfg.mla is not None:
+        m = cfg.mla
+        out = att.mla_attention(attn, h, positions, cfg.n_heads, m.nope_dim,
+                                m.rope_dim, m.v_dim, cfg.kv_chunk,
+                                return_kv=want_kv)
     else:
-        a, (k, v) = att.self_attention(attn, h, positions, cfg.n_heads,
-                                       cfg.n_kv_heads, cfg.hd, cfg.rope_theta,
-                                       return_kv=True)
-        cache_k[:, :x.shape[1]] = k
-        cache_v[:, :x.shape[1]] = v
-    x = x + a
+        out = att.self_attention(attn, h, positions, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.hd, cfg.rope_theta,
+                                 return_kv=want_kv)
+    if want_kv:
+        out, (ka, kb) = out
+        cache_a[:, :x.shape[1]] = ka
+        cache_b[:, :x.shape[1]] = kb
+    x = x + out
     h = norm_apply(cfg.norm, x, ln_m)
-    return x + mlp_apply(cfg.mlp, mlp, h)
+    return x + _ffn(cfg, ffn, h, stats)
 
 
 def _mamba_full(cfg: ModelConfig, lp: MambaLayer, x, caches, ssm_key,
@@ -264,21 +357,39 @@ def _hybrid_full(cfg: ModelConfig, model: LM, x, positions,
     return x
 
 
+def _decoder_full(cfg: ModelConfig, model: LM, x, positions,
+                  caches: Optional[Caches], stats: Optional[List]):
+    """The dense and moe families' blocks: `layer0` first if the model
+    has one, then the stacked `layers`."""
+    a, b = _cache_names(cfg)
+    if _first_dense(cfg):
+        lp = model.layer0
+        kv = (None, None) if caches is None else (caches["k0"],
+                                                  caches["v0"])
+        x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
+                           positions, *kv)
+    for i, lp in enumerate(model.layers):
+        kv = (None, None) if caches is None else (caches[a][i], caches[b][i])
+        x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.ffn, x,
+                           positions, *kv, stats=stats)
+    return x
+
+
 @torch.no_grad()
 def _backbone_full(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
-                   caches: Optional[Caches] = None) -> torch.Tensor:
+                   caches: Optional[Caches] = None,
+                   stats: Optional[List] = None) -> torch.Tensor:
     """Final hidden states (B,S,D) of tokens (B,S); with `caches` (from
-    `_grow_caches`), every layer's cache entries are written into them."""
+    `_grow_caches`), every layer's cache entries are written into them;
+    with a list `stats`, each MoE layer appends its routing statistics
+    (`moe.moe_apply`'s; the reference's `aux` is the sum of their
+    `frac_dropped`)."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
     x = embed_lookup(model.embed, tokens)
-    if cfg.family == "dense":
-        for i, lp in enumerate(model.layers):
-            kv = ((None, None) if caches is None
-                  else (caches["k"][i], caches["v"][i]))
-            x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
-                               positions, *kv)
+    if cfg.family in ("dense", "moe"):
+        x = _decoder_full(cfg, model, x, positions, caches, stats)
     elif cfg.family == "ssm":
         for i, lp in enumerate(model.layers):
             x = _mamba_full(cfg, lp, x, caches, "ssm", "conv", i)
@@ -315,17 +426,24 @@ def prefill_fn(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor],
 # Decode — one token against the caches
 # ===========================================================================
 
-def _attn_mlp_decode(cfg: ModelConfig, ln_a: Norm, attn: att.GQA,
-                     ln_m: Norm, mlp: MLP, x, cache_k, cache_v,
+def _attn_mlp_decode(cfg: ModelConfig, ln_a: Norm, attn: nn.Module,
+                     ln_m: Norm, ffn: nn.Module, x, cache_a, cache_b,
                      cur_len: int):
-    """One token through norm -> GQA decode -> residual, norm -> MLP ->
-    residual; the token's k and v go into the caches at cur_len."""
+    """One token through norm -> GQA or MLA decode -> residual, norm ->
+    MLP or dropless experts -> residual; the token's k and v (GQA) or
+    c_kv and k_rope (MLA) go into the caches at cur_len."""
     h = norm_apply(cfg.norm, x, ln_a)
-    x = x + att.decode_attention(attn, h, cache_k, cache_v, cur_len,
+    if cfg.mla is not None:
+        m = cfg.mla
+        a = att.mla_decode(attn, h, cache_a, cache_b, cur_len, cfg.n_heads,
+                           m.nope_dim, m.rope_dim, m.v_dim)
+    else:
+        a = att.decode_attention(attn, h, cache_a, cache_b, cur_len,
                                  cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                  cfg.rope_theta)
+    x = x + a
     h = norm_apply(cfg.norm, x, ln_m)
-    return x + mlp_apply(cfg.mlp, mlp, h)
+    return x + _ffn(cfg, ffn, h, dropless=True)
 
 
 def _mamba_decode(cfg: ModelConfig, lp: MambaLayer, x, caches, ssm_key,
@@ -354,6 +472,19 @@ def _hybrid_decode(cfg: ModelConfig, model: LM, x, caches: Caches,
     return x
 
 
+def _decoder_decode(cfg: ModelConfig, model: LM, x, caches: Caches,
+                    cur_len: int):
+    a, b = _cache_names(cfg)
+    if _first_dense(cfg):
+        lp = model.layer0
+        x = _attn_mlp_decode(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
+                             caches["k0"], caches["v0"], cur_len)
+    for i, lp in enumerate(model.layers):
+        x = _attn_mlp_decode(cfg, lp.ln1, lp.attn, lp.ln2, lp.ffn, x,
+                             caches[a][i], caches[b][i], cur_len)
+    return x
+
+
 @torch.no_grad()
 def decode_fn(cfg: ModelConfig, model: LM, token: torch.Tensor,
               caches: Caches, cur_len: int):
@@ -362,11 +493,8 @@ def decode_fn(cfg: ModelConfig, model: LM, token: torch.Tensor,
     caches are updated in place."""
     check_ported(cfg)
     x = embed_lookup(model.embed, token.long())
-    if cfg.family == "dense":
-        for i, lp in enumerate(model.layers):
-            x = _attn_mlp_decode(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
-                                 caches["k"][i], caches["v"][i],
-                                 int(cur_len))
+    if cfg.family in ("dense", "moe"):
+        x = _decoder_decode(cfg, model, x, caches, int(cur_len))
     elif cfg.family == "ssm":
         for i, lp in enumerate(model.layers):
             x = _mamba_decode(cfg, lp, x, caches, "ssm", "conv", i)

@@ -1,7 +1,8 @@
 """Batched serving engine: prefill, then one decode step per new token
 against caches allocated at `max_seq`, with greedy or temperature
 sampling, for every family `models/lm.py` builds (dense: phi3-medium-14b,
-yi-9b, qwen2.5-3b, starcoder2-15b; ssm: mamba2-370m; hybrid: zamba2-7b).
+yi-9b, qwen2.5-3b, starcoder2-15b; ssm: mamba2-370m; hybrid: zamba2-7b;
+moe: deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b).
 It computes on the model's device (the card unless the model was built on
 the CPU); the sampled tokens stay there until the end."""
 

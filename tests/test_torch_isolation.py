@@ -120,12 +120,14 @@ def test_unported_paths_raise(tmp_path):
     srv = SharkServer(device="cpu", mesh=mesh)
     assert srv.make_executor().mesh is mesh
     srv.shutdown()
-    # the dense family is ported; an LM family the port does not run yet
-    # raises
+    # the dense and moe families are ported; an LM family the port does
+    # not run yet raises
     assert len(build_model(get_config("yi-9b-smoke"), device="cpu").layers) \
         == 2
+    moe = build_model(get_config("phi3.5-moe-42b-a6.6b-smoke"), device="cpu")
+    assert len(moe.layers) == 2 and moe.layers[0].moe.w_gate.shape[0] == 8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("phi3.5-moe-42b-a6.6b-smoke"), device="cpu")
+        build_model(get_config("llama-3.2-vision-11b-smoke"), device="cpu")
 
 
 def test_cpu_session_trains_on_the_cpu():

@@ -1,5 +1,5 @@
-"""The port's LM serving path (`dense`, `ssm` and `hybrid` families)
-against the JAX reference, at smoke size on the CPU.
+"""The port's LM serving path (`dense`, `ssm`, `hybrid` and `moe`
+families) against the JAX reference, at smoke size on the CPU.
 
 The reference's parameters (`lm.init_params`) are carried into the port by
 `models/convert.params_from_jax`; the same numpy tokens, made from a seed,
@@ -7,8 +7,13 @@ go to both.  Configurations: `zamba2-7b-smoke` (2 groups of 1 shared
 attention + 3 Mamba2 blocks, no tail), a tail variant of it (n_layers=10,
 attn_every=4: 2 groups and 2 tail blocks, as the full model has a tail),
 `mamba2-370m-smoke`, the four dense smoke variants (each with one kv head,
-`smoke_variant`'s rule) and `yi-9b-gqa`, yi-9b-smoke with 8 query heads
-over 2 kv heads, so that grouped-query attention runs with real groups.
+`smoke_variant`'s rule), `yi-9b-gqa`, yi-9b-smoke with 8 query heads
+over 2 kv heads, so that grouped-query attention runs with real groups,
+and the two MoE smoke variants: `deepseek-v2-lite-16b-smoke` (MLA, a
+dense layer 0, 8 experts top-2 and 2 shared) and
+`phi3.5-moe-42b-a6.6b-smoke` (GQA, 8 experts top-2), both drop-free
+(`smoke_variant` sets capacity_factor = E / k); the MoE layer with drops
+is held to the reference in tests/test_torch_moe.py.
 The reference inits QKV biases, LayerNorm shifts and the GELU MLP's
 biases to zero and LayerNorm scales to one; the bias tests draw those
 leaves from a seed on the reference's tree before conversion.
@@ -24,7 +29,9 @@ Tolerances, relative to the reference tensor's max magnitude:
   like the op-by-op reference, rounds after every op.
 """
 
+import contextlib
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -35,9 +42,11 @@ import torch
 from repro.configs import REGISTRY as JREGISTRY
 from repro.configs import get_config as jget_config
 from repro.models import lm as jlm
+from repro.models import moe as jmoe
 from repro.serving import ServeEngine as JServeEngine
 from repro_torch.configs import REGISTRY, get_config
 from repro_torch.models import convert, lm
+from repro_torch.models import moe as tmoe
 from repro_torch.serving import ServeEngine
 
 B, S, MAXS, NEW = 2, 37, 48, 6
@@ -50,6 +59,8 @@ VARIANTS = {
     "qwen2.5-3b-smoke": {},
     "starcoder2-15b-smoke": {},
     "yi-9b-gqa": dict(n_heads=8, n_kv_heads=2),
+    "deepseek-v2-lite-16b-smoke": {},
+    "phi3.5-moe-42b-a6.6b-smoke": {},
 }
 # the registry configuration each variant changes
 BASES = {"zamba2-tail": "zamba2-7b-smoke", "yi-9b-gqa": "yi-9b-smoke"}
@@ -119,10 +130,97 @@ def test_registry_matches_reference(name, smoke):
     assert sorted(REGISTRY) == sorted(JREGISTRY)
 
 
+@contextlib.contextmanager
+def _moe_calls():
+    """Record every MoE layer call of both packages, in call order: the
+    reference's input, router gates, output and `dropless`, and the port's
+    gates.  The reference's recorder reads values, so it must run op by op
+    (`jax.disable_jit()`, with `remat=False`: remat changes only the
+    backward)."""
+    jcalls, tcalls = [], []
+    jorig, torig = jmoe._moe_apply, tmoe.moe_apply
+
+    def jspy(p, x, cfg, return_stats=False, dropless=False):
+        out = jorig(p, x, cfg, return_stats, dropless)
+        gates = jax.nn.softmax(x.reshape(-1, x.shape[-1]).astype(jnp.float32)
+                               @ p["router"], axis=-1)
+        jcalls.append(dict(p=p, x=np.asarray(x), gates=np.asarray(gates),
+                           dropless=dropless,
+                           y=np.asarray(out[0] if return_stats else out,
+                                        np.float32)))
+        return out
+
+    def tspy(p, x, cfg, return_stats=False, dropless=False):
+        gates = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p.router,
+                              dim=-1)
+        tcalls.append(dict(gates=gates.numpy()))
+        return torig(p, x, cfg, return_stats, dropless)
+
+    jmoe._moe_apply, tmoe.moe_apply = jspy, tspy
+    try:
+        yield jcalls, tcalls
+    finally:
+        jmoe._moe_apply, tmoe.moe_apply = jorig, torig
+
+
+def _top_k(gates, k):
+    """Each row's top-k experts, the lower index first among ties (as
+    `lax.top_k` and the port's stable sort take them)."""
+    return np.argsort(-gates, axis=-1, kind="stable")[:, :k]
+
+
+def _router_flips(jcfg, cfg, model, jcalls, tcalls, tol):
+    """The steps (0: prefill, i: decode step i) at which the port's router
+    chose other experts than the reference's for some token, counted layer
+    by layer.  Each flip must be a near-tie in the reference's own gates
+    (the two experts within `tol` of each other, relative): bf16 rounding
+    of the layer's input, not a fault.  Then every layer call is held on
+    the reference's own input: the port's `moe_apply` with the
+    reference's parameters picks the reference's experts and returns its
+    output to `tol`."""
+    k = cfg.moe.top_k
+    n_moe = len(model.layers)
+    assert len(jcalls) == len(tcalls) == 4 * n_moe
+    flips = {}
+    for c, (jc, tc) in enumerate(zip(jcalls, tcalls)):
+        want, got = _top_k(jc["gates"], k), _top_k(tc["gates"], k)
+        rows = np.nonzero((np.sort(want, -1) != np.sort(got, -1)).any(-1))[0]
+        if len(rows):
+            flips[(c // n_moe, c % n_moe)] = len(rows)
+        for r in rows:
+            g = jc["gates"][r]
+            lost = sorted(set(want[r]) - set(got[r]))
+            won = sorted(set(got[r]) - set(want[r]))
+            assert (g[lost].min() - g[won].max()) / g[lost].min() < tol, \
+                (c, r, g[lost], g[won])
+    for jc in jcalls:
+        p = tmoe.MoE(cfg.d_model, cfg.moe, torch.bfloat16, "cpu")
+        p.load_state_dict({n: convert.to_torch(np.asarray(a))
+                           for n, a in jc["p"].items()})
+        x = convert.to_torch(jc["x"])
+        gates = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p.router,
+                              dim=-1)
+        np.testing.assert_array_equal(_top_k(gates.numpy(), k),
+                                      _top_k(jc["gates"], k))
+        y = tmoe.moe_apply(p, x, cfg.moe, dropless=jc["dropless"])
+        assert _rel(y, jc["y"]) < tol
+    return flips
+
+
 def _match_prefill_and_decode(jcfg, cfg, params, model, dtype, toks):
     """Prefill logits, every cache tensor and three decode steps' logits
-    of the port against the reference's, at the file's tolerances."""
+    of the port against the reference's, at the file's tolerances.
+
+    In bf16 a near-tie in an MoE router can flip an expert choice between
+    the packages, and the logits of that step and the steps after part by
+    more than rounding.  So for a bf16 MoE model every layer's choices
+    are counted (`_router_flips`): the steps before the first flip are
+    held end to end, and the flips and every layer call as
+    `_router_flips` says."""
     tol = 1e-4 if dtype == "float32" else 3e-2
+    routed = dtype != "float32" and cfg.family == "moe"
+    if routed:
+        jcfg = dataclasses.replace(jcfg, remat=False)
 
     def jrun():
         jl, jc = jlm.prefill_fn(jcfg, params, {"tokens": jnp.asarray(toks)},
@@ -134,26 +232,43 @@ def _match_prefill_and_decode(jcfg, cfg, params, model, dtype, toks):
             out.append((jl, None))
         return out
 
-    if dtype == "float32":
-        want = jrun()
-    else:
-        with jax.disable_jit():
+    with _moe_calls() if routed else contextlib.nullcontext() as calls:
+        if dtype == "float32":
             want = jrun()
-    logits, caches = lm.prefill_fn(cfg, model,
-                                   {"tokens": torch.from_numpy(toks)}, MAXS)
-    assert logits.shape == (B, 1, cfg.vocab) and logits.dtype == torch.float32
-    assert _rel(logits, want[0][0]) < tol
-    assert sorted(caches) == sorted(want[0][1])
+        else:
+            with jax.disable_jit():
+                want = jrun()
+        logits, caches = lm.prefill_fn(cfg, model,
+                                       {"tokens": torch.from_numpy(toks)},
+                                       MAXS)
+        # decode updates the caches in place: keep the prefill's
+        got = [(logits, {k: v.clone() for k, v in caches.items()})]
+        for i in range(3):
+            # the reference's own next token, so both decode the same
+            # sequence
+            tok = np.argmax(np.asarray(want[i][0])[:, 0], -1)
+            logits, caches = lm.decode_fn(cfg, model,
+                                          torch.from_numpy(tok)[:, None],
+                                          caches, S + i)
+            got.append((logits, None))
+    held = len(got)
+    if routed:
+        flips = _router_flips(jcfg, cfg, model, *calls, tol)
+        if flips:
+            warnings.warn(f"{cfg.name}, bf16: router near-ties chose other "
+                          f"experts (step, layer): tokens {flips}; the "
+                          f"steps from {min(flips)[0]} on are held layer by "
+                          f"layer on the reference's inputs")
+            held = min(flips)[0]
+    assert got[0][0].shape == (B, 1, cfg.vocab)
+    assert got[0][0].dtype == torch.float32
+    assert sorted(got[0][1]) == sorted(want[0][1])
+    for i in range(held):
+        assert _rel(got[i][0], want[i][0]) < tol, i
     for k, v in want[0][1].items():
-        assert tuple(caches[k].shape) == v.shape, k
-        assert _rel(caches[k], v) < tol, k
-    for i in range(3):
-        # the reference's own next token, so both decode the same sequence
-        tok = np.argmax(np.asarray(want[i][0])[:, 0], -1)
-        logits, caches = lm.decode_fn(cfg, model,
-                                      torch.from_numpy(tok)[:, None], caches,
-                                      S + i)
-        assert _rel(logits, want[i + 1][0]) < tol, i
+        assert tuple(got[0][1][k].shape) == v.shape, k
+        if held:
+            assert _rel(got[0][1][k], v) < tol, k
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
@@ -317,11 +432,15 @@ def test_build_model_draws_the_reference_init():
 
 
 @pytest.mark.parametrize("name", ["yi-9b-smoke", "qwen2.5-3b-smoke",
-                                  "starcoder2-15b-smoke"])
+                                  "starcoder2-15b-smoke",
+                                  "deepseek-v2-lite-16b-smoke",
+                                  "phi3.5-moe-42b-a6.6b-smoke"])
 def test_build_model_draws_the_reference_init_dense(name):
     """The same for dense trees: RMSNorm and SwiGLU with an lm_head (Yi),
     QKV biases and tied embeddings (Qwen2.5), LayerNorm, GELU and QKV
-    biases (StarCoder2)."""
+    biases (StarCoder2); and for MoE trees: MLA, the dense layer0, the
+    float32 router, the (E, in, out) experts and the shared experts
+    (DeepSeek-V2-Lite), GQA experts (Phi-3.5-MoE)."""
     _draws_the_reference_init(name)
 
 
@@ -336,9 +455,7 @@ def test_converter_carries_bfloat16_bits():
                                   np.asarray(x, np.float32))
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
-                                  "phi3.5-moe-42b-a6.6b",
-                                  "llama-3.2-vision-11b", "whisper-base"])
+@pytest.mark.parametrize("name", ["llama-3.2-vision-11b", "whisper-base"])
 def test_unported_families_raise_when_built(name):
     cfg = get_config(name)            # looking a config up works
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -373,6 +490,15 @@ def test_cli_serves_a_dense_arch_on_the_cpu(capsys):
     from repro_torch.launch import serve
     out = serve.main(["--arch", "yi-9b-smoke", "--device", "cpu",
                       "--batch", "2", "--prompt-len", "9",
+                      "--new-tokens", "3"])
+    assert out.shape == (2, 3) and out.dtype == np.int32
+    assert "on cpu" in capsys.readouterr().out
+
+
+def test_cli_serves_a_moe_arch_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", "deepseek-v2-lite-16b-smoke", "--device",
+                      "cpu", "--batch", "2", "--prompt-len", "9",
                       "--new-tokens", "3"])
     assert out.shape == (2, 3) and out.dtype == np.int32
     assert "on cpu" in capsys.readouterr().out

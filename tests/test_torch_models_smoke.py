@@ -1,6 +1,7 @@
 """Twin of tests/test_models_smoke.py's `test_smoke_forward_and_decode` for
-the families the port builds: the four dense architectures' smoke
-variants, with the reference's parameters carried over by
+the families the port builds: the four dense and the two MoE
+architectures' smoke variants, with the reference's parameters carried
+over by
 `models/convert.params_from_jax` and the reference test's batch shape.
 
 Prefill logits (B, 1, V) and finite, one decode step's logits finite, and
@@ -22,6 +23,7 @@ from repro_torch.models import convert, lm
 
 B, S, MAXS = 2, 32, 48
 DENSE = [a for a in ARCH_NAMES if get_config(a).family == "dense"]
+MOE = [a for a in ARCH_NAMES if get_config(a).family == "moe"]
 
 
 def test_dense_archs_are_the_reference_dense_archs():
@@ -30,7 +32,12 @@ def test_dense_archs_are_the_reference_dense_archs():
     assert len(DENSE) == 4
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def test_moe_archs_are_the_reference_moe_archs():
+    assert MOE == [a for a in JARCH_NAMES if jget_config(a).family == "moe"]
+    assert len(MOE) == 2
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_smoke_forward_and_decode(arch):
     cfg = get_config(arch + "-smoke")
     params, _ = jlm.init_params(jget_config(arch + "-smoke"),

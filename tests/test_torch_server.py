@@ -37,6 +37,12 @@ def make_data(n=N, seed=0):
 
 
 def make_server(pk, **kw):
+    """A server of `pk` holding table t.  The tests that hold launch or
+    memory counters equal across packages pass `speculation=False`: under
+    a loaded host a task can run past 4x the median, and its speculative
+    backup scans, misses and splits its partition again (the abandoned
+    attempt too, at times after the query has returned), so the counters
+    would follow task timing."""
     kw.setdefault("num_workers", 4)
     kw.setdefault("max_threads", 4)
     kw.setdefault("default_partitions", 8)
@@ -121,7 +127,7 @@ def test_eviction_under_concurrent_tasks():
 
 def test_unlimited_budget_caches_scans():
     def body(pk):
-        srv = make_server(pk, enable_result_cache=False)
+        srv = make_server(pk, enable_result_cache=False, speculation=False)
         try:
             ref = groupby_ref(make_data())
             out = [check_result(srv.sql(QUERY), ref) for _ in range(2)]
@@ -138,7 +144,8 @@ def test_unlimited_budget_caches_scans():
 def test_bypass_when_partition_exceeds_budget():
     def body(pk):
         srv = make_server(pk, cache_budget_bytes=10_000,  # < one partition
-                          enable_result_cache=False, max_threads=1)
+                          enable_result_cache=False, max_threads=1,
+                          speculation=False)
         try:
             got = check_result(srv.sql(QUERY), groupby_ref(make_data()))
             mem = counters(srv)
@@ -484,7 +491,7 @@ def test_two_clients_at_once_on_forced_kernel_routes():
             segment_force_kernels=True, reduce_force_compiled=True,
             segment_kernel_min_rows=256)
         srv = make_server(pk, pde_config=cfg, enable_result_cache=False,
-                          max_concurrent_queries=2)
+                          max_concurrent_queries=2, speculation=False)
         try:
             out, errors = {}, []
 
@@ -525,7 +532,8 @@ def test_decode_memos_go_before_result_entries(budget):
     count_q = "SELECT COUNT(*) AS c FROM t WHERE a < 7"
 
     def body(pk):
-        srv = make_server(pk, cache_budget_bytes=budget, max_threads=1)
+        srv = make_server(pk, cache_budget_bytes=budget, max_threads=1,
+                          speculation=False)
         try:
             first = srv.sql_np(count_q)
             srv.sql(QUERY)

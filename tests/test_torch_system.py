@@ -11,7 +11,8 @@ predictions.  The port's model was fitted on a CPU session, so `predict`
 runs on the CPU with no `device=`.  `test_serving_greedy_deterministic`
 is the twin of the reference file's serving test: two engines over the
 same yi-9b-smoke weights (the reference's, carried over by
-`models/convert.params_from_jax`) give the same greedy tokens.  The
+`models/convert.params_from_jax`) give the same greedy tokens, and
+`test_serving_greedy_deterministic_moe` the same for an MoE arch.  The
 reference file's LM-training test waits for the port's training substrate
 (ROADMAP A.5) and its XLA dry-run test gets no twin.
 """
@@ -119,6 +120,31 @@ def test_serving_greedy_deterministic():
     model = convert.params_from_jax(jax.tree.map(np.asarray, params), cfg,
                                     lm.build_model(cfg, "cpu"))
     assert model.embed.tok.dtype == torch.bfloat16
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    out1 = ServeEngine(cfg, model, max_seq=48).generate(prompts, 8)
+    out2 = ServeEngine(cfg, model, max_seq=48).generate(prompts, 8)
+    assert out1.shape == (2, 8) and out1.dtype == np.int32
+    np.testing.assert_array_equal(out1, out2)
+
+
+def test_serving_greedy_deterministic_moe():
+    """The same for the MoE family: DeepSeek-V2-Lite's smoke variant (MLA,
+    a dense layer 0, routed and shared experts), the reference's bf16
+    parameters carried over."""
+    import jax
+    import torch
+    from repro.configs import get_config as jget_config
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert, lm
+    from repro_torch.serving import ServeEngine
+    name = "deepseek-v2-lite-16b-smoke"
+    cfg = get_config(name)
+    params, _ = jlm.init_params(jget_config(name), jax.random.PRNGKey(0))
+    model = convert.params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                    lm.build_model(cfg, "cpu"))
+    assert model.layers[0].moe.w_up.dtype == torch.bfloat16
     rng = np.random.default_rng(3)
     prompts = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
     out1 = ServeEngine(cfg, model, max_seq=48).generate(prompts, 8)
