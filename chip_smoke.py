@@ -187,6 +187,33 @@ prefill, float32 kernels vs plain and decode vs full forward, drop-free,
 within 1e-3.  The `kernels` line gives kernel 11 its phase-10 launches as
 `moe_launches`, and the run fails if phase 10 launched no flash.
 
+Phase 11 (after phase 10, whose models it releases first) serves the
+cross-attending families, each request with its stub frontend output,
+bf16 N(0, 1) drawn on the card from `--seed`, and the gates, norms and
+biases drawn from the seed (the reference's zero gates would hide the
+cross layers): Llama-3.2-Vision-11B (hf:meta-llama/Llama-3.2-11B-Vision
+as the registry defines it: 40 layers in 8 groups of 4 dense blocks and
+1 gated cross layer, d_model 4096, 32 query heads over 8 kv heads of
+128, d_ff 14336, vocab 128,256, about 9.8 B random bf16 weights) whole
+on phase 5's requests over 1,601 image tokens a request: 40
+`flash_attention_fwd` launches a prefill, 32 causal and 8 non-causal at
+T = 1,601, all on the tensor-core route, float32 checks within 1e-3 on
+the 1 x 1,000 request; then Whisper-base (arXiv:2212.04356: 6 encoder
+and 6 decoder blocks, d_model 512, 8 heads of 64, LayerNorm, GELU) whole
+over 1,500 frames a request, on 4 x (64 + 384) and 1 x (16 + 64) tokens
+(within its 448-token text context): 18 launches a prefill (6 non-causal
+encoder, 6 causal self, 6 non-causal cross), float32 checks on both
+requests.  Phase 5's prints and checks hold for both.  The `kernels`
+line gives kernel 11 its phase-11 launches as `vlm_launches` and
+`encdec_launches`, and the run fails if either model launched no flash.
+Phase 1 also holds kernel 11 non-causally at S != T and ragged T on both
+routes (Llama's 4 x 2,048 and 1 x 1,000 queries against 1,601 image
+tokens, Whisper's 1,500 x 1,500 and 64 x 1,500, and S > T), checks that
+one such call is one kernel, and times it at Llama's cross shape beside
+its bound and `scaled_dot_product_attention(..., enable_gqa=True)` as
+row `11X` (`kernels[...]["cross"]`, its `launches` the vlm model's
+main-path flash launches, 8 of every 40 of them cross).
+
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
 device (and without `--device cpu`), or outside a checkout of the repo,
@@ -2626,17 +2653,24 @@ LM_BATCH, LM_SEQ = 4, 2048
 ATT_HEADS, ATT_HD = 32, 112
 # Yi-9B's prefill attention: 32 query heads over 4 kv heads of 128
 GQA_HEADS, GQA_KV, GQA_HD = 32, 4, 128
+# Llama-3.2-Vision-11B's cross-attention prefill: 32 query heads over 8 kv
+# heads of 128 against 1,601 image tokens (row 11X)
+CROSS_HEADS, CROSS_KV, CROSS_HD, CROSS_T = 32, 8, 128, 1601
 SSD_HEADS, SSD_P, SSD_N, SSD_CHUNK, SSD_TILE = 64, 112, 64, 256, 64
 BF16_STEP = 2.0 ** -7            # one bfloat16 rounding step, relative
 
 
-def flash_cost(b, h, s, hd, itemsize, kv=None):
-    """(bytes, flops) of causal attention: q and k, v (kv heads, default h)
-    read and o written once; two hd-long dot products per (row, col <=
-    row) pair of each query head."""
+def flash_cost(b, h, s, hd, itemsize, kv=None, t=None):
+    """(bytes, flops) of attention: q and k, v (kv heads, default h; t rows,
+    default s) read and o written once; two hd-long dot products per (row,
+    col) pair of each query head, col <= row when causal (t None), every
+    col of t otherwise."""
     kv = h if kv is None else kv
-    return ((2.0 * h + 2.0 * kv) * b * s * hd * itemsize,
-            4.0 * b * h * hd * s * (s + 1) / 2)
+    if t is None:
+        return ((2.0 * h + 2.0 * kv) * b * s * hd * itemsize,
+                4.0 * b * h * hd * s * (s + 1) / 2)
+    return ((2.0 * h * s + 2.0 * kv * t) * b * hd * itemsize,
+            4.0 * b * h * hd * s * t)
 
 
 def ssd_cost(b, s, h, p, n, itemsize):
@@ -2653,8 +2687,11 @@ def ssd_cost(b, s, h, p, n, itemsize):
 def phase_kernels_lm(torch, device, seed: int) -> dict:
     """The flash and SSD kernels against their plain versions on the device,
     at Zamba2's prefill shapes, at Mamba2-370m's SSD head geometry, at a
-    ragged S = 1000, at head dims 64 and 128 and in float32; then each timed
-    at Zamba2's prefill shape in the layout the model hands it."""
+    ragged S = 1000, at head dims 64 and 128 and in float32, flash with
+    fewer kv heads (GQA) and non-causal at S != T (cross-attention); then
+    each timed at Zamba2's prefill shape in the layout the model hands it,
+    flash also at Yi-9B's (row 11G) and at Llama-3.2-Vision's cross
+    shape (row 11X)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ssd_scan as ks
     import torch.nn.functional as F
@@ -2720,6 +2757,39 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
             fail(f"GQA flash ({b}, {h} over {kv}, {s}, {hd}, {dt}, "
                  f"causal={causal}) rel err {rel}")
         err_gqa = max(err_gqa, float((got - want).abs().max()))
+    # cross-attention (non-causal, S queries against T != S keys, ragged
+    # T): Llama-3.2-Vision's prefill against its 1,601 image tokens (4 x
+    # 2,048 and 1 x 1,000), Whisper's encoder (S = T = 1,500, hd 64) and
+    # decoder against its 1,500 frames, and S > T; both routes, the same
+    # tolerances
+    err_cross = 0.0
+    for b, h, kv, s, tk, hd in (
+            (LM_BATCH, CROSS_HEADS, CROSS_KV, LM_SEQ, CROSS_T, CROSS_HD),
+            (1, CROSS_HEADS, CROSS_KV, 1000, CROSS_T, CROSS_HD),
+            (LM_BATCH, 8, 8, 1500, 1500, 64),
+            (LM_BATCH, 8, 8, 64, 1500, 64),
+            (2, 8, 2, 700, 129, 64)):
+        for dt in (bf16, f32):
+            hh = kv * max(1, h // kv // cut)
+            q = t(rng.normal(size=(b, s, hh, hd)), dt).transpose(1, 2)
+            off = np.arange(kv)[:, None]
+            k = t(rng.normal(size=(b, tk, kv, hd)) + 0.5 * off, dt) \
+                .transpose(1, 2)
+            v = t(rng.normal(size=(b, tk, kv, hd)) + 3.0 * off, dt) \
+                .transpose(1, 2)
+            route = "tensor_core" if dt == bf16 else "simt"
+            before = dict(kf.ROUTES)
+            got = kf.flash_attention_fwd(q, k, v, False).float()
+            if device.type == "cuda" and kf.ROUTES[route] != before[route] + 1:
+                fail(f"cross flash ({b}, {hh} over {kv}, {s}, {tk}, {hd}, "
+                     f"{dt}) did not take route {route}")
+            want = kf.flash_attention_fwd_plain(q, k, v, False).float()
+            rel = float((got - want).abs().max() / want.abs().max())
+            if not (np.isfinite(rel)
+                    and rel < (0.03 if dt == bf16 else 1e-4)):
+                fail(f"cross flash ({b}, {hh} over {kv}, S {s}, T {tk}, "
+                     f"{hd}, {dt}) rel err {rel}")
+            err_cross = max(err_cross, float((got - want).abs().max()))
     # SSD: rtol = atol = 1e-3 on y and the final state (the reference's
     # kernel test); a bf16 y is rounded once to bf16 on both sides, so two
     # values that close may still round one bf16 step apart
@@ -2754,9 +2824,9 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
                               float((st - sp).abs().max()))
     if device.type == "cuda":
         torch.cuda.synchronize()
-    print(f"phase 1: flash (MHA and GQA) and SSD kernels match their plain "
-          f"versions, max abs err {json.dumps(err)}, GQA {err_gqa}",
-          flush=True)
+    print(f"phase 1: flash (MHA, GQA and cross at S != T) and SSD kernels "
+          f"match their plain versions, max abs err {json.dumps(err)}, GQA "
+          f"{err_gqa}, cross {err_cross}", flush=True)
 
     timer = Timer(torch, device)
     b, s = LM_BATCH, LM_SEQ
@@ -2847,6 +2917,56 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
     print(f"phase 1: GQA flash (row 11G) {gf / 1e9:.1f} GFLOP / "
           f"{gb / 1e6:.1f} MB at {gqa['shape']}: {json.dumps(gqa)}",
           flush=True)
+    # row 11X: Llama-3.2-Vision's cross-attention prefill, non-causal, 4 x
+    # 2,048 queries against 1,601 image tokens of 8 kv heads
+    xh = CROSS_KV * max(1, CROSS_HEADS // CROSS_KV // cut)
+    qx = t(rng.normal(size=(b, s, xh, CROSS_HD)), bf16).transpose(1, 2)
+    kx, vx = (t(rng.normal(size=(b, CROSS_T, CROSS_KV, CROSS_HD)), bf16)
+              .transpose(1, 2) for _ in range(2))
+    sdpa_x = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qx, kx, vx, enable_gqa=True)
+    try:
+        sdpa_x()
+        x_call = "scaled_dot_product_attention(enable_gqa=True)"
+    except TypeError:
+        kr, vr = (x.repeat_interleave(xh // CROSS_KV, dim=1)
+                  for x in (kx, vx))
+        sdpa_x = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qx, kr, vr)
+        x_call = "scaled_dot_product_attention on k/v repeated beforehand"
+    if device.type == "cuda":
+        one_kernel("bf16 cross flash_attention_fwd (32 heads over 8, T "
+                   "1,601)", lambda: kf.flash_attention_fwd(qx, kx, vx,
+                                                            False))
+    xb, xf = flash_cost(b, xh, s, CROSS_HD, 2, CROSS_KV, CROSS_T)
+    x_ms, x_by = bound(xb, xf, BF16_OPS_PER_S)
+    cross = {
+        "row": "11X", "name": "flash_attention_fwd", "route": "cuda",
+        "source": SOURCES["flash_attention_fwd"],
+        "replaces": TPU_KERNELS["flash_attention_fwd"],
+        "shape": [b, xh, CROSS_KV, s, CROSS_T, CROSS_HD], "causal": False,
+        "launches": 0, "max_abs_err": err_cross,
+        "ms": timer(lambda: kf.flash_attention_fwd(qx, kx, vx, False),
+                    reps=10, warmup=2),
+        "device_ms": timer.graphed(
+            lambda: kf.flash_attention_fwd(qx, kx, vx, False), calls=5,
+            replays=4),
+        "plain_ms": timer(lambda: kf.flash_attention_fwd_plain(qx, kx, vx,
+                                                               False),
+                          reps=3, warmup=1),
+        "bound_ms": x_ms, "bound_by": x_by,
+        "library_ms": timer(sdpa_x, reps=10, warmup=2),
+        "library_device_ms": timer.graphed(sdpa_x, calls=5, replays=4),
+        "library_call": x_call,
+    }
+    if cross["device_ms"] is not None:
+        cross["tflops"] = xf / (cross["device_ms"] * 1e-3) / 1e12
+        cross["library_tflops"] = (xf / (cross["library_device_ms"] * 1e-3)
+                                   / 1e12)
+    out["flash_attention_fwd"]["cross"] = cross
+    print(f"phase 1: cross flash (row 11X) {xf / 1e9:.1f} GFLOP / "
+          f"{xb / 1e6:.1f} MB at {cross['shape']}: {json.dumps(cross)}",
+          flush=True)
     flash, ssd = out["flash_attention_fwd"], out["ssd_scan"]
     if flash["device_ms"] is not None:
         # achieved rates of the tensor-core routes over the causal flops
@@ -2902,9 +3022,12 @@ def on_card(label: str, what: str, tensors) -> None:
 
 def serve_model(torch, device, seed: int, label: str, cfg, requests,
                 per_prefill: dict, trace: bool = True, draw=None,
-                checks=None, check_cfg=None) -> dict:
+                checks=None, check_cfg=None, extra=None) -> dict:
     """Serve `cfg` (bf16 weights drawn on the device from `seed`, then
-    `draw(model, generator)` if given) through ServeEngine: per request,
+    `draw(model, generator)` if given; `extra(b)`, if given, draws each
+    request's other prefill inputs, a vlm model's image embeddings or an
+    encdec model's frames, used by every call on that request) through
+    ServeEngine: per request,
     the prefill and decode times, peak device memory and the launches of
     one prefill, which must be `per_prefill` ({kernel: launches}), every
     bf16 flash and SSD launch on its tensor-core route, and every weight,
@@ -2976,12 +3099,13 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
     rng = np.random.default_rng(seed + 6)
     prompts = [rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
                for b, s, _ in requests]
+    extras = [extra(b) if extra is not None else {} for b, _, _ in requests]
 
-    def prefill(toks, max_seq, c=cfg):
-        return lm.prefill_fn(c, model, {"tokens": toks}, max_seq)
+    def prefill(toks, max_seq, ex, c=cfg):
+        return lm.prefill_fn(c, model, {"tokens": toks, **ex}, max_seq)
 
-    def full_forward_last(toks, c=cfg):
-        h = lm._backbone_full(c, model, toks)
+    def full_forward_last(toks, ex, c=cfg):
+        h = lm._backbone_full(c, model, toks, extra=ex)
         return (h[:, -1:] @ lm._unembed(c, model)).float()
 
     def router_stats(toks) -> str:
@@ -3001,14 +3125,14 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
 
     bf16_logits = []
     peak = 0
-    for (b, s, new), prompt in zip(requests, prompts):
+    for (b, s, new), prompt, ex in zip(requests, prompts, extras):
         max_seq = s + new
         toks = torch.from_numpy(prompt).to(device)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t = time.perf_counter()
-        logits, caches = prefill(toks, max_seq)
+        logits, caches = prefill(toks, max_seq, ex)
         sync()
         first_ms = (time.perf_counter() - t) * 1e3
         counts = {k: ops.launch_counts()[k] for k in kernels}
@@ -3024,9 +3148,9 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
                     [*model.parameters(), *model.buffers(),
                      *caches.values(), logits])
         with plain_routes():
-            logits_plain, _ = prefill(toks, max_seq)
+            logits_plain, _ = prefill(toks, max_seq, ex)
         t = time.perf_counter()
-        logits, caches = prefill(toks, max_seq)
+        logits, caches = prefill(toks, max_seq, ex)
         sync()
         warm_ms = (time.perf_counter() - t) * 1e3
         tok = torch.argmax(logits[:, -1], dim=-1)
@@ -3044,7 +3168,7 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
             fail(f"{label}: decode logits not finite")
         first_tok = torch.argmax(logits[:, -1], dim=-1)
         full = full_forward_last(torch.cat([toks.long(), first_tok[:, None]],
-                                           dim=1))
+                                           dim=1), ex)
         bf16_logits.append((logits, logits_plain, first_dec, full))
         mem = ""
         if cuda:
@@ -3065,7 +3189,7 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
                   flush=True)
         if cuda and trace and b == requests[0][0]:
             traced(torch, device, f"{label}: one prefill, {b} x {s}",
-                   lambda: prefill(toks, max_seq))
+                   lambda: prefill(toks, max_seq, ex))
             traced(torch, device, f"{label}: one warm decode step",
                    lambda: lm.decode_fn(cfg, model, tok[:, None], caches,
                                         s + DECODE_STEPS))
@@ -3075,11 +3199,11 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    for (b, s, new), prompt in zip(requests, prompts):
+    for (b, s, new), prompt, ex in zip(requests, prompts, extras):
         eng = ServeEngine(cfg, model, max_seq=s + new, temperature=0.0,
                           seed=seed)
         t = time.perf_counter()
-        out = eng.generate(prompt, new)
+        out = eng.generate(prompt, new, ex)
         gen_s = time.perf_counter() - t
         if not (out.shape == (b, new) and out.dtype == np.int32
                 and ((out >= 0) & (out < cfg.vocab)).all()):
@@ -3097,17 +3221,17 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
         print(f"{label}: peak device memory serving bf16 {peak} bytes",
               flush=True)
 
-    def f32_gaps(c, toks, s, max_seq):
+    def f32_gaps(c, toks, s, max_seq, ex):
         """(kernels vs plain, decode vs full forward, logits, plain
         logits) of one request on the float32 weights, computed with c."""
-        logits, caches = prefill(toks, max_seq, c)
+        logits, caches = prefill(toks, max_seq, ex, c)
         with plain_routes():
-            logits_plain, _ = prefill(toks, max_seq, c)
+            logits_plain, _ = prefill(toks, max_seq, ex, c)
         tok = torch.argmax(logits[:, -1], dim=-1)
         logits_d, _ = lm.decode_fn(c, model, tok[:, None], caches, s)
         del caches
         full = full_forward_last(torch.cat([toks.long(), tok[:, None]], dim=1),
-                                 c)
+                                 ex, c)
         return (rel(logits, logits_plain), rel(logits_d, full), logits,
                 logits_plain)
 
@@ -3124,7 +3248,7 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
         lk16, lp16, ld16, lf16 = bf16_logits[i]
         toks = torch.from_numpy(prompt).to(device)
         r_plain, r_dec, logits, logits_plain = f32_gaps(gated, toks, s,
-                                                        s + new)
+                                                        s + new, extras[i])
         what = ""
         if check_cfg is not None:
             what = (f" (capacity factor {check_cfg.moe.capacity_factor:g}, "
@@ -3140,7 +3264,8 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
             # the bf16 runs served cfg: their rounding is read against
             # float32 at cfg too
             r_plain, r_dec, logits, logits_plain = f32_gaps(cfg, toks, s,
-                                                            s + new)
+                                                            s + new,
+                                                            extras[i])
             print(f"{label}: request {b} x {s}, float32 weights at the "
                   f"served capacity factor {cfg.moe.capacity_factor:g} "
                   f"(reported, not gated: the full forward may drop the "
@@ -3183,14 +3308,22 @@ DENSE_COVER_REQUESTS = ((1, 1000, 8),)
 
 def draw_biases_and_norms(model, gen) -> None:
     """The parameters the reference initializes to constants (QKV biases,
-    the GELU MLP's biases, norm shifts to zero, norm scales to one) drawn
-    from `gen`: N(0, 0.1^2), scales 1 + N(0, 0.1^2), so that the bias and
-    LayerNorm paths compute with non-trivial values."""
+    the GELU MLP's biases, norm shifts to zero, norm scales to one, the vlm
+    cross layers' gates to zero) drawn from `gen`: N(0, 0.1^2), scales 1 +
+    N(0, 0.1^2), gates N(0, 1), so that the bias, LayerNorm and cross
+    paths compute with non-trivial values (a zero gate hides its cross
+    layer)."""
     import torch
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        norm = ".ln" in f".{name}" or name.startswith("final_norm")
-        if leaf in ("bq", "bk", "bv", "fc_b", "proj_b") or (
+        parts = name.split(".")
+        leaf = parts[-1]
+        norm = ".ln" in f".{name}" or parts[0] in ("final_norm",
+                                                    "enc_final_norm")
+        if parts[0] == "cross_layers" and leaf in ("gate", "mlp_gate") \
+                and len(parts) == 3:
+            p.data.copy_(torch.randn(p.shape, generator=gen,
+                                     device=p.device))
+        elif leaf in ("bq", "bk", "bv", "fc_b", "proj_b") or (
                 norm and leaf in ("w", "b")):
             x = torch.randn(p.shape, generator=gen, device=p.device) * 0.1
             p.data.copy_(x + (1.0 if leaf == "w" else 0.0))
@@ -3305,6 +3438,72 @@ def phase_moe(torch, device, seed: int) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 11
+
+# Llama-3.2-Vision-11B (hf:meta-llama/Llama-3.2-11B-Vision) served whole on
+# phase 5's requests over 1,601 stub image tokens a request; Whisper-base
+# (arXiv:2212.04356) whole over 1,500 stub frames, its requests within the
+# 448-token text context.  The float32 checks run on the 1 x 1,000 request
+# of Llama (39 GB of float32 weights) and on both of Whisper's
+VLM_ARCH = "llama-3.2-vision-11b"
+ENCDEC_ARCH = "whisper-base"
+ENCDEC_REQUESTS = ((LM_BATCH, 64, 384), (1, 16, 64))
+VLM_CHECKS = (1,)          # REQUESTS[1], 1 x 1,000 + 16
+
+
+def frontend_inputs(torch, device, cfg, seed: int):
+    """`extra(b)` for `serve_model`: a request's bf16 stub frontend output
+    N(0, 1), drawn on the device from `seed` (the reference's specs give
+    bf16 `image_embeds` / `frames`)."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    key = lm.CROSS_INPUTS[cfg.family]
+    t = cfg.n_frontend_tokens if cfg.family == "vlm" else cfg.enc_seq
+
+    def extra(b):
+        return {key: torch.randn((b, t, cfg.d_model), generator=gen,
+                                 device=device).to(torch.bfloat16)}
+    return extra
+
+
+def phase_cross(torch, device, seed: int) -> dict:
+    """Phase 11: the cross-attending families.  Llama-3.2-Vision-11B at
+    full width and depth (40 layers: 8 groups of 4 dense blocks and 1
+    gated cross layer, 32 heads over 8 kv heads of 128) through
+    `serve_model` on phase 5's requests, each with 1,601 bf16 image
+    embeddings: 40 `flash_attention_fwd` launches a prefill (32 causal, 8
+    non-causal at T = 1,601), all on the tensor-core route; then
+    Whisper-base whole (6 encoder and 6 decoder blocks, 8 heads of 64)
+    over 1,500 bf16 frames a request: 18 launches a prefill (6 non-causal
+    encoder, 6 causal self, 6 non-causal cross).  Gates, norms and biases
+    are drawn from the seed.  Returns each model's main-path launches."""
+    from repro_torch.configs import get_config
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {}
+    for fam, arch, requests, checks in (
+            ("vlm", VLM_ARCH, REQUESTS, VLM_CHECKS),
+            ("encdec", ENCDEC_ARCH, ENCDEC_REQUESTS, None)):
+        # the CPU rehearsal serves the smoke variants (same family and path)
+        cfg = get_config(arch if cuda else arch + "-smoke")
+        if fam == "vlm":
+            n_groups = cfg.n_layers // cfg.cross_every
+            flash = n_groups * (cfg.cross_every - 1) + n_groups
+        else:
+            flash = cfg.enc_layers + 2 * cfg.n_layers
+        out[fam] = serve_model(
+            torch, device, seed, f"phase 11 ({arch})", cfg, requests,
+            {"flash_attention_fwd": flash}, trace=fam == "vlm",
+            draw=draw_biases_and_norms, checks=checks,
+            extra=frontend_inputs(torch, device, cfg, seed))
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t_phase:.3f} s of wall, builds "
+          f"included", flush=True)
+    return out
+
+
 def release(torch, device, label: str, after: str) -> None:
     """Free what the last phase left (its models and caches are gone
     with its frame) and the allocator's cache; print the memory held."""
@@ -3363,6 +3562,8 @@ def main() -> int:
     dense = phase_dense(torch, device, args.seed)
     release(torch, device, "phase 10", "phase 9")
     moe = phase_moe(torch, device, args.seed)
+    release(torch, device, "phase 11", "phase 10")
+    cross = phase_cross(torch, device, args.seed)
     if device.type == "cuda":
         idle = [k for k, v in launches.items() if v == 0]
         if idle:
@@ -3371,6 +3572,10 @@ def main() -> int:
             fail(f"phase 9 never launched flash_attention_fwd: {dense}")
         if not moe.get("flash_attention_fwd"):
             fail(f"phase 10 never launched flash_attention_fwd: {moe}")
+        for fam, got in cross.items():
+            if not got.get("flash_attention_fwd"):
+                fail(f"phase 11's {fam} model never launched "
+                     f"flash_attention_fwd: {got}")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
         if name in SQL_KERNELS:
@@ -3383,6 +3588,10 @@ def main() -> int:
             rec["gqa"]["launches"] = dense[name]
         if name in moe:
             rec["moe_launches"] = moe[name]
+        if name in cross["vlm"]:
+            rec["vlm_launches"] = cross["vlm"][name]
+            rec["encdec_launches"] = cross["encdec"][name]
+            rec["cross"]["launches"] = cross["vlm"][name]
     kernels["colscan"]["two_columns"]["launches"] = \
         sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \

@@ -1,15 +1,26 @@
 """GQA self-attention (RoPE, optional QKV bias): prefill and decode, for
-every `dense` layer and the `hybrid` family's shared block.
+every `dense` layer and the `hybrid` family's shared block; and
+cross-attention, for the `vlm` family's gated cross layers and the
+`encdec` decoder's.
 
-Prefill runs causal attention through `kernels.ops.flash_attention_fwd`:
-the hand-written kernel (`kernels/csrc/flash.cu`) on the card, its plain
-masked softmax on the CPU.  Neither repeats k/v heads: the kernel reads
-kv head h // (H // KV) for query head h, and the plain version groups the
-queries by kv head, as the reference does.  `_blockwise_attention` is the
-reference's route (an online softmax over KV chunks in plain torch) and
-the port's oracle for it.  Decode attends one query against the KV cache
-with a length mask, in plain torch, writing the new k/v into the
-preallocated cache in place.
+Prefill runs attention through `kernels.ops.flash_attention_fwd`: the
+hand-written kernel (`kernels/csrc/flash.cu`) on the card, its plain
+masked softmax on the CPU.  Self-attention is causal (Whisper's encoder
+calls it with `causal=False`); cross-attention (`cross_attention`) is
+non-causal, S queries against the T rows of its source, S != T, with no
+RoPE, the reference's `_blockwise_attention(..., causal=False)`.  Neither
+repeats k/v heads: the kernel reads kv head h // (H // KV) for query head
+h, and the plain version groups the queries by kv head, as the reference
+does.  `_blockwise_attention` is the reference's route (an online softmax
+over KV chunks in plain torch) and the port's oracle for it.  Decode
+attends one query against the KV cache with a length mask, in plain
+torch, writing the new k/v into the preallocated cache in place; decode's
+cross-attention (`cross_attention_cached`) reads the k/v that prefill
+computed once from the source (`cross_kv`), in float32.
+
+Where a bfloat16 source meets float32 weights or the reverse, the
+projections compute in the promoted dtype (`common.matmul`), as JAX's
+`@` does.
 
 MLA (Multi-head Latent Attention, DeepSeek-V2) is plain torch, as the
 reference's is plain JAX (it reaches no Pallas kernel): the prefill
@@ -18,7 +29,7 @@ full (S, H, nope + v) tensors never exist, and the decode scores the
 query against the compressed cache (c_kv, k_rope) with W_uk absorbed
 into the query and W_uv applied after the weighting.  Its RoPE angle base
 is 10000.0, whatever the config's `rope_theta`, as in the reference.
-Cross-attention and the int8 cache wait (ROADMAP A.5).
+The int8 cache waits (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ import torch
 from torch import nn
 
 from ..kernels import ops
-from .common import _param, apply_rope, dense_init, rmsnorm
+from .common import _param, apply_rope, dense_init, matmul, rmsnorm
 
 NEG_INF = -1e30
 
@@ -63,9 +74,9 @@ class GQA(nn.Module):
 def _project_qkv(p: GQA, x: torch.Tensor, n_heads: int, n_kv: int,
                  head_dim: int):
     b, s, _ = x.shape
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    q = matmul(x, p.wq)
+    k = matmul(x, p.wk)
+    v = matmul(x, p.wv)
     if p.qkv_bias:
         q = q + p.bq
         k = k + p.bk
@@ -128,10 +139,11 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def self_attention(p: GQA, x: torch.Tensor, positions: torch.Tensor,
                    n_heads: int, n_kv: int, head_dim: int, rope_theta: float,
                    causal: bool = True, return_kv: bool = False):
-    """Full-sequence causal self-attention (prefill).  x: (B,S,D);
-    positions: (B,S), the same row for every batch entry (the causal mask
-    is by sequence index).  With `return_kv`, also (k after RoPE, v), each
-    (B,S,KV,hd), as the reference caches them.  The reference's `kv_chunk`
+    """Full-sequence self-attention (prefill), causal unless `causal` is
+    False (Whisper's encoder).  x: (B,S,D); positions: (B,S), the same row
+    for every batch entry (the causal mask is by sequence index).  With
+    `return_kv`, also (k after RoPE, v), each (B,S,KV,hd), as the
+    reference caches them.  The reference's `kv_chunk`
     belongs to its blockwise route; the flash kernel tiles on its own."""
     b, s, d = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
@@ -179,6 +191,60 @@ def decode_attention(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(cache_v.dtype).float()
     out = torch.einsum("bgxt,btgd->bgxd", w, cache_v.float())
     return out.reshape(b, 1, n_heads * head_dim).to(x.dtype) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the vlm family's image layers, the encdec decoder's)
+# ---------------------------------------------------------------------------
+
+def cross_kv(p: GQA, kv_src: torch.Tensor, n_kv: int, head_dim: int):
+    """k, v (B,T,KV,hd) of the source kv_src (B,T,D): no bias, no RoPE,
+    in the promoted dtype of the source and the weights."""
+    b, t, _ = kv_src.shape
+    k = matmul(kv_src, p.wk).reshape(b, t, n_kv, head_dim)
+    v = matmul(kv_src, p.wv).reshape(b, t, n_kv, head_dim)
+    return k, v
+
+
+def cross_attention(p: GQA, x: torch.Tensor, kv_src: torch.Tensor,
+                    n_heads: int, n_kv: int, head_dim: int,
+                    return_kv: bool = False):
+    """x: (B,S,D) queries; kv_src: (B,T,D) encoder or image states.  The
+    S queries attend to all T rows (no mask) through kernel 11, q, k and v
+    in their promoted dtype, the output cast back to q's dtype, as the
+    reference's `_blockwise_attention` returns it.  With `return_kv`, also
+    `cross_kv`'s (k, v), what decode caches."""
+    b, s, _ = x.shape
+    q = matmul(x, p.wq).reshape(b, s, n_heads, head_dim)
+    k, v = cross_kv(p, kv_src, n_kv, head_dim)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = ops.flash_attention_fwd(q.to(dt).transpose(1, 2),
+                                  k.to(dt).transpose(1, 2),
+                                  v.to(dt).transpose(1, 2),
+                                  False).transpose(1, 2)
+    y = matmul(out.reshape(b, s, n_heads * head_dim).to(q.dtype), p.wo)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def cross_attention_cached(p: GQA, x: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, n_heads: int, n_kv: int,
+                           head_dim: int) -> torch.Tensor:
+    """Decode-time cross-attention of x (B,S,D) against the k, v
+    (B,T,KV,hd) that prefill computed from the source.  The reference's
+    arithmetic: q scaled in float32 and not rounded to the cache's dtype,
+    k and v upcast, a float32 softmax over all T, the output cast to x's
+    dtype before `wo`."""
+    b, s, _ = x.shape
+    q = matmul(x, p.wq).reshape(b, s, n_heads, head_dim)
+    g = n_heads // n_kv
+    scale = 1.0 / math.sqrt(head_dim)
+    qg = q.reshape(b, s, n_kv, g, head_dim).float() * scale
+    scores = torch.einsum("bsgxd,btgd->bsgxt", qg, k.float())
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bsgxt,btgd->bsgxd", w, v.float())
+    return matmul(out.reshape(b, s, n_heads * head_dim).to(x.dtype), p.wo)
 
 
 # ---------------------------------------------------------------------------

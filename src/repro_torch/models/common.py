@@ -25,6 +25,18 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in `torch.promote_types` of the two dtypes: JAX's `@` promotes
+    bfloat16 against float32 to float32, torch's refuses mixed operands.
+    The reference mixes them where a bf16 input (Whisper's frames, a bf16
+    batch's image embeddings) meets float32 weights, or a float32 input
+    bf16 weights."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 # ---------------------------------------------------------------------------
 # Initialization
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ caller makes them with `jax.tree.map(np.asarray, params)` — unstacks the
 leading layer axes onto the port's per-layer modules, and loads the result
 into `model`, taking each array's dtype.  Names map one to one:
 `{"group_mamba": {"mamba": {"in_proj": (G, n, d, o)}}}` becomes
-`group_mamba.<g>.<i>.mamba.in_proj`, and a dense tree's
-`{"layers": {"ln1": {"w": (L, d)}}}` becomes `layers.<i>.ln1.w`.
+`group_mamba.<g>.<i>.mamba.in_proj`, a dense tree's
+`{"layers": {"ln1": {"w": (L, d)}}}` becomes `layers.<i>.ln1.w`, and a
+vlm tree's `{"cross_layers": {"gate": (G,)}}` becomes the 0-d
+`cross_layers.<g>.gate`.
 
 numpy gives JAX's bfloat16 arrays the `ml_dtypes` bfloat16 dtype, which
 `torch.from_numpy` refuses; such an array crosses as its uint16 bits and
@@ -26,16 +28,18 @@ from ..configs.base import ModelConfig
 from .lm import LM, check_ported
 
 # reference tree keys whose arrays carry stacked leading layer axes
-STACKED_AXES = {"layers": 1, "group_mamba": 2, "tail_mamba": 1}
+STACKED_AXES = {"layers": 1, "group_mamba": 2, "tail_mamba": 1,
+                "self_layers": 2, "cross_layers": 1, "encoder": 1}
 
 
 def to_torch(a) -> torch.Tensor:
-    """A numpy array as a torch tensor of the same dtype, bfloat16 too."""
-    a = np.ascontiguousarray(a)
+    """A numpy array as a torch tensor of the same dtype and shape,
+    bfloat16 and 0-d (a vlm gate) too."""
+    # np.ascontiguousarray would make a 0-d array 1-d
+    a = np.array(a, copy=True, order="C")
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _leaves(tree, path: Tuple[str, ...] = ()

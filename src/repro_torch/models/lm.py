@@ -9,16 +9,28 @@
            (`models/moe.py`), with GQA (Phi-3.5-MoE) or MLA attention and
            an optional dense layer 0 (DeepSeek-V2-Lite: `layer0`, MLA and
            an MLP of `moe.dense_d_ff`); decode routes dropless
+  vlm    — groups of [cross_every - 1 dense blocks + 1 gated
+           cross-attention layer] over stub image embeddings
+           (Llama-3.2-Vision): x + tanh(gate) * cross(norm(x)), then x +
+           tanh(mlp_gate) * mlp(norm(x))
+  encdec — a non-causal encoder over stub frames (cast to bfloat16, RoPE
+           on positions 0..T-1), then a causal decoder whose blocks
+           attend to the encoder's output between self-attention and MLP
+           (Whisper)
 
-The `vlm` and `encdec` families raise `NotImplementedError` when a model
-is built (ROADMAP A.5), and so does a configuration that asks for what
-the port does not compute yet: on a GQA `dense` or `moe` configuration,
-the int8 KV cache (`kv_cache_quant`) or scores in another dtype than
-float32 (`attn_scores_dtype`); on a `moe` one, expert parallelism
-(`moe_impl="ep_shardmap"`).  An MLA configuration reads neither cache
-field, as the reference's does not.  `attn_impl` and `attn_chunk_remat`
-choose the reference's route or backward, not the forward's function,
-and are not read.
+The frontends are stubs, as in the reference: the batch carries
+`image_embeds` (B, n_frontend_tokens, d_model) for a vlm model and
+`frames` (B, enc_seq, d_model) for an encdec one; a missing one raises
+`KeyError` naming it.  A configuration that asks for what the port does
+not compute yet raises `NotImplementedError`: on a GQA `dense` or `moe`
+configuration, the int8 KV cache (`kv_cache_quant`); on those and on a
+`vlm` one, scores in another dtype than float32 (`attn_scores_dtype`);
+on a `moe` one, expert parallelism (`moe_impl="ep_shardmap"`).  Where
+the reference does not read a field, neither does the port: an MLA
+configuration's cache fields, a `vlm` model's `kv_cache_quant` (its cache
+is never quantized) and both fields of an `encdec` model.
+`attn_impl` and `attn_chunk_remat` choose the reference's route or
+backward, not the forward's function, and are not read.
 
 The reference stacks each family's layers on a leading axis and runs them
 under `lax.scan`; the port keeps one module per layer (`nn.ModuleList`,
@@ -31,12 +43,14 @@ Entry points: `build_model`, `prefill_fn` (full-sequence forward that
 writes the caches, allocated at `max_seq`), `decode_fn` (one token against
 the caches, updated in place).  On the card the prefill runs the two
 hand-written kernels where the reference runs their oracles: every GQA
-layer's attention (dense, GQA moe) and the shared attention through
-`flash_attention_fwd` (grouped-query, k/v never repeated), every Mamba2
-block's SSD through `ssd_scan`.  MLA and the experts are plain torch, as
-they are plain JAX in the reference.  The reference's `aux` (the MoE
-layers' `frac_dropped`, summed), which prefill ignores, is what
-`_backbone_full(..., stats=[])` collects: each MoE layer's statistics.
+layer's attention (dense, GQA moe, vlm, encdec) and the shared attention
+through `flash_attention_fwd` (grouped-query, k/v never repeated), the
+cross-attention and Whisper's encoder through it too, non-causally; every
+Mamba2 block's SSD through `ssd_scan`.  MLA, the experts and decode's
+attention are plain torch, as they are plain JAX in the reference.  The
+reference's `aux` (the MoE layers' `frac_dropped`, summed), which prefill
+ignores, is what `_backbone_full(..., stats=[])` collects: each MoE
+layer's statistics.
 """
 
 from __future__ import annotations
@@ -56,7 +70,9 @@ from .common import (MLP, Embed, Norm, _param, dense_init, embed_lookup,
                      mlp_apply, norm_apply)
 
 Caches = Dict[str, torch.Tensor]
-FAMILIES = ("dense", "ssm", "hybrid", "moe")
+FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "encdec")
+# the batch key of each cross-attending family's stub frontend output
+CROSS_INPUTS = {"vlm": "image_embeds", "encdec": "frames"}
 
 
 # ===========================================================================
@@ -118,6 +134,37 @@ class SharedAttention(nn.Module):
                        generator)
 
 
+class CrossLayer(nn.Module):
+    """The vlm family's gated cross-attention layer, `cross_layers`'s
+    names: {ln, attn (GQA, no bias), gate, ln_mlp, mlp, mlp_gate}; the
+    two gates are float32 scalars, zero at init, so that a fresh model's
+    cross layers add nothing (tanh(0) = 0)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+        super().__init__()
+        self.ln = Norm(cfg.norm, cfg.d_model, device)
+        self.attn = att.GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                            False, dtype, device, generator)
+        self.gate = _param(torch.zeros((), dtype=torch.float32,
+                                       device=device))
+        self.ln_mlp = Norm(cfg.norm, cfg.d_model, device)
+        self.mlp = MLP(cfg.mlp, cfg.d_model, cfg.d_ff, dtype, device,
+                       generator)
+        self.mlp_gate = _param(torch.zeros((), dtype=torch.float32,
+                                           device=device))
+
+
+class CrossDecoderLayer(DecoderLayer):
+    """One encdec decoder block: a `DecoderLayer` {ln1, attn, ln2, mlp}
+    plus ln_cross and cross (GQA over the encoder's output, no bias)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+        super().__init__(cfg, dtype, device, generator)
+        self.ln_cross = Norm(cfg.norm, cfg.d_model, device)
+        self.cross = att.GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.hd, False, dtype, device, generator)
+
+
 def _dense_layer0(cfg: ModelConfig) -> ModelConfig:
     """The config of a `moe` model's dense layer 0: its MLP is
     `moe.dense_d_ff` wide."""
@@ -137,12 +184,19 @@ def _hybrid_layout(cfg: ModelConfig):
     return n_groups, per - 1, cfg.n_layers - n_groups * per
 
 
+def _vlm_layout(cfg: ModelConfig):
+    """(groups, dense blocks per group)."""
+    return cfg.n_layers // cfg.cross_every, cfg.cross_every - 1
+
+
 class LM(nn.Module):
     """`init_params`'s tree as modules: embed, final_norm, lm_head (unless
     tied), and layers (dense, ssm, moe; with `moe.first_dense`, also the
-    dense layer0) or group_mamba / tail_mamba / shared_attn (hybrid).
-    Matrices and biases bfloat16, norms, SSM vectors and the MoE router
-    float32."""
+    dense layer0), group_mamba / tail_mamba / shared_attn (hybrid),
+    self_layers (G lists of dense blocks) / cross_layers (vlm), or encoder /
+    enc_final_norm / layers (encdec; the encoder's attention has no bias).
+    Matrices and biases bfloat16, norms, SSM vectors, the MoE router and
+    the vlm gates float32."""
 
     def __init__(self, cfg: ModelConfig, device, generator):
         super().__init__()
@@ -168,6 +222,24 @@ class LM(nn.Module):
                                            device, generator)
         elif cfg.family == "ssm":
             self.layers = mamba_layers(cfg.n_layers)
+        elif cfg.family == "vlm":
+            n_groups, n_self = _vlm_layout(cfg)
+            self.self_layers = nn.ModuleList(
+                nn.ModuleList(DecoderLayer(cfg, dtype, device, generator)
+                              for _ in range(n_self))
+                for _ in range(n_groups))
+            self.cross_layers = nn.ModuleList(
+                CrossLayer(cfg, dtype, device, generator)
+                for _ in range(n_groups))
+        elif cfg.family == "encdec":
+            enc = dataclasses.replace(cfg, qkv_bias=False)
+            self.encoder = nn.ModuleList(
+                DecoderLayer(enc, dtype, device, generator)
+                for _ in range(cfg.enc_layers))
+            self.enc_final_norm = Norm(cfg.norm, cfg.d_model, device)
+            self.layers = nn.ModuleList(
+                CrossDecoderLayer(cfg, dtype, device, generator)
+                for _ in range(cfg.n_layers))
         else:
             n_groups, n_group_mamba, n_tail = _hybrid_layout(cfg)
             self.group_mamba = nn.ModuleList(mamba_layers(n_group_mamba)
@@ -189,10 +261,12 @@ def check_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: expert parallelism (moe_impl='ep_shardmap', a "
             f"mesh of several cards) is not ported yet; see ROADMAP A.5")
     # an MLA model caches (c_kv, k_rope) and scores in float32 whatever
-    # these two fields say, as the reference's does
-    if cfg.family not in ("dense", "moe") or cfg.mla is not None:
+    # these two fields say, as the reference's does; the hybrid shared
+    # attention and the encdec model read neither, and a vlm model only
+    # the score dtype (its self layers'; its cache is never quantized)
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.mla is not None:
         return
-    if cfg.kv_cache_quant:
+    if cfg.kv_cache_quant and cfg.family != "vlm":
         raise NotImplementedError(
             f"{cfg.name}: the int8 KV cache (kv_cache_quant=True) is not "
             f"ported yet; see ROADMAP A.5")
@@ -227,29 +301,40 @@ def _cache_names(cfg: ModelConfig):
 
 
 def _grow_caches(cfg: ModelConfig, b: int, max_seq: int, dtype,
-                 device) -> Caches:
+                 device, cross=None) -> Caches:
     """Zeroed caches sized to max_seq, for prefill to write into and
     decode to update in place, under the reference's names: the attention
-    k/v (L or G, B, max_seq, KV, hd) in the activation dtype; an MLA
-    model's ckv (L, B, max_seq, kv_lora) and kr (L, B, max_seq, rope);
+    k/v (L or G, B, max_seq, KV, hd) in the activation dtype, a vlm
+    model's (G, n_self, B, max_seq, KV, hd) with time on axis 3; a vlm or
+    encdec model's cross-attention xk / xv (G or L, B, T, KV, hd), where
+    `cross` is (T, dtype): written once by prefill, read by decode; an
+    MLA model's ckv (L, B, max_seq, kv_lora) and kr (L, B, max_seq, rope);
     a `moe` model's dense layer 0 under k0 / v0 (B, max_seq, ...): its
     k / v, or its c_kv / k_rope with MLA; the SSM states (..., B, H, P,
     N) float32, the conv states (..., B, d_conv-1, conv_dim) in the
     activation dtype."""
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
 
+    kv = (cfg.n_kv_heads, cfg.hd)
     if cfg.family in ("dense", "moe"):
         if cfg.mla is not None:
             widths = ((cfg.mla.kv_lora,), (cfg.mla.rope_dim,))
         else:
-            widths = ((cfg.n_kv_heads, cfg.hd),) * 2
+            widths = (kv,) * 2
         n = cfg.n_layers - _first_dense(cfg)
         out = {nm: zeros(n, b, max_seq, *w)
                for nm, w in zip(_cache_names(cfg), widths)}
         if _first_dense(cfg):
             out["k0"], out["v0"] = (zeros(b, max_seq, *w) for w in widths)
         return out
+    if cfg.family in CROSS_INPUTS:
+        t, xdt = cross
+        lead = _vlm_layout(cfg) if cfg.family == "vlm" else (cfg.n_layers,)
+        return {"k": zeros(*lead, b, max_seq, *kv),
+                "v": zeros(*lead, b, max_seq, *kv),
+                "xk": zeros(lead[0], b, t, *kv, dt=xdt),
+                "xv": zeros(lead[0], b, t, *kv, dt=xdt)}
     s = cfg.ssm
     nh = s.n_heads(cfg.d_model)
     conv_dim = s.d_inner(cfg.d_model) + 2 * s.ngroups * s.d_state
@@ -263,9 +348,8 @@ def _grow_caches(cfg: ModelConfig, b: int, max_seq: int, dtype,
     if cfg.family == "ssm":
         return ssm(cfg.n_layers)
     n_groups, n_group_mamba, n_tail = _hybrid_layout(cfg)
-    kv = (n_groups, b, max_seq, cfg.n_kv_heads, cfg.hd)
-    out = {"attn_k": torch.zeros(kv, dtype=dtype, device=device),
-           "attn_v": torch.zeros(kv, dtype=dtype, device=device)}
+    out = {"attn_k": zeros(n_groups, b, max_seq, *kv),
+           "attn_v": zeros(n_groups, b, max_seq, *kv)}
     g = ssm(n_groups, n_group_mamba)
     out["group_ssm"], out["group_conv"] = g["ssm"], g["conv"]
     if n_tail:
@@ -301,15 +385,13 @@ def _ffn(cfg: ModelConfig, ffn: nn.Module, h, stats: Optional[List] = None,
     return y
 
 
-def _attn_mlp_full(cfg: ModelConfig, ln_a: Norm, attn: nn.Module,
-                   ln_m: Norm, ffn: nn.Module, x, positions, cache_a=None,
-                   cache_b=None, stats: Optional[List] = None):
-    """norm -> self-attention -> residual, norm -> MLP or experts ->
-    residual.  The attention is MLA when the config has `mla` (plain
-    torch), else GQA (kernel 11).  With caches (B, max_seq, ...), the
-    layer's k after RoPE and v (GQA) or c_kv and k_rope (MLA) are written
-    into their first S rows."""
-    h = norm_apply(cfg.norm, x, ln_a)
+def _self_attn_full(cfg: ModelConfig, attn: nn.Module, h, positions,
+                    cache_a=None, cache_b=None, causal: bool = True):
+    """Self-attention of the normed h: MLA when the config has `mla` (plain
+    torch), else GQA (kernel 11; non-causal with `causal=False`, Whisper's
+    encoder).  With caches (B, max_seq, ...), the layer's k after RoPE and
+    v (GQA) or c_kv and k_rope (MLA) are written into their first S
+    rows."""
     want_kv = cache_a is not None
     if cfg.mla is not None:
         m = cfg.mla
@@ -319,12 +401,22 @@ def _attn_mlp_full(cfg: ModelConfig, ln_a: Norm, attn: nn.Module,
     else:
         out = att.self_attention(attn, h, positions, cfg.n_heads,
                                  cfg.n_kv_heads, cfg.hd, cfg.rope_theta,
-                                 return_kv=want_kv)
+                                 causal=causal, return_kv=want_kv)
     if want_kv:
         out, (ka, kb) = out
-        cache_a[:, :x.shape[1]] = ka
-        cache_b[:, :x.shape[1]] = kb
-    x = x + out
+        cache_a[:, :h.shape[1]] = ka
+        cache_b[:, :h.shape[1]] = kb
+    return out
+
+
+def _attn_mlp_full(cfg: ModelConfig, ln_a: Norm, attn: nn.Module,
+                   ln_m: Norm, ffn: nn.Module, x, positions, cache_a=None,
+                   cache_b=None, stats: Optional[List] = None,
+                   causal: bool = True):
+    """norm -> self-attention (`_self_attn_full`) -> residual, norm -> MLP
+    or experts -> residual."""
+    x = x + _self_attn_full(cfg, attn, norm_apply(cfg.norm, x, ln_a),
+                            positions, cache_a, cache_b, causal)
     h = norm_apply(cfg.norm, x, ln_m)
     return x + _ffn(cfg, ffn, h, stats)
 
@@ -375,15 +467,91 @@ def _decoder_full(cfg: ModelConfig, model: LM, x, positions,
     return x
 
 
+def _gated_cross(cfg: ModelConfig, cp: CrossLayer, x, attend):
+    """A vlm cross layer: x + tanh(gate) * attend(norm(x)), then x +
+    tanh(mlp_gate) * mlp(norm(x)); tanh of the float32 gate is rounded to
+    x's dtype before the product, as the reference's `.astype` does."""
+    ca = attend(norm_apply(cfg.norm, x, cp.ln))
+    x = x + torch.tanh(cp.gate).to(x.dtype) * ca
+    y = mlp_apply(cfg.mlp, cp.mlp, norm_apply(cfg.norm, x, cp.ln_mlp))
+    return x + torch.tanh(cp.mlp_gate).to(x.dtype) * y
+
+
+def _cross_block(cfg: ModelConfig, lp: CrossDecoderLayer, x, self_attend,
+                 cross_attend):
+    """An encdec decoder block: self-attention, cross-attention and MLP,
+    each on the normed x and added to it."""
+    x = x + self_attend(norm_apply(cfg.norm, x, lp.ln1))
+    x = x + cross_attend(norm_apply(cfg.norm, x, lp.ln_cross))
+    return x + mlp_apply(cfg.mlp, lp.mlp, norm_apply(cfg.norm, x, lp.ln2))
+
+
+def _cross_full(cfg: ModelConfig, cross: att.GQA, h, src, caches, idx):
+    """Prefill cross-attention of h against src (kernel 11, non-causal);
+    with caches, its k and v go into xk / xv at idx."""
+    if caches is None:
+        return att.cross_attention(cross, h, src, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.hd)
+    y, (k, v) = att.cross_attention(cross, h, src, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.hd, return_kv=True)
+    caches["xk"][idx] = k
+    caches["xv"][idx] = v
+    return y
+
+
+def _vlm_full(cfg: ModelConfig, model: LM, x, positions, image_embeds,
+              caches: Optional[Caches]):
+    for gi, (group, cp) in enumerate(zip(model.self_layers,
+                                         model.cross_layers)):
+        for li, lp in enumerate(group):
+            kv = ((None, None) if caches is None
+                  else (caches["k"][gi, li], caches["v"][gi, li]))
+            x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
+                               positions, *kv)
+        x = _gated_cross(cfg, cp, x, lambda h: _cross_full(
+            cfg, cp.attn, h, image_embeds, caches, gi))
+    return x
+
+
+def _encoder_full(cfg: ModelConfig, model: LM, frames):
+    """The encoder over frames (B, T, D), cast to bfloat16 whatever the
+    weights are (the reference's cast; against float32 weights the first
+    block computes in float32): non-causal self-attention with RoPE on
+    positions 0..T-1, then enc_final_norm."""
+    b, t, _ = frames.shape
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=frames.device)[None].expand(b, t)
+    x = frames.to(torch.bfloat16)
+    for lp in model.encoder:
+        x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
+                           positions, causal=False)
+    return norm_apply(cfg.norm, x, model.enc_final_norm)
+
+
+def _encdec_decoder_full(cfg: ModelConfig, model: LM, x, positions, enc,
+                         caches: Optional[Caches]):
+    for i, lp in enumerate(model.layers):
+        kv = (None, None) if caches is None else (caches["k"][i],
+                                                  caches["v"][i])
+        x = _cross_block(
+            cfg, lp, x,
+            lambda h: _self_attn_full(cfg, lp.attn, h, positions, *kv),
+            lambda h: _cross_full(cfg, lp.cross, h, enc, caches, i))
+    return x
+
+
 @torch.no_grad()
 def _backbone_full(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
                    caches: Optional[Caches] = None,
-                   stats: Optional[List] = None) -> torch.Tensor:
+                   stats: Optional[List] = None,
+                   extra: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> torch.Tensor:
     """Final hidden states (B,S,D) of tokens (B,S); with `caches` (from
     `_grow_caches`), every layer's cache entries are written into them;
     with a list `stats`, each MoE layer appends its routing statistics
     (`moe.moe_apply`'s; the reference's `aux` is the sum of their
-    `frac_dropped`)."""
+    `frac_dropped`).  `extra` holds a vlm model's `image_embeds` or an
+    encdec model's `frames` (`KeyError` without them)."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
@@ -393,6 +561,12 @@ def _backbone_full(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
     elif cfg.family == "ssm":
         for i, lp in enumerate(model.layers):
             x = _mamba_full(cfg, lp, x, caches, "ssm", "conv", i)
+    elif cfg.family == "vlm":
+        x = _vlm_full(cfg, model, x, positions, _cross_input(cfg, extra),
+                      caches)
+    elif cfg.family == "encdec":
+        enc = _encoder_full(cfg, model, _cross_input(cfg, extra))
+        x = _encdec_decoder_full(cfg, model, x, positions, enc, caches)
     else:
         x = _hybrid_full(cfg, model, x, positions, caches)
     return norm_apply(cfg.norm, x, model.final_norm)
@@ -404,20 +578,35 @@ def _unembed(cfg: ModelConfig, model: LM) -> torch.Tensor:
     return model.lm_head
 
 
+def _cross_input(cfg: ModelConfig, extra) -> torch.Tensor:
+    """The batch's stub frontend output for a vlm or encdec model; a
+    missing one raises `KeyError` naming it, as the reference's lookup
+    does."""
+    return (extra or {})[CROSS_INPUTS[cfg.family]]
+
+
 @torch.no_grad()
 def prefill_fn(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor],
                max_seq: int):
     """Returns (last-position logits (B,1,V) float32, caches sized to
     max_seq).  batch["tokens"]: (B,S) integer tokens on the model's
-    device."""
+    device; a vlm model's batch also holds `image_embeds` (B, T, D) and an
+    encdec model's `frames` (B, T, D), on that device too."""
     check_ported(cfg)
     tokens = batch["tokens"].long()
     b, s = tokens.shape
     if s > max_seq:
         raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
-    caches = _grow_caches(cfg, b, max_seq, model.embed.tok.dtype,
-                          tokens.device)
-    h = _backbone_full(cfg, model, tokens, caches)
+    wdt = model.embed.tok.dtype
+    cross = None
+    if cfg.family in CROSS_INPUTS:
+        src = _cross_input(cfg, batch)
+        # k, v of the source in JAX's promotion of its dtype and the
+        # weights'; frames enter the encoder as bfloat16
+        sdt = torch.bfloat16 if cfg.family == "encdec" else src.dtype
+        cross = (src.shape[1], torch.promote_types(sdt, wdt))
+    caches = _grow_caches(cfg, b, max_seq, wdt, tokens.device, cross)
+    h = _backbone_full(cfg, model, tokens, caches, extra=batch)
     logits = (h[:, -1:, :] @ _unembed(cfg, model)).float()
     return logits, caches
 
@@ -485,6 +674,34 @@ def _decoder_decode(cfg: ModelConfig, model: LM, x, caches: Caches,
     return x
 
 
+def _vlm_decode(cfg: ModelConfig, model: LM, x, caches: Caches,
+                cur_len: int):
+    for gi, (group, cp) in enumerate(zip(model.self_layers,
+                                         model.cross_layers)):
+        for li, lp in enumerate(group):
+            x = _attn_mlp_decode(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
+                                 caches["k"][gi, li], caches["v"][gi, li],
+                                 cur_len)
+        x = _gated_cross(cfg, cp, x, lambda h: att.cross_attention_cached(
+            cp.attn, h, caches["xk"][gi], caches["xv"][gi], cfg.n_heads,
+            cfg.n_kv_heads, cfg.hd))
+    return x
+
+
+def _encdec_decode(cfg: ModelConfig, model: LM, x, caches: Caches,
+                   cur_len: int):
+    for i, lp in enumerate(model.layers):
+        x = _cross_block(
+            cfg, lp, x,
+            lambda h: att.decode_attention(
+                lp.attn, h, caches["k"][i], caches["v"][i], cur_len,
+                cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.rope_theta),
+            lambda h: att.cross_attention_cached(
+                lp.cross, h, caches["xk"][i], caches["xv"][i], cfg.n_heads,
+                cfg.n_kv_heads, cfg.hd))
+    return x
+
+
 @torch.no_grad()
 def decode_fn(cfg: ModelConfig, model: LM, token: torch.Tensor,
               caches: Caches, cur_len: int):
@@ -498,6 +715,10 @@ def decode_fn(cfg: ModelConfig, model: LM, token: torch.Tensor,
     elif cfg.family == "ssm":
         for i, lp in enumerate(model.layers):
             x = _mamba_decode(cfg, lp, x, caches, "ssm", "conv", i)
+    elif cfg.family == "vlm":
+        x = _vlm_decode(cfg, model, x, caches, int(cur_len))
+    elif cfg.family == "encdec":
+        x = _encdec_decode(cfg, model, x, caches, int(cur_len))
     else:
         x = _hybrid_decode(cfg, model, x, caches, int(cur_len))
     x = norm_apply(cfg.norm, x, model.final_norm)

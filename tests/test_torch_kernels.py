@@ -635,6 +635,43 @@ def test_cuda_flash_routes_match_plain(dtype, s, hd, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h,n_kv,s,t,hd", [
+    (2, 8, 2, 256, 201, 128),        # Llama-3.2-Vision's groups, ragged T
+    (1, 8, 2, 125, 201, 128),
+    (2, 4, 4, 188, 188, 64),         # Whisper's encoder, S == T
+    (2, 4, 4, 8, 188, 64),           # Whisper's decoder against frames
+    (1, 4, 2, 300, 65, 64),          # S > T, one valid column in a tile
+])
+def test_cuda_flash_cross_shapes_match_plain(dtype, b, h, n_kv, s, t, hd):
+    """Kernel 11 non-causal at S != T and ragged T (cross-attention, the
+    vlm and encdec families), both routes, against its plain version on
+    the card (chip_smoke.py phase 1's shapes, smaller), each kv head's
+    values offset apart: rel max error < 0.03 in bf16 (tensor-core route),
+    < 1e-4 in float32 (SIMT)."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(s * 3 + t)
+    off = 3.0 * np.arange(n_kv)[None, None, :, None]
+
+    def card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dt).cuda() \
+            .transpose(1, 2)
+
+    q = card(rng.normal(size=(b, s, h, hd)))
+    k = card(rng.normal(size=(b, t, n_kv, hd)))
+    v = card(rng.normal(size=(b, t, n_kv, hd)) + off)
+    before = dict(tfa.ROUTES)
+    got = tfa.flash_attention_fwd(q, k, v, False)
+    route = "tensor_core" if dt == torch.bfloat16 else "simt"
+    assert tfa.ROUTES[route] == before[route] + 1
+    got = got.float()
+    want = tfa.flash_attention_fwd_plain(q, k, v, False).float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < (0.03 if dt == torch.bfloat16 else 1e-4), rel
+
+
+@pytest.mark.cuda
 def test_cuda_flash_bf16_odd_head_dim_takes_simt():
     _cuda_or_skip()
     rng = np.random.default_rng(3)

@@ -1,5 +1,5 @@
-"""The port's LM serving path (`dense`, `ssm`, `hybrid` and `moe`
-families) against the JAX reference, at smoke size on the CPU.
+"""The port's LM serving path (`dense`, `ssm`, `hybrid`, `moe`, `vlm` and
+`encdec` families) against the JAX reference, at smoke size on the CPU.
 
 The reference's parameters (`lm.init_params`) are carried into the port by
 `models/convert.params_from_jax`; the same numpy tokens, made from a seed,
@@ -13,10 +13,22 @@ and the two MoE smoke variants: `deepseek-v2-lite-16b-smoke` (MLA, a
 dense layer 0, 8 experts top-2 and 2 shared) and
 `phi3.5-moe-42b-a6.6b-smoke` (GQA, 8 experts top-2), both drop-free
 (`smoke_variant` sets capacity_factor = E / k); the MoE layer with drops
-is held to the reference in tests/test_torch_moe.py.
+is held to the reference in tests/test_torch_moe.py; and the two
+cross-attending smoke variants, `llama-3.2-vision-11b-smoke` (2 groups of
+1 dense block + 1 gated cross layer over 16 image tokens) and
+`whisper-base-smoke` (2 encoder and 2 decoder blocks over 32 frames),
+fed the reference test's bf16 `image_embeds` / `frames` drawn from a seed
+(float32 ones in `test_float32_extras_match_reference`, as the CLI
+draws them).
 The reference inits QKV biases, LayerNorm shifts and the GELU MLP's
-biases to zero and LayerNorm scales to one; the bias tests draw those
-leaves from a seed on the reference's tree before conversion.
+biases to zero, LayerNorm scales to one and the vlm cross layers' gates
+to zero (so that a fresh vlm model's cross layers add nothing); the bias
+tests, and every vlm and encdec test, draw those leaves from a seed on
+the reference's tree before conversion.
+The reference's encdec model runs only op by op with float32 weights:
+its encoder casts the frames to bf16 and the scanned block returns
+float32, which `lax.scan` refuses under jit; so its float32 runs are
+made under `jax.disable_jit()` too.
 
 Tolerances, relative to the reference tensor's max magnitude:
 - float32 weights (every bf16 leaf cast to float32 on both sides): prefill
@@ -61,6 +73,8 @@ VARIANTS = {
     "yi-9b-gqa": dict(n_heads=8, n_kv_heads=2),
     "deepseek-v2-lite-16b-smoke": {},
     "phi3.5-moe-42b-a6.6b-smoke": {},
+    "llama-3.2-vision-11b-smoke": {},
+    "whisper-base-smoke": {},
 }
 # the registry configuration each variant changes
 BASES = {"zamba2-tail": "zamba2-7b-smoke", "yi-9b-gqa": "yi-9b-smoke"}
@@ -81,16 +95,22 @@ def _configs(variant, ngroups=1):
 
 def _draw_zero_inits(params, seed):
     """The reference's constant-initialized leaves drawn from `seed`: QKV
-    biases and the GELU MLP's biases N(0, 0.1^2), LayerNorm scales 1 + N(0,
-    0.1^2) and shifts N(0, 0.1^2), each in its own dtype."""
+    biases and the GELU MLP's biases N(0, 0.1^2), norm scales (LayerNorm
+    and RMSNorm, the encoder's final norm too) 1 + N(0, 0.1^2) and
+    LayerNorm shifts N(0, 0.1^2), the vlm cross layers' `gate` and
+    `mlp_gate` N(0, 1), each in its own dtype."""
     rng = np.random.default_rng(seed)
 
     def draw(path, a):
-        key = path[-1].key
+        key, parent = path[-1].key, path[-2].key if len(path) > 1 else ""
+        if key in ("gate", "mlp_gate") and parent == "cross_layers":
+            return jnp.asarray(rng.normal(size=a.shape).astype(np.float32),
+                               a.dtype)
         if key not in ("bq", "bk", "bv", "fc_b", "proj_b", "w", "b"):
             return a
-        if key == "w" and not (path[-2].key.startswith("ln")
-                               or path[-2].key == "final_norm"):
+        if key == "w" and not (parent.startswith("ln")
+                               or parent in ("final_norm",
+                                             "enc_final_norm")):
             return a
         x = rng.normal(scale=0.1, size=a.shape).astype(np.float32)
         return jnp.asarray(x + (1.0 if key == "w" else 0.0), a.dtype)
@@ -98,9 +118,11 @@ def _draw_zero_inits(params, seed):
 
 
 def _models(variant, dtype, seed=0, ngroups=1, biases=False):
+    """Both packages' models of `variant`; with `biases`, and always for a
+    vlm or encdec model, the constant-initialized leaves drawn."""
     jcfg, cfg = _configs(variant, ngroups)
     params, _ = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
-    if biases:
+    if biases or cfg.family in lm.CROSS_INPUTS:
         params = _draw_zero_inits(params, seed + 100)
     if dtype == "float32":
         params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
@@ -119,6 +141,30 @@ def _rel(got, want):
 def _tokens(cfg, seed, shape=(B, S)):
     return np.random.default_rng(seed).integers(0, cfg.vocab, shape) \
         .astype(np.int32)
+
+
+def _extras(cfg, seed, dtype="bfloat16", b=B):
+    """A vlm or encdec batch's stub frontend output N(0, 1) from `seed`,
+    as (reference batch entries, port batch entries): bf16 as the
+    reference test's batch gives them, or float32 as its CLI does; both
+    empty for the other families."""
+    if cfg.family not in lm.CROSS_INPUTS:
+        return {}, {}
+    t = cfg.n_frontend_tokens if cfg.family == "vlm" else cfg.enc_seq
+    a = np.random.default_rng(seed).normal(size=(b, t, cfg.d_model)) \
+        .astype(np.float32)
+    key = lm.CROSS_INPUTS[cfg.family]
+    return ({key: jnp.asarray(a).astype(getattr(jnp, dtype))},
+            {key: torch.from_numpy(a).to(getattr(torch, dtype))})
+
+
+def _reference_ctx(cfg, dtype):
+    """How the reference runs: op by op in bf16 (see the module's
+    docstring), and for an encdec model in float32 too; jitted
+    otherwise."""
+    if dtype == "float32" and cfg.family != "encdec":
+        return contextlib.nullcontext()
+    return jax.disable_jit()
 
 
 @pytest.mark.parametrize("name", sorted(REGISTRY))
@@ -207,7 +253,8 @@ def _router_flips(jcfg, cfg, model, jcalls, tcalls, tol):
     return flips
 
 
-def _match_prefill_and_decode(jcfg, cfg, params, model, dtype, toks):
+def _match_prefill_and_decode(jcfg, cfg, params, model, dtype, toks,
+                              extra=({}, {})):
     """Prefill logits, every cache tensor and three decode steps' logits
     of the port against the reference's, at the file's tolerances.
 
@@ -222,8 +269,11 @@ def _match_prefill_and_decode(jcfg, cfg, params, model, dtype, toks):
     if routed:
         jcfg = dataclasses.replace(jcfg, remat=False)
 
+    jextra, textra = extra
+
     def jrun():
-        jl, jc = jlm.prefill_fn(jcfg, params, {"tokens": jnp.asarray(toks)},
+        jl, jc = jlm.prefill_fn(jcfg, params,
+                                {"tokens": jnp.asarray(toks), **jextra},
                                 MAXS)
         out = [(jl, {k: np.asarray(v) for k, v in jc.items()})]
         for i in range(3):
@@ -233,14 +283,11 @@ def _match_prefill_and_decode(jcfg, cfg, params, model, dtype, toks):
         return out
 
     with _moe_calls() if routed else contextlib.nullcontext() as calls:
-        if dtype == "float32":
+        with _reference_ctx(cfg, dtype):
             want = jrun()
-        else:
-            with jax.disable_jit():
-                want = jrun()
         logits, caches = lm.prefill_fn(cfg, model,
-                                       {"tokens": torch.from_numpy(toks)},
-                                       MAXS)
+                                       {"tokens": torch.from_numpy(toks),
+                                        **textra}, MAXS)
         # decode updates the caches in place: keep the prefill's
         got = [(logits, {k: v.clone() for k, v in caches.items()})]
         for i in range(3):
@@ -267,6 +314,7 @@ def _match_prefill_and_decode(jcfg, cfg, params, model, dtype, toks):
         assert _rel(got[i][0], want[i][0]) < tol, i
     for k, v in want[0][1].items():
         assert tuple(got[0][1][k].shape) == v.shape, k
+        assert got[0][1][k].dtype == convert.to_torch(v[:0]).dtype, k
         if held:
             assert _rel(got[0][1][k], v) < tol, k
 
@@ -276,7 +324,21 @@ def _match_prefill_and_decode(jcfg, cfg, params, model, dtype, toks):
 def test_prefill_caches_and_decode_match_reference(variant, dtype):
     jcfg, cfg, params, model = _models(variant, dtype)
     _match_prefill_and_decode(jcfg, cfg, params, model, dtype,
-                              _tokens(cfg, 1))
+                              _tokens(cfg, 1), _extras(cfg, 21))
+
+
+@pytest.mark.parametrize("variant", ["llama-3.2-vision-11b-smoke",
+                                     "whisper-base-smoke"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_float32_extras_match_reference(variant, dtype):
+    """float32 `image_embeds` / `frames`, as the CLI draws them: against
+    bf16 weights a vlm model's cross k / v (and its xk / xv caches) are
+    float32, JAX's promotion, which the port takes too; Whisper's encoder
+    casts the frames to bf16 whatever they are."""
+    jcfg, cfg, params, model = _models(variant, dtype, seed=22)
+    _match_prefill_and_decode(jcfg, cfg, params, model, dtype,
+                              _tokens(cfg, 23),
+                              _extras(cfg, 24, "float32"))
 
 
 @pytest.mark.parametrize("variant", ["qwen2.5-3b-smoke",
@@ -357,8 +419,12 @@ def test_two_group_prefill_and_decode_match_reference(variant, dtype,
 def test_generate_greedy_tokens_match_reference(variant):
     jcfg, cfg, params, model = _models(variant, "float32", seed=2)
     toks = _tokens(cfg, 3)
-    want = JServeEngine(jcfg, params, max_seq=S + NEW).generate(toks, NEW)
-    got = ServeEngine(cfg, model, max_seq=S + NEW).generate(toks, NEW)
+    jextra, textra = _extras(cfg, 25)
+    with _reference_ctx(cfg, "float32"):
+        want = JServeEngine(jcfg, params, max_seq=S + NEW).generate(
+            toks, NEW, jextra or None)
+    got = ServeEngine(cfg, model, max_seq=S + NEW).generate(toks, NEW,
+                                                            textra)
     assert got.dtype == np.int32 and got.shape == (B, NEW)
     np.testing.assert_array_equal(got, want)
 
@@ -369,10 +435,13 @@ def test_decode_matches_full_forward(variant):
     bf16 weights, rel 0.05 (tests/test_models_smoke.py's check)."""
     _, cfg, _, model = _models(variant, "bfloat16", seed=4)
     toks = torch.from_numpy(_tokens(cfg, 5))
-    logits, caches = lm.prefill_fn(cfg, model, {"tokens": toks}, MAXS)
+    extra = _extras(cfg, 26)[1]
+    logits, caches = lm.prefill_fn(cfg, model, {"tokens": toks, **extra},
+                                   MAXS)
     nxt = torch.argmax(logits[:, 0], -1)[:, None]
     logits_d, _ = lm.decode_fn(cfg, model, nxt, caches, S)
-    h = lm._backbone_full(cfg, model, torch.cat([toks.long(), nxt], dim=1))
+    h = lm._backbone_full(cfg, model, torch.cat([toks.long(), nxt], dim=1),
+                          extra=extra)
     full = (h[:, -1:] @ lm._unembed(cfg, model)).float()
     assert torch.isfinite(logits_d).all()
     assert _rel(logits_d, full.numpy()) < 0.05
@@ -416,7 +485,7 @@ def _draws_the_reference_init(name):
     for k, v in want.items():
         assert got[k].shape == v.shape and got[k].dtype == v.dtype, k
         g, w = got[k].float(), v.float()
-        if w.std() == 0:
+        if bool((w == w.flatten()[0]).all()):       # a constant leaf
             assert torch.equal(g, w), k
         else:
             tol = 5.0 / np.sqrt(w.numel())
@@ -434,13 +503,18 @@ def test_build_model_draws_the_reference_init():
 @pytest.mark.parametrize("name", ["yi-9b-smoke", "qwen2.5-3b-smoke",
                                   "starcoder2-15b-smoke",
                                   "deepseek-v2-lite-16b-smoke",
-                                  "phi3.5-moe-42b-a6.6b-smoke"])
+                                  "phi3.5-moe-42b-a6.6b-smoke",
+                                  "llama-3.2-vision-11b-smoke",
+                                  "whisper-base-smoke"])
 def test_build_model_draws_the_reference_init_dense(name):
     """The same for dense trees: RMSNorm and SwiGLU with an lm_head (Yi),
     QKV biases and tied embeddings (Qwen2.5), LayerNorm, GELU and QKV
-    biases (StarCoder2); and for MoE trees: MLA, the dense layer0, the
+    biases (StarCoder2); for MoE trees: MLA, the dense layer0, the
     float32 router, the (E, in, out) experts and the shared experts
-    (DeepSeek-V2-Lite), GQA experts (Phi-3.5-MoE)."""
+    (DeepSeek-V2-Lite), GQA experts (Phi-3.5-MoE); for the vlm tree its
+    (G, n_self) self layers and the cross layers with their zero float32
+    gates (Llama-3.2-Vision), for the encdec tree the encoder, its final
+    norm and the decoder's cross blocks (Whisper)."""
     _draws_the_reference_init(name)
 
 
@@ -453,13 +527,6 @@ def test_converter_carries_bfloat16_bits():
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(),
                                   np.asarray(x, np.float32))
-
-
-@pytest.mark.parametrize("name", ["llama-3.2-vision-11b", "whisper-base"])
-def test_unported_families_raise_when_built(name):
-    cfg = get_config(name)            # looking a config up works
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.build_model(cfg, "cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(kv_cache_quant=True),
@@ -475,6 +542,78 @@ def test_dense_options_not_ported_raise(kw):
     toks = torch.from_numpy(_tokens(cfg, 15))
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         lm.prefill_fn(cfg, model, {"tokens": toks}, MAXS)
+
+
+@pytest.mark.parametrize("name,kw,raises", [
+    ("llama-3.2-vision-11b-smoke", dict(attn_scores_dtype="bf16"), True),
+    ("llama-3.2-vision-11b-smoke", dict(kv_cache_quant=True), False),
+    ("whisper-base-smoke", dict(attn_scores_dtype="bf16"), False),
+    ("whisper-base-smoke", dict(kv_cache_quant=True), False),
+])
+def test_cross_family_options_follow_the_reference(name, kw, raises):
+    """What the reference reads of the two cache and score fields: a vlm
+    model's self layers score in `attn_scores_dtype`, which the port does
+    not compute yet, so bf16 scores raise; its cache is never quantized
+    and an encdec model reads neither field, so those configurations build
+    and serve the function the plain configuration serves."""
+    cfg = dataclasses.replace(get_config(name), **kw)
+    if raises:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+            lm.build_model(cfg, "cpu")
+        return
+    jcfg, base, params, model = _models(name, "float32", seed=16)
+    assert lm.build_model(cfg, "cpu").cfg == cfg
+    toks = _tokens(cfg, 17)
+    extra = _extras(cfg, 18)[1]
+    got = ServeEngine(cfg, model, max_seq=S + NEW).generate(toks, NEW, extra)
+    want = ServeEngine(base, model, max_seq=S + NEW).generate(toks, NEW,
+                                                              extra)
+    np.testing.assert_array_equal(got, want)
+    logits, caches = lm.prefill_fn(cfg, model,
+                                   {"tokens": torch.from_numpy(toks),
+                                    **extra}, MAXS)
+    assert sorted(caches) == ["k", "v", "xk", "xv"]
+    assert caches["k"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("variant", ["llama-3.2-vision-11b-smoke",
+                                     "whisper-base-smoke"])
+def test_cross_layers_change_the_logits(variant):
+    """The cross layers are not skipped: a vlm model with its drawn gates
+    and one with the gates zeroed (the reference's init, where tanh(0) =
+    0 hides the cross layers) part by far more than the float32
+    tolerance; an encdec model fed other frames moves too."""
+    _, cfg, _, model = _models(variant, "float32", seed=19)
+    toks = torch.from_numpy(_tokens(cfg, 20))
+    extra = _extras(cfg, 27)[1]
+    drawn, _ = lm.prefill_fn(cfg, model, {"tokens": toks, **extra}, MAXS)
+    if cfg.family == "vlm":
+        gates = [g for cp in model.cross_layers
+                 for g in (cp.gate, cp.mlp_gate)]
+        assert min(abs(float(g)) for g in gates) > 0
+        for g in gates:
+            g.zero_()
+        other, _ = lm.prefill_fn(cfg, model, {"tokens": toks, **extra},
+                                 MAXS)
+    else:
+        other, _ = lm.prefill_fn(cfg, model, {"tokens": toks,
+                                              **_extras(cfg, 28)[1]}, MAXS)
+    assert _rel(other, drawn.numpy()) > 100 * 1e-4
+
+
+@pytest.mark.parametrize("variant", ["llama-3.2-vision-11b-smoke",
+                                     "whisper-base-smoke"])
+def test_missing_frontend_input_raises_key_error(variant):
+    """Prefill without `image_embeds` / `frames` raises `KeyError` naming
+    the input, as the reference's lookup does."""
+    _, cfg, _, model = _models(variant, "float32", seed=29)
+    key = lm.CROSS_INPUTS[cfg.family]
+    with pytest.raises(KeyError, match=key):
+        lm.prefill_fn(cfg, model, {"tokens": torch.from_numpy(
+            _tokens(cfg, 30))}, MAXS)
+    with pytest.raises(KeyError, match=key):
+        ServeEngine(cfg, model, max_seq=S + NEW).generate(_tokens(cfg, 30),
+                                                          NEW)
 
 
 def test_cli_serves_on_the_cpu(capsys):
@@ -500,5 +639,17 @@ def test_cli_serves_a_moe_arch_on_the_cpu(capsys):
     out = serve.main(["--arch", "deepseek-v2-lite-16b-smoke", "--device",
                       "cpu", "--batch", "2", "--prompt-len", "9",
                       "--new-tokens", "3"])
+    assert out.shape == (2, 3) and out.dtype == np.int32
+    assert "on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b-smoke",
+                                  "whisper-base-smoke"])
+def test_cli_serves_a_cross_attending_arch_on_the_cpu(arch, capsys):
+    """The CLI draws float32 `image_embeds` / `frames` after the prompts
+    from the same generator, as the reference's CLI does."""
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                      "--prompt-len", "9", "--new-tokens", "3"])
     assert out.shape == (2, 3) and out.dtype == np.int32
     assert "on cpu" in capsys.readouterr().out

@@ -1,6 +1,8 @@
 """The port's flash-attention and SSD-scan plain versions against the JAX
 reference: twins of tests/test_kernels_flash.py and
-tests/test_kernels_ssd.py.
+tests/test_kernels_ssd.py; and the cross-attention of the vlm and encdec
+families (`cross_kv`, `cross_attention`, `cross_attention_cached`), whose
+prefill runs kernel 11 non-causally at S != T.
 
 The same numpy inputs, made from a seed, go to the reference Pallas
 kernel (interpret mode on the CPU) or its jnp oracle and to the port's
@@ -137,6 +139,107 @@ def test_flash_plain_gqa_ragged_matches_reference_blockwise(s, g, dtype):
                                         tv.transpose(1, 2)).transpose(1, 2)
     rel = _rel(_np(got), want)
     assert rel < (0.03 if dtype == "bfloat16" else 1e-4), rel
+
+
+@pytest.mark.parametrize("s,t,g", [(37, 16, 4), (64, 1601, 4),
+                                   (300, 77, 1), (7, 1500, 1)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_plain_cross_matches_reference_blockwise(s, t, g, dtype):
+    """Non-causal, S queries against T != S keys (cross-attention: S > T
+    and S < T, ragged T = 1,601 and 1,500 as Llama-3.2-Vision's image
+    tokens and Whisper's frames, GQA), against the reference model's
+    `_blockwise_attention(..., causal=False)`."""
+    rng = np.random.default_rng(s + t + g)
+    b, n_kv, hd = 1, 2, 32
+    h = n_kv * g
+    off = 3.0 * np.arange(n_kv)[None, None, :, None]
+    jq, tq = _pair(rng.normal(size=(b, s, h, hd)), dtype)
+    jk, tk = _pair(rng.normal(size=(b, t, n_kv, hd)), dtype)
+    jv, tv = _pair(rng.normal(size=(b, t, n_kv, hd)) + off, dtype)
+    pos = jnp.zeros((b, s), jnp.int32)
+    want = jatt._blockwise_attention(jq, jk, jv, pos, min(512, t), False)
+    got = tops.flash_attention_fwd(tq.transpose(1, 2), tk.transpose(1, 2),
+                                   tv.transpose(1, 2), False).transpose(1, 2)
+    assert got.dtype == TORCH_DTYPES[dtype] and got.shape == (b, s, h, hd)
+    rel = _rel(_np(got), want)
+    assert rel < (0.03 if dtype == "bfloat16" else 1e-4), rel
+
+
+def _cross_params(d, h, n_kv, hd, dtype, seed):
+    """A reference `gqa_init` tree (as cross-attention's) at `dtype`, and
+    the port's `GQA` holding the same values."""
+    jp, _ = jatt.gqa_init(jax.random.PRNGKey(seed), d, h, n_kv, hd)
+    jp = {k: v.astype(JAX_DTYPES[dtype]) for k, v in jp.items()}
+    tp = tatt.GQA(d, h, n_kv, hd, dtype=TORCH_DTYPES[dtype], device="cpu")
+    tp.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                        .to(TORCH_DTYPES[dtype]) for k, v in jp.items()})
+    return jp, tp
+
+
+# (weights, queries' source, kv source): one dtype, and the mixes the
+# models meet (a bf16 batch's image embeddings against float32 weights, a
+# float32 one against bf16 weights), which JAX's `@` promotes
+CROSS_DTYPES = [("float32",) * 3, ("bfloat16",) * 3,
+                ("float32", "float32", "bfloat16"),
+                ("bfloat16", "bfloat16", "float32")]
+
+
+@pytest.mark.parametrize("s,t,h,n_kv", [(5, 33, 4, 2), (40, 17, 8, 2),
+                                        (1, 50, 4, 4)])
+@pytest.mark.parametrize("wdt,xdt,sdt", CROSS_DTYPES)
+def test_cross_attention_twins_match_reference(s, t, h, n_kv, wdt, xdt,
+                                               sdt):
+    """`cross_kv`, `cross_attention` (prefill, kernel 11's plain version,
+    non-causal) and `cross_attention_cached` (decode against cross_kv's k
+    and v) against the reference's, on the same parameters and inputs:
+    outputs, dtypes and shapes; rel 1e-4 where everything is float32,
+    3e-2 where bf16 enters."""
+    d, hd = 32, 16
+    jp, tp = _cross_params(d, h, n_kv, hd, wdt, s + t)
+    rng = np.random.default_rng(s * t)
+    jx, tx = _pair(rng.normal(size=(2, s, d)), xdt)
+    jsrc, tsrc = _pair(rng.normal(size=(2, t, d)), sdt)
+    tol = 1e-4 if wdt == xdt == sdt == "float32" else 3e-2
+
+    jk, jv = jatt.cross_kv(jp, jsrc, n_kv, hd)
+    tk, tv = tatt.cross_kv(tp, tsrc, n_kv, hd)
+    for j, tt in ((jk, tk), (jv, tv)):
+        assert tt.shape == j.shape == (2, t, n_kv, hd)
+        assert str(tt.dtype).split(".")[-1] == str(j.dtype)
+        assert _rel(_np(tt), j) < tol
+    want = jatt.cross_attention(jp, jx, jsrc, h, n_kv, hd)
+    got, (k2, v2) = tatt.cross_attention(tp, tx, tsrc, h, n_kv, hd,
+                                         return_kv=True)
+    assert got.shape == want.shape and str(got.dtype).split(".")[-1] \
+        == str(want.dtype)
+    assert _rel(_np(got), want) < tol
+    assert torch.equal(k2, tk) and torch.equal(v2, tv)
+    want = jatt.cross_attention_cached(jp, jx, jk, jv, h, n_kv, hd)
+    got = tatt.cross_attention_cached(tp, tx, tk, tv, h, n_kv, hd)
+    assert got.shape == want.shape and str(got.dtype).split(".")[-1] \
+        == str(want.dtype)
+    assert _rel(_np(got), want) < tol
+
+
+def test_cross_attention_runs_kernel_11_non_causally(monkeypatch):
+    """Cross-attention's prefill hands kernel 11 q (B, H, S, hd) and k, v
+    (B, KV, T, hd) with T != S, unrepeated and uncopied, and
+    `causal=False`."""
+    seen = []
+
+    def spy(q, k, v, causal=True):
+        seen.append((tuple(q.shape), tuple(k.shape), k.is_contiguous(),
+                     causal))
+        return tfa.flash_attention_fwd_plain(q, k, v, causal)
+
+    monkeypatch.setattr(tops, "flash_attention_fwd", spy)
+    _, tp = _cross_params(64, 8, 2, 16, "bfloat16", 3)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 10, 64, generator=gen).bfloat16()
+    src = torch.randn(2, 21, 64, generator=gen).bfloat16()
+    y = tatt.cross_attention(tp, x, src, 8, 2, 16)
+    assert y.shape == (2, 10, 64)
+    assert seen == [((2, 8, 10, 16), (2, 2, 21, 16), False, False)]
 
 
 @pytest.mark.parametrize("h,n_kv", [(6, 4), (8, 3), (4, 8)])
