@@ -214,6 +214,43 @@ its bound and `scaled_dot_product_attention(..., enable_gqa=True)` as
 row `11X` (`kernels[...]["cross"]`, its `launches` the vlm model's
 main-path flash launches, 8 of every 40 of them cross).
 
+Phase 12 (after phase 11, whose models it releases first) trains, and
+serves with A.5.3's two options.  12a: Yi-9B whole (phase 9's weights,
+drawn again from the seed) on 4 x 2,048 + 8 tokens with the bf16 cache,
+the int8 cache (`kv_cache_quant`) and bf16 scores (`attn_scores_dtype`):
+prefill and decode step times, cache bytes and greedy tokens each; the
+int8 cache's first decode step within total variation 0.05 of the bf16
+cache's with the same argmax, the bf16-score loss within 0.02 of the
+float32-score loss (the reference test's bounds), 48 flash launches a
+prefill with either cache and none with bf16 scores (their plain route).
+12c: Qwen2.5-3B and Mamba2-370m at full width and 2 layers, float32
+weights (norms and biases drawn): the loss and every parameter's gradient
+through kernels 11 and 12 against the plain routes, within 1e-3
+(`attn_impl="blockwise"`, the exact backward) and within 2^-7
+(`attn_impl="flash"`, whose backward rounds to bf16: the bound comes from
+`scripts/grad_bounds.py`'s readings over seeds, PERF.md).
+12b: Qwen2.5-3B whole (36 layers, d_model 2,048, 16 heads over 2 kv
+heads, vocab 151,936, tied, 3.09 B random bf16 weights) trained 5 AdamW
+steps of 4 x 2,048 tokens from `TokenPipeline` over a synthetic corpus in
+a session on the card, selected by `quality > 0.1`: the memory reckoned
+before the batch is chosen (state 16 bytes a parameter), each step's
+loss, finite and falling (and a held-out batch's), the warm step time and
+tokens/s, a forward and AdamW alone, peak memory, a torch.profiler trace
+of one warm step, and the main path's launches (the selection and the
+steps: kernel 11 in every forward and in each block's recomputation).
+12d: Mamba2-370m whole (0.42 B) the same way, 8 x 2,048 a step, kernel
+12.  12e: `qwen2.5-3b-smoke` on the card, checkpointed asynchronously
+after 3 of 8 steps into a temporary directory, a simulated preemption,
+the model and optimizer restored into fresh objects and the steps from
+the manifest's step replayed: losses within rel 1e-3 of the
+uninterrupted run's (no deterministic algorithms are set).  Phase 1 also
+holds kernel 11's log-sum-exp output (what the backward reads) against
+its plain version on both routes, times the kernel with it, and times
+the plain-torch backwards of kernels 11 and 12 at the timed shapes.  The
+`kernels` line gives every kernel its phase-12 launches as
+`train_launches`, and the run fails if 12b launched no flash or 12d no
+SSD scan.
+
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
 device (and without `--device cpu`), or outside a checkout of the repo,
@@ -2790,6 +2827,36 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
                 fail(f"cross flash ({b}, {hh} over {kv}, S {s}, T {tk}, "
                      f"{hd}, {dt}) rel err {rel}")
             err_cross = max(err_cross, float((got - want).abs().max()))
+    # the log-sum-exp output (the backward's input): at Zamba2's and
+    # Qwen2.5-3B's training shapes, ragged S, non-causal at S != T, both
+    # routes; abs err < 1e-3 on the bf16 route, < 1e-4 on float32, and the
+    # output with it bit for bit the output without it
+    err_lse = 0.0
+    for b, h, kv, s, tk, hd, dt, causal in (
+            (LM_BATCH, ATT_HEADS, ATT_HEADS, LM_SEQ, LM_SEQ, ATT_HD, bf16,
+             True),
+            (LM_BATCH, 16, 2, LM_SEQ, LM_SEQ, 128, bf16, True),
+            (2, 16, 2, 1000, 1000, 128, f32, True),
+            (1, 32, 8, 1000, CROSS_T, 128, bf16, False),
+            (2, 8, 2, 700, 129, 64, f32, False),
+            (2, 4, 4, 65, 65, 36 + 2, bf16, True)):
+        hh = kv * max(1, h // kv // cut)
+        q = t(rng.normal(size=(b, s, hh, hd)), dt).transpose(1, 2)
+        k, v = (t(rng.normal(size=(b, tk, kv, hd)), dt).transpose(1, 2)
+                for _ in range(2))
+        got, lse = kf.flash_attention_fwd(q, k, v, causal, return_lse=True)
+        plain, want = kf.flash_attention_fwd_plain(q, k, v, causal,
+                                                   return_lse=True)
+        e = float((lse - want).abs().max())
+        alone = kf.flash_attention_fwd(q, k, v, causal)
+        if not (lse.shape == (b, hh, s) and lse.dtype == f32
+                and torch.equal(got, alone)
+                and e < (1e-3 if dt == bf16 else 1e-4)):
+            fail(f"flash LSE ({b}, {hh} over {kv}, S {s}, T {tk}, {hd}, "
+                 f"{dt}, causal={causal}): abs err {e}, shape "
+                 f"{tuple(lse.shape)}, output equal without it "
+                 f"{torch.equal(got, alone)}")
+        err_lse = max(err_lse, e)
     # SSD: rtol = atol = 1e-3 on y and the final state (the reference's
     # kernel test); a bf16 y is rounded once to bf16 on both sides, so two
     # values that close may still round one bf16 step apart
@@ -2826,7 +2893,8 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
         torch.cuda.synchronize()
     print(f"phase 1: flash (MHA, GQA and cross at S != T) and SSD kernels "
           f"match their plain versions, max abs err {json.dumps(err)}, GQA "
-          f"{err_gqa}, cross {err_cross}", flush=True)
+          f"{err_gqa}, cross {err_cross}, flash log-sum-exp {err_lse}",
+          flush=True)
 
     timer = Timer(torch, device)
     b, s = LM_BATCH, LM_SEQ
@@ -2859,6 +2927,34 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
     qg = t(rng.normal(size=(b, s, gh, GQA_HD)), bf16).transpose(1, 2)
     kg, vg = (t(rng.normal(size=(b, s, GQA_KV, GQA_HD)), bf16).transpose(1, 2)
               for _ in range(2))
+    # the backwards, plain torch by design (the reference's are XLA), at
+    # the timed shapes: kernel 11's two (`models/flash.py`) from its saved
+    # output and log-sum-exp, kernel 12's the vector-Jacobian product of
+    # `ssd_scan_plain` recomputed under autograd
+    from repro_torch.models import flash as mflash
+    from repro_torch.models import mamba2 as mm2
+    qm, km, vm = (z.transpose(1, 2) for z in (q, k, v))
+    om, lse = kf.flash_attention_fwd(q, k, v, True, return_lse=True)
+    om = om.transpose(1, 2)
+    lse = lse.transpose(1, 2).reshape(b, s, ah, 1)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    d_o = torch.randn_like(om)
+    res = (qm, km, vm, pos, om, lse)
+    dy = torch.randn(x.shape, device=dev, dtype=bf16)
+    dstate = torch.zeros(b, sh, SSD_P, SSD_N, device=dev)
+    backward = {
+        "flash_exact_ms": timer(lambda: mflash._exact_bwd(1024, True, res,
+                                                          d_o),
+                                reps=3, warmup=1),
+        "flash_flash_ms": timer(lambda: mflash._flash_bwd(1024, True, res,
+                                                          d_o),
+                                reps=3, warmup=1),
+        "ssd_ms": timer(lambda: mm2.ssd_scan_vjp(
+            x, dtt, a, bm, cm, d, SSD_CHUNK, dy, dstate), reps=2, warmup=1),
+    }
+    del res, om, lse, d_o, dy, dstate
+    print(f"phase 1: plain-torch backwards at the timed shapes (ms): "
+          f"{json.dumps(backward)}", flush=True)
     if device.type == "cuda":
         one_kernel("bf16 ssd_scan", cases["ssd_scan"][0])
         one_kernel("bf16 GQA flash_attention_fwd (32 heads over 4)",
@@ -2878,6 +2974,19 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
             "library_device_ms": (timer.graphed(lib, calls=5, replays=4)
                                   if lib is not None else None),
         }
+    # kernel 11 with its log-sum-exp written (what training launches),
+    # beside the call without it above
+    lse_call = lambda: kf.flash_attention_fwd(q, k, v,  # noqa: E731
+                                              return_lse=True)
+    out["flash_attention_fwd"].update(
+        lse_ms=timer(lse_call, reps=10, warmup=2),
+        lse_device_ms=timer.graphed(lse_call, calls=5, replays=4),
+        max_abs_err_lse=err_lse,
+        backward_ms={"exact": backward["flash_exact_ms"],
+                     "flash": backward["flash_flash_ms"]},
+        backward_route="plain torch")
+    out["ssd_scan"].update(backward_ms=backward["ssd_ms"],
+                           backward_route="plain torch")
     # the library yardstick groups k/v itself where the installed torch
     # takes `enable_gqa`; else it is timed on k/v repeated beforehand
     sdpa_gqa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -3504,6 +3613,458 @@ def phase_cross(torch, device, seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 12
+
+# 12a: Yi-9B (phase 9's weights, rebuilt from the seed) served with the
+# int8 KV cache and with bf16 scores on REQUESTS[0]; the reference test's
+# bounds (tests/test_perf_variants.py): the first decode step's
+# distributions within total variation 0.05 and the same argmax (int8
+# cache), the loss within 0.02 (bf16 scores)
+QUANT_TV, SCORES_LOSS = 0.05, 0.02
+# 12b / 12d: trained whole on TokenPipeline batches of seq 2,048 from a
+# synthetic corpus in a session on the card, selected by the reference
+# CLI's `quality > 0.1`, at its learning rate 3e-3 (warmup_cosine); the
+# batch is reckoned from the card's memory (`train_memory`)
+TRAIN_ARCH, TRAIN_SSM_ARCH = "qwen2.5-3b", "mamba2-370m"
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 5, 3e-3
+TRAIN_FILTER = "quality > 0.1"
+CARD_BYTES = 80e9
+# 12c: full width, 2 layers, a float32 copy: kernels vs plain routes,
+# within GRAD_REL of each gradient's largest entry and in norm (|g - g'| /
+# |g|); attn_impl="flash"'s backward (the reference's) rounds P, dS, q and
+# dO to bf16, so the two forwards' last-bit differences flip roundings that
+# compound from layer to layer.  scripts/grad_bounds.py on an H100 (700 W),
+# Qwen2.5-3B, seeds 12-19: at most 1.94e-3 entry-wise and 2.54e-3 in norm;
+# kernel 11's log-sum-exp shifted by 2^-7 reads 1.58e-2 and 1.20e-2, by
+# log 2 0.72 and 0.63.  So the flash route is held to FLASH_REL = 2^-7
+# both ways (3x the largest sound reading, below a 2^-7 shift); the exact
+# route, at GRAD_REL, also sees a 2^-10 shift (1.9e-3 and 1.5e-3)
+GRAD_LAYERS, GRAD_REL, FLASH_REL = 2, 1e-3, 2.0 ** -7
+GRAD_BATCH = (1, 1024)
+# 12e: the reference CLI's default arch, checkpointed after REPLAY_AT of
+# REPLAY_STEPS steps; losses after the replay within REPLAY_REL of the
+# uninterrupted run's (no deterministic algorithms: the embedding's
+# backward adds with atomics, so the two runs may differ in the last bits)
+REPLAY_ARCH, REPLAY_STEPS, REPLAY_AT, REPLAY_REL = ("qwen2.5-3b-smoke", 8, 3,
+                                                    1e-3)
+
+
+def train_memory(n_params: int, tokens: int, cfg) -> dict:
+    """The memory reckoning of one training step: the state at 16 bytes a
+    parameter (bf16 parameters and gradients, float32 master, mu and nu)
+    and, under remat, the activations kept: each block's input (bf16) and
+    one block recomputed at a time (its largest tensors, the MLP's
+    (tokens, d_ff) products and one KV chunk's float32 score tensors), and
+    one loss chunk's float32 logits and their gradient."""
+    state = 16.0 * n_params
+    per_tok = 2.0 * cfg.d_model * cfg.n_layers
+    block = tokens * (8.0 * max(cfg.d_ff, 2 * cfg.d_model)
+                      + 4 * 4.0 * cfg.n_heads * min(cfg.kv_chunk, TRAIN_SEQ))
+    logits = 2 * 4.0 * tokens / cfg.loss_chunks * cfg.vocab
+    return {"state": state, "activations": tokens * per_tok + block + logits}
+
+
+def loader(torch, device, cfg, batch: int, seed: int):
+    """A card session, the synthetic corpus and the pipeline over it, as
+    the reference CLI builds them; returns (session, pipeline, the
+    selection's launches, its segment routes)."""
+    from repro_torch.core import SharkSession
+    from repro_torch.data import TokenPipeline, synthetic_corpus
+    from repro_torch.kernels import ops
+    sess = SharkSession(num_workers=4, max_threads=4, device=device)
+    synthetic_corpus(sess, "corpus", cfg.vocab, n_docs=100,
+                     mean_doc_len=4 * TRAIN_SEQ, seed=seed)
+    before = ops.launch_counts()
+    pipe = TokenPipeline(sess, "corpus", TRAIN_SEQ, batch,
+                         sql_filter=TRAIN_FILTER, seed=seed)
+    sel = {k: v - before[k] for k, v in ops.launch_counts().items()
+           if v != before[k]}
+    return sess, pipe, sel, sess.metrics().segment_routes()
+
+
+def train_model(torch, device, seed: int, label: str, cfg, batch: int,
+                trace: bool) -> dict:
+    """`cfg` trained whole for TRAIN_STEPS AdamW steps on TokenPipeline
+    batches (`batch` x TRAIN_SEQ): the loss of each step, finite and
+    falling (the last below the first), the warm step time and tokens/s,
+    a forward alone and the optimizer alone, peak device memory beside
+    the reckoning, and the main path's launches (the selection and every
+    step, counted from 0), which must include kernel 11 or 12 in the
+    forwards.  Returns those launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.training import (AdamWConfig, adamw_update,
+                                      init_opt_state, make_eval_step,
+                                      make_train_step)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.build_model(cfg, device, torch.Generator(
+        device=device).manual_seed(seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = batch * TRAIN_SEQ
+    need = train_memory(n_params, tokens, cfg)
+    print(f"{label}: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters) built in "
+          f"{time.perf_counter() - t0:.3f} s; reckoned for batch {batch} x "
+          f"{TRAIN_SEQ}: state {need['state']:.4g} bytes (16 a parameter), "
+          f"activations about {need['activations']:.4g}, of the card's "
+          f"{CARD_BYTES:.3g}", flush=True)
+    if cuda and need["state"] + need["activations"] > CARD_BYTES:
+        fail(f"{label}: batch {batch} does not fit the card by the "
+             f"reckoning")
+    # the main path, counted from 0: the corpus's selection, then the steps
+    ops.reset_launch_counts()
+    sess, pipe, sel, routes = loader(torch, device, cfg, batch, seed)
+    print(f"{label}: corpus of {len(pipe.stream)} tokens selected by "
+          f"`{TRAIN_FILTER}` on {device}: kernel launches {json.dumps(sel)} "
+          f"(rows 1-8 of the kernel table), segment routes "
+          f"{json.dumps(routes)}", flush=True)
+    opt_state = init_opt_state(dict(model.named_parameters()))
+    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+    eval_fn = make_eval_step(cfg)
+    # a batch no step trains on: its loss before and after the steps (its
+    # launches are not the main path's)
+    held = {k: torch.from_numpy(v).to(device)
+            for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+    counted = ops.launch_counts()
+    held_before = float(eval_fn(model, held))
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        b = {k: torch.from_numpy(v).to(device)
+             for k, v in pipe.batch_at(step).items()}
+        t = time.perf_counter()
+        model, opt_state, m = step_fn(model, opt_state, b)
+        loss = float(m["loss"])
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+        print(f"{label}: step {step} loss {loss:.6f} grad_norm "
+              f"{float(m['grad_norm']):.4g} lr_scale "
+              f"{float(m['lr_scale']):.4g} ({times[-1]:.3f} ms)",
+              flush=True)
+    launches = {k: v + counted[k] for k, v in ops.launch_counts().items()
+                if v + counted[k]}
+    sess.shutdown()
+    warm = float(np.median(times[1:]))
+    t = time.perf_counter()
+    held_after = float(eval_fn(model, held))
+    fwd = (time.perf_counter() - t) * 1e3
+    print(f"{label}: loss of a batch no step trained on {held_before:.6f} "
+          f"before the steps, {held_after:.6f} after", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and held_after < held_before):
+        fail(f"{label}: losses {losses} (held-out {held_before} -> "
+             f"{held_after}) not finite and falling")
+    b = held
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if cuda and trace:
+        traced(torch, device, f"{label}: one warm training step",
+               lambda: step_fn(model, opt_state, b))
+    params = {n: p.data for n, p in model.named_parameters()}
+    zeros = {n: torch.zeros_like(p) for n, p in params.items()}
+    sync()
+    t = time.perf_counter()
+    adamw_update(AdamWConfig(lr=TRAIN_LR), zeros, params, opt_state)
+    sync()
+    opt_ms = (time.perf_counter() - t) * 1e3
+    print(f"{label}: {TRAIN_STEPS} steps of {batch} x {TRAIN_SEQ}: warm step "
+          f"{warm:.3f} ms ({tokens / warm * 1e3:.1f} tokens/s), a forward "
+          f"alone {fwd:.3f} ms, AdamW alone {opt_ms:.3f} ms, so backward "
+          f"and update {1 - fwd / warm:.3f} of the step; loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; peak device memory {peak} "
+          f"bytes; launches {json.dumps(launches)}", flush=True)
+    del model, opt_state, params, zeros
+    return launches
+
+
+@contextlib.contextmanager
+def plain_autograd():
+    """Kernels 11 and 12 and their backwards replaced by autograd of their
+    plain versions (the model reaches `models.flash.attention` and
+    `models.mamba2.ssd_scan` at call time)."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.models import flash as mf
+    from repro_torch.models import mamba2 as mm
+    saved = mf.attention, mm.ssd_scan
+    mf.attention = (lambda q, k, v, causal, bwd="exact", kv_chunk=1024:
+                    kf.flash_attention_fwd_plain(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal).transpose(1, 2))
+    mm.ssd_scan = (lambda x, dt, a, b, c, chunk, d:
+                   ks.ssd_scan_plain(x, dt, a, b, c, chunk, d))
+    try:
+        yield
+    finally:
+        mf.attention, mm.ssd_scan = saved
+
+
+def grad_gaps(torch, device, seed: int, cfg, impl: str) -> dict:
+    """On a float32 copy of `cfg` at GRAD_LAYERS layers (norms and biases
+    drawn from `seed`) with `attn_impl=impl`: the loss and every
+    parameter's gradient through kernels 11 and 12 against the plain
+    routes.  "blockwise" against autograd of the plain forwards; "flash"
+    (the reference's hand-written backward) against the same backward
+    after the plain forward.  Returns the loss's relative gap, the worst
+    gradient's gap relative to its largest entry (and where), and the
+    worst |g - g'| / |g|."""
+    import dataclasses
+    from repro_torch.models import lm
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = dataclasses.replace(cfg, n_layers=GRAD_LAYERS, attn_impl=impl)
+    model = lm.build_model(c, device, gen)
+    draw_biases_and_norms(model, gen)
+    model.float()
+    for p in model.parameters():
+        p.requires_grad_(True)
+    rng = np.random.default_rng(seed)
+    b, s = GRAD_BATCH
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                                 .astype(np.int32)).to(device)
+             for k in ("tokens", "labels")}
+    names = [n for n, _ in model.named_parameters()]
+
+    def run():
+        loss = lm.loss_fn(c, model, batch)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, list(model.parameters()))
+    lk, gk = run()
+    with (plain_routes() if impl == "flash" else plain_autograd()):
+        lp, gp = run()
+    worst, where, norm = 0.0, None, 0.0
+    for n, a, w in zip(names, gk, gp):
+        r = float((a - w).abs().max() / (w.abs().max() + 1e-30))
+        norm = max(norm, float((a - w).norm() / (w.norm() + 1e-30)))
+        if r > worst:
+            worst, where = r, n
+    return {"loss_rel": abs(lk - lp) / abs(lp), "grad_rel": worst,
+            "at": where, "grad_norm_rel": norm}
+
+
+def grad_check(torch, device, seed: int, label: str, cfg) -> dict:
+    """`grad_gaps` at seed + 12 for each `attn_impl` the family reads:
+    the loss within GRAD_REL, the gradients within GRAD_REL entry by entry
+    and in norm, or FLASH_REL for "flash".  Returns the gaps."""
+    gaps = {}
+    impls = ("blockwise", "flash") if cfg.family != "ssm" else ("blockwise",)
+    for impl in impls:
+        g = gaps[impl] = grad_gaps(torch, device, seed + 12, cfg, impl)
+        rel = FLASH_REL if impl == "flash" else GRAD_REL
+        if not (g["loss_rel"] < GRAD_REL and g["grad_norm_rel"] < rel
+                and g["grad_rel"] < rel):
+            fail(f"{label} ({impl}): kernels vs plain loss rel "
+                 f"{g['loss_rel']}, gradient rel {g['grad_rel']} at "
+                 f"{g['at']}, in norm {g['grad_norm_rel']} (bound {rel})")
+        gc.collect()
+    b, s = GRAD_BATCH
+    print(f"{label}: {cfg.name} at {GRAD_LAYERS} layers, float32, batch "
+          f"{b} x {s}: kernels vs plain {json.dumps(gaps)}", flush=True)
+    return gaps
+
+
+def serve_options(torch, device, seed: int) -> None:
+    """12a: Yi-9B with the int8 KV cache and with bf16 scores (the
+    reference's `kv_int8` and `scores_bf16` variants) on REQUESTS[0]."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    cuda = device.type == "cuda"
+    cfg = get_config(DENSE_ARCH if cuda else DENSE_ARCH + "-smoke")
+    model = lm.build_model(cfg, device, torch.Generator(
+        device=device).manual_seed(seed))
+    b, s, _ = REQUESTS[0]
+    rng = np.random.default_rng(seed + 6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                            .astype(np.int32)).to(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def serve(c):
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        logits, caches = lm.prefill_fn(c, model, {"tokens": toks},
+                                       s + DECODE_STEPS)
+        sync()
+        pre = (time.perf_counter() - t) * 1e3
+        flash = ops.launch_counts()["flash_attention_fwd"]
+        nbytes = sum(v.numel() * v.element_size() for v in caches.values())
+        tok = first = torch.argmax(logits[:, -1], -1)[:, None]
+        steps, greedy, first_logits = [], [], None
+        for i in range(DECODE_STEPS):
+            t = time.perf_counter()
+            d, caches = lm.decode_fn(c, model, tok, caches, s + i)
+            sync()
+            steps.append((time.perf_counter() - t) * 1e3)
+            if first_logits is None:
+                first_logits = d[:, 0].float()
+            tok = torch.argmax(d[:, -1], -1)[:, None]
+            greedy.append(tok[0, 0].item())
+        return {"prefill_ms": pre, "flash_launches": flash,
+                "cache_bytes": nbytes,
+                "decode_ms": float(np.median(steps[1:])),
+                "greedy": greedy, "dtypes": sorted(
+                    {str(v.dtype) for v in caches.values()})}, first, \
+            first_logits
+
+    base, first, d1 = serve(cfg)
+    q8cfg = dataclasses.replace(cfg, kv_cache_quant=True)
+    quant, _, _ = serve(q8cfg)
+    # the reference test's comparison: one decode step of the prefill's
+    # argmax token against each configuration's cache
+    _, caches = lm.prefill_fn(q8cfg, model, {"tokens": toks},
+                              s + DECODE_STEPS)
+    d2, _ = lm.decode_fn(q8cfg, model, first, caches, s)
+    del caches
+    p1, p2 = torch.softmax(d1, -1), torch.softmax(d2[:, 0].float(), -1)
+    tv = float(0.5 * (p1 - p2).abs().sum(-1).max())
+    same = bool((d1.argmax(-1) == d2[:, 0].argmax(-1)).all())
+    bfcfg = dataclasses.replace(cfg, attn_scores_dtype="bf16")
+    scores, _, d3 = serve(bfcfg)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    with torch.no_grad():
+        l1 = float(lm.loss_fn(cfg, model, batch))
+        l2 = float(lm.loss_fn(bfcfg, model, batch))
+    ratio = quant["cache_bytes"] / base["cache_bytes"]
+    print(f"phase 12a: {cfg.name} {b} x {s} + {DECODE_STEPS}: bf16 cache "
+          f"{json.dumps(base)}; int8 cache {json.dumps(quant)} ({ratio:.4f} "
+          f"of the bytes), first decode step TV {tv:.4g}, argmax equal "
+          f"{same}; bf16 scores {json.dumps(scores)}, loss {l2:.6f} vs "
+          f"{l1:.6f}", flush=True)
+    if not (tv < QUANT_TV and same):
+        fail(f"phase 12a: int8 cache TV {tv} (bound {QUANT_TV}), argmax "
+             f"equal {same}")
+    if not abs(l1 - l2) < SCORES_LOSS:
+        fail(f"phase 12a: bf16 scores loss {l2} vs {l1}, beyond "
+             f"{SCORES_LOSS}")
+    if cuda and (quant["flash_launches"] != cfg.n_layers
+                 or scores["flash_launches"] != 0):
+        fail(f"phase 12a: flash launches a prefill {quant['flash_launches']}"
+             f" (int8 cache, want {cfg.n_layers}), "
+             f"{scores['flash_launches']} (bf16 scores: the plain route, "
+             f"want 0)")
+    del model
+
+
+def replay(torch, device, seed: int) -> None:
+    """12e: the reference CLI's default arch on the card, checkpointed
+    (asynchronously, with the pipeline's manifest) after REPLAY_AT steps;
+    the run goes on to REPLAY_STEPS; then a simulated preemption: the
+    model and optimizer restored into fresh objects, the pipeline rebuilt
+    from the manifest, and the steps from the manifest's step replayed.
+    Their losses must equal the uninterrupted run's within REPLAY_REL."""
+    import tempfile as tf
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import SharkSession
+    from repro_torch.data import TokenPipeline, synthetic_corpus
+    from repro_torch.models import lm
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    cfg = get_config(REPLAY_ARCH)
+    sess = SharkSession(num_workers=4, max_threads=4, device=device)
+    synthetic_corpus(sess, "corpus", cfg.vocab, n_docs=100,
+                     mean_doc_len=4 * 64, seed=seed)
+    pipe = TokenPipeline(sess, "corpus", 64, 16, sql_filter=TRAIN_FILTER,
+                         seed=seed)
+    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+
+    def fresh():
+        model = lm.build_model(cfg, device, torch.Generator(
+            device=device).manual_seed(seed))
+        return model, init_opt_state(dict(model.named_parameters()))
+
+    def batch(p, step):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in p.batch_at(step).items()}
+    with tf.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, keep=2)
+        model, opt = fresh()
+        straight = []
+        for step in range(REPLAY_STEPS):
+            if step == REPLAY_AT:
+                mgr.save(step, {"params": dict(model.named_parameters()),
+                                "opt": opt},
+                         {"pipeline": pipe.manifest(step)})
+            model, opt, m = step_fn(model, opt, batch(pipe, step))
+            straight.append(float(m["loss"]))
+        mgr.wait()
+        model, opt = fresh()
+        params = dict(model.named_parameters())
+        restored, manifest = mgr.restore_latest({"params": params,
+                                                 "opt": opt})
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(restored["params"][n])
+        opt = restored["opt"]
+        pipe2 = TokenPipeline.from_manifest(sess, manifest["pipeline"])
+        start = manifest["step"]
+        replayed = []
+        for step in range(start, REPLAY_STEPS):
+            model, opt, m = step_fn(model, opt, batch(pipe2, step))
+            replayed.append(float(m["loss"]))
+        files = len(os.listdir(os.path.join(d, f"step_{start:08d}")))
+    sess.shutdown()
+    gap = max(abs(a - b) / abs(a) for a, b in zip(straight[start:],
+                                                   replayed))
+    print(f"phase 12e: {cfg.name}: checkpoint at step {start} ({files} "
+          f"files, removed), simulated preemption, replay of steps "
+          f"{start}..{REPLAY_STEPS - 1}: losses {replayed} vs uninterrupted "
+          f"{straight[start:]}, max rel gap {gap:.3g} (no deterministic "
+          f"algorithms)", flush=True)
+    if not gap < REPLAY_REL or int(opt["step"]) != REPLAY_STEPS:
+        fail(f"phase 12e: replay gap {gap} beyond {REPLAY_REL}, step "
+             f"{int(opt['step'])}")
+
+
+def phase_training(torch, device, seed: int) -> dict:
+    """Phase 12: A.5.3's options on Yi-9B (12a), gradients through kernels
+    11 and 12 against the plain routes (12c), Qwen2.5-3B (12b) and
+    Mamba2-370m (12d) trained whole, a preemption replayed from a
+    checkpoint (12e).  Returns the training main paths' launches, summed
+    over 12b and 12d."""
+    from repro_torch.configs import get_config
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    serve_options(torch, device, seed)
+    free()
+    for arch in (TRAIN_ARCH, TRAIN_SSM_ARCH):
+        grad_check(torch, device, seed, "phase 12c", get_config(
+            arch if cuda else arch + "-smoke"))
+        free()
+    launches = {}
+    for label, arch, batch, trace in (("phase 12b", TRAIN_ARCH, 4, True),
+                                      ("phase 12d", TRAIN_SSM_ARCH, 8,
+                                       False)):
+        cfg = get_config(arch if cuda else arch + "-smoke")
+        got = train_model(torch, device, seed, label, cfg,
+                          batch if cuda else 1, trace)
+        kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention_fwd"
+        if cuda and not got.get(kernel):
+            fail(f"{label}: training never launched {kernel}: {got}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        free()
+    replay(torch, device, seed)
+    print(f"phase 12: {time.perf_counter() - t_phase:.3f} s of wall, builds "
+          f"included; training launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
 def release(torch, device, label: str, after: str) -> None:
     """Free what the last phase left (its models and caches are gone
     with its frame) and the allocator's cache; print the memory held."""
@@ -3564,6 +4125,8 @@ def main() -> int:
     moe = phase_moe(torch, device, args.seed)
     release(torch, device, "phase 11", "phase 10")
     cross = phase_cross(torch, device, args.seed)
+    release(torch, device, "phase 12", "phase 11")
+    train = phase_training(torch, device, args.seed)
     if device.type == "cuda":
         idle = [k for k, v in launches.items() if v == 0]
         if idle:
@@ -3592,6 +4155,9 @@ def main() -> int:
             rec["vlm_launches"] = cross["vlm"][name]
             rec["encdec_launches"] = cross["encdec"][name]
             rec["cross"]["launches"] = cross["vlm"][name]
+        # phase 12's training main paths (12b and 12d, the SQL selection
+        # of their corpora included)
+        rec["train_launches"] = train.get(name, 0)
     kernels["colscan"]["two_columns"]["launches"] = \
         sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \

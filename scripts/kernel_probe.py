@@ -205,7 +205,7 @@ def probe_flash(torch, np) -> None:
 
     def call():       # bf16 (dtype code 4), route 1, causal
         rc = run(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 4, 1, b, h, k.shape[1], s, k.shape[2], hd, 1,
+                 None, 4, 1, b, h, k.shape[1], s, k.shape[2], hd, 1,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], torch.cuda.current_stream().cuda_stream)
         if rc:

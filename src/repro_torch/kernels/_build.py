@@ -48,7 +48,7 @@ SIGNATURES = {
     "topk_fused": ("shark_topk_fused",
                    [_vp, _vp, _i, _vp, _ll, _i, _i, _ull, _vp, _vp, _vp]),
     "flash": ("shark_flash_attention_fwd",
-              [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i]
+              [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i]
               + [_ll] * 12 + [_vp]),
     "ssd": ("shark_ssd_scan",
             [_vp, _i, _i, _ll, _ll, _vp, _vp, _vp, _vp, _ll, _ll, _vp, _ll,

@@ -14,7 +14,12 @@
 // k / v tiles close together in time and L2 serves the repeats.  Scores,
 // the running max m, the running denominator l and the output accumulator
 // are float32; the output is acc / max(l, 1e-30) in q's dtype, as the
-// reference kernel's finalize writes it.  Every operand is read through
+// reference kernel's finalize writes it.  Where the caller asks for it,
+// each row's log-sum-exp of its scaled scores, m + log l (natural log),
+// float32 (B, H, S), is written too: the backward recomputes the
+// probabilities from it, as the reference's oracle
+// (repro/models/flash.py:_flash_fwd_impl) returns it for its backward
+// (the Pallas kernel itself does not).  Every operand is read through
 // its batch, head and sequence strides, so a (B, S, H, hd) tensor seen as
 // (B, H, S, hd) is not copied; any S and T (rows past S and keys past T are
 // masked).
@@ -146,8 +151,9 @@ size_t smem_bytes(int hd) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int heads, int group,
-          int s_len, int t_len, int hd, int causal, float scale, Strides qs,
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int heads, int group, int s_len,
+          int t_len, int hd, int causal, float scale, Strides qs,
           Strides ks, Strides vs, Strides os) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_qt = reinterpret_cast<T*>(smem_raw);            // [hd][kPitchT]
@@ -273,6 +279,10 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + rg * 4 + i;
     if (row >= s_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // m is in units of the scaled score: lse = m + log l, natural log
+    if (lse != nullptr && cg == 0)
+      lse[static_cast<long long>(blockIdx.y) * s_len + row] =
+          m[i] + logf(denom);
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
       const int col = cg * 16 + c;
@@ -536,8 +546,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap q_map,
              const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map, TmaCoords qc,
              TmaCoords kc, TmaCoords vc, __nv_bfloat16* __restrict__ o,
-             Strides os, int heads, int group, int s_len, int t_len, int hd,
-             int causal, float scale_log2) {
+             float* __restrict__ lse, Strides os, int heads, int group,
+             int s_len, int t_len, int hd, int causal, float scale_log2) {
   using Plan = TcPlan<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -724,6 +734,16 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap q_map,
     const float inv = 1.f / fmaxf(li, 1e-30f);
     const int row = row0 + 8 * i;
     if (row >= s_len) continue;
+    // m is the raw score's max and l sums 2^(s log2(e) / sqrt(hd) -
+    // offset): lse = (offset + log2 l) ln 2 in units of the scaled score,
+    // the offset as the softmax loop set it (0 for a row with no unmasked
+    // score, whose lse is then kNegInf like the SIMT route's)
+    if (lse != nullptr && c0 == 0)
+      lse[static_cast<long long>(blockIdx.y) * s_len + row] =
+          m[i] > 0.5f * kNegInf
+              ? (m[i] * scale_log2 + log2f(fmaxf(li, 1e-30f)))
+                    * 0.6931471805599453f
+              : kNegInf + logf(fmaxf(li, 1e-30f));
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int col = 8 * j + c0;
@@ -810,8 +830,9 @@ int encode_operand(CUtensorMap* map, TmaCoords* at, const void* ptr,
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
-              int h, int kv, int s, int t, int hd, int causal, Strides qs,
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int b, int h, int kv, int s, int t, int hd,
+              int causal, Strides qs,
               Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   // set once, on the first (eager) call: a call inside a CUDA graph
   // capture sets nothing
@@ -829,8 +850,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<float>(kLog2e / sqrt(static_cast<double>(hd)));
   const dim3 grid((s + kTcBQ - 1) / kTcBQ, b * h);
   flash_fwd_tc<HD><<<grid, kTcThreads, TcPlan<HD>::kSmem, stream>>>(
-      qm, km, vm, qc, kc, vc, static_cast<__nv_bfloat16*>(o), os, h, h / kv,
-      s, t, hd, causal, scale_log2);
+      qm, km, vm, qc, kc, vc, static_cast<__nv_bfloat16*>(o), lse, os, h,
+      h / kv, s, t, hd, causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -844,8 +865,9 @@ bool tma_ok(const void* p, Strides st, int b, int h, int rows) {
 }
 
 template <typename T>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int b,
-                int h, int kv, int s, int t, int hd, int causal, Strides qs,
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int b, int h, int kv, int s, int t, int hd,
+                int causal, Strides qs,
                 Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(hd);
   // raise the kernel's dynamic shared-memory limit once, to the most any
@@ -858,8 +880,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((s + kBQ - 1) / kBQ, b * h);
   flash_fwd_simt<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h, h / kv, s, t, hd,
-      causal, scale, qs, ks, vs, os);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, h, h / kv, s, t,
+      hd, causal, scale, qs, ks, vs, os);
   return cudaGetLastError();
 }
 
@@ -867,10 +889,13 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int b,
 
 // route 0: flash_fwd_simt (float32 or bfloat16); route 1: flash_fwd_tc
 // (bfloat16, hd % 8 == 0, TMA-legal bases and strides).  q has h heads, k
-// and v kv heads (h % kv == 0).  Strides are in elements.  Returns a
-// cudaError_t.
+// and v kv heads (h % kv == 0).  Strides are in elements.  `lse`, when not
+// null, receives each row's log-sum-exp of its scaled scores, float32
+// (B, H, S) contiguous: what the backward recomputes the probabilities
+// from.  Returns a cudaError_t.
 extern "C" int shark_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o, void* lse_ptr,
+    int dtype,
     int route, int b, int h, int kv, int s, int t, int hd, int causal,
     long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh,
@@ -882,28 +907,29 @@ extern "C" int shark_flash_attention_fwd(
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_ptr);
   if (route == 1) {
     if (dtype != kBFloat16 || hd % 8 != 0 || !tma_ok(q, qs, b, h, s)
         || !tma_ok(k, ks, b, kv, t) || !tma_ok(v, vs, b, kv, t)
         || reinterpret_cast<uintptr_t>(o) % 4 != 0 || os.s % 2 != 0)
       return cudaErrorInvalidValue;
     if (hd <= 64)
-      return launch_tc<64>(q, k, v, o, b, h, kv, s, t, hd, causal, qs, ks,
-                           vs, os, st);
+      return launch_tc<64>(q, k, v, o, lse, b, h, kv, s, t, hd, causal, qs,
+                           ks, vs, os, st);
     if (hd <= 112)
-      return launch_tc<112>(q, k, v, o, b, h, kv, s, t, hd, causal, qs, ks,
-                            vs, os, st);
-    return launch_tc<128>(q, k, v, o, b, h, kv, s, t, hd, causal, qs, ks,
-                          vs, os, st);
+      return launch_tc<112>(q, k, v, o, lse, b, h, kv, s, t, hd, causal, qs,
+                            ks, vs, os, st);
+    return launch_tc<128>(q, k, v, o, lse, b, h, kv, s, t, hd, causal, qs,
+                          ks, vs, os, st);
   }
   if (route != 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case kFloat32:
-      return launch_simt<float>(q, k, v, o, b, h, kv, s, t, hd, causal, qs,
-                                ks, vs, os, st);
+      return launch_simt<float>(q, k, v, o, lse, b, h, kv, s, t, hd, causal,
+                                qs, ks, vs, os, st);
     case kBFloat16:
-      return launch_simt<__nv_bfloat16>(q, k, v, o, b, h, kv, s, t, hd,
-                                        causal, qs, ks, vs, os, st);
+      return launch_simt<__nv_bfloat16>(q, k, v, o, lse, b, h, kv, s, t,
+                                        hd, causal, qs, ks, vs, os, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -11,7 +11,12 @@ running max, running denominator and the output accumulator are float32;
 the output has q's dtype and is divided by `max(l, 1e-30)`, as the
 reference kernel's finalize does.  bfloat16 and float32 inputs; hd up to
 128; any S and T (the ragged last tile is masked, where the reference
-wrapper asserts `s % block_q == 0`).
+wrapper asserts `s % block_q == 0`).  With `return_lse=True` it also
+returns each row's log-sum-exp of its scaled, masked scores (m + log l of
+the online softmax, natural log), float32 (B, H, S): what the backward
+(`models/flash.py`) recomputes the probabilities from, as the reference's
+oracle `_flash_fwd_impl` returns it (its Pallas kernel keeps it in
+scratch).  The kernel writes it only when asked.
 
 On CUDA tensors the wrapper launches `csrc/flash.cu` (it replaces
 repro/kernels/flash_attention.py:flash_attention_fwd; the design note is in
@@ -67,11 +72,13 @@ def _groups(q: torch.Tensor, k: torch.Tensor) -> int:
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, causal: bool = True
-                              ) -> torch.Tensor:
+                              v: torch.Tensor, causal: bool = True,
+                              return_lse: bool = False):
     """Plain PyTorch version (any device): the full masked softmax in
     float32, cast to q's dtype.  GQA the reference model's way: q seen as
-    (B, KV, H / KV, S, hd) against the raw k and v."""
+    (B, KV, H / KV, S, hd) against the raw k and v.  With `return_lse`,
+    also each row's log-sum-exp of its scaled, masked scores, float32
+    (B, H, S)."""
     b, h, s, hd = q.shape
     kv, t = k.shape[1], k.shape[2]
     g = _groups(q, k)
@@ -82,7 +89,10 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
         sc = torch.where(mask, sc, torch.tensor(NEG_INF, device=q.device))
     out = torch.einsum("bkgst,bktd->bkgsd", torch.softmax(sc, dim=-1),
                        v.float())
-    return out.reshape(b, h, s, hd).to(q.dtype)
+    out = out.reshape(b, h, s, hd).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(sc, dim=-1).reshape(b, h, s)
+    return out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -127,9 +137,9 @@ def _check_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, return_lse: bool = False):
     if on_cpu(q, k, v):
-        return flash_attention_fwd_plain(q, k, v, causal)
+        return flash_attention_fwd_plain(q, k, v, causal, return_lse)
     _check(q, k, v)
     b, h, s, hd = (int(x) for x in q.shape)
     kv, t = int(k.shape[1]), int(k.shape[2])
@@ -137,12 +147,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "tensor_core":
         _check_tma(q, k, v)
     out = torch.empty_like(q)      # q's layout when dense, else contiguous
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     rc = _build.kernel_fn("flash")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.dtype_code(q), _ROUTE_CODES[route], b, h, kv, s, t, hd,
+        lse.data_ptr() if return_lse else None, _build.dtype_code(q),
+        _ROUTE_CODES[route], b, h, kv, s, t, hd,
         int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], _build.stream_handle(q.device))
     _build.check_launch("flash_attention_fwd", rc)
     count_launch(LAUNCHES, "flash_attention_fwd")
     count_launch(ROUTES, route)
-    return out
+    return (out, lse) if return_lse else out

@@ -131,11 +131,13 @@ def train_grad(x, y, w, kind: str = "logistic") -> torch.Tensor:
     return _tg.train_grad(x, y, w, kind)
 
 
-def flash_attention_fwd(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention_fwd(q, k, v, causal: bool = True,
+                        return_lse: bool = False):
     """Causal attention forward, q (B, H, S, hd), k, v (B, KV, T, hd), H a
     multiple of KV (GQA; KV == H is MHA); float32 softmax, output in q's
-    dtype (the dense and hybrid prefills' attention)."""
-    return _fa.flash_attention_fwd(q, k, v, causal)
+    dtype (every GQA prefill's attention); with `return_lse`, also the
+    rows' log-sum-exp (B, H, S) float32, for the backward."""
+    return _fa.flash_attention_fwd(q, k, v, causal, return_lse)
 
 
 def ssd_scan(x, dt, a, b, c, chunk: int = 128, d=None):

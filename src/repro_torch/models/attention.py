@@ -1,14 +1,21 @@
-"""GQA self-attention (RoPE, optional QKV bias): prefill and decode, for
-every `dense` layer and the `hybrid` family's shared block; and
-cross-attention, for the `vlm` family's gated cross layers and the
+"""GQA self-attention (RoPE, optional QKV bias): prefill, training and
+decode, for every `dense` layer and the `hybrid` family's shared block;
+and cross-attention, for the `vlm` family's gated cross layers and the
 `encdec` decoder's.
 
-Prefill runs attention through `kernels.ops.flash_attention_fwd`: the
-hand-written kernel (`kernels/csrc/flash.cu`) on the card, its plain
-masked softmax on the CPU.  Self-attention is causal (Whisper's encoder
-calls it with `causal=False`); cross-attention (`cross_attention`) is
-non-causal, S queries against the T rows of its source, S != T, with no
-RoPE, the reference's `_blockwise_attention(..., causal=False)`.  Neither
+Prefill and training run attention through `models/flash.attention`:
+kernel 11 (`kernels/csrc/flash.cu`) on the card, its plain masked
+softmax on the CPU, with a plain-torch backward when autograd records
+(`models/flash.py`).  `attention_route` follows the reference's choice:
+`attn_impl="flash"` takes the reference's hand-written backward,
+otherwise the exact float32 one; `attn_scores_dtype="bf16"` (where
+`attn_impl` is not "flash") runs the reference's blockwise loop with
+bfloat16 scores in plain torch, since the TPU kernel has no such option.
+Self-attention is causal (Whisper's encoder calls it with
+`causal=False`); cross-attention (`cross_attention`) is non-causal, S
+queries against the T rows of its source, S != T, with no RoPE, the
+reference's `_blockwise_attention(..., causal=False)`, whose gradient is
+the exact one.  Neither
 repeats k/v heads: the kernel reads kv head h // (H // KV) for query head
 h, and the plain version groups the queries by kv head, as the reference
 does.  `_blockwise_attention` is the reference's route (an online softmax
@@ -29,7 +36,8 @@ full (S, H, nope + v) tensors never exist, and the decode scores the
 query against the compressed cache (c_kv, k_rope) with W_uk absorbed
 into the query and W_uv applied after the weighting.  Its RoPE angle base
 is 10000.0, whatever the config's `rope_theta`, as in the reference.
-The int8 cache waits (ROADMAP A.5).
+`quantize_kv` and `decode_attention_q8` are the int8 KV cache
+(`kv_cache_quant`), plain torch as in the reference.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..kernels import ops
+from . import flash as fl
 from .common import _param, apply_rope, dense_init, matmul, rmsnorm
 
 NEG_INF = -1e30
@@ -88,15 +96,25 @@ def _project_qkv(p: GQA, x: torch.Tensor, n_heads: int, n_kv: int,
 
 def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_positions: torch.Tensor, kv_chunk: int,
-                         causal: bool, kv_offset: int = 0) -> torch.Tensor:
-    """q: (B,S,H,hd); k,v: (B,T,KV,hd).  Online softmax over KV chunks in
-    float32 (the reference's default `scores_dtype="f32"`)."""
+                         causal: bool, kv_offset: int = 0,
+                         scores_dtype: str = "f32") -> torch.Tensor:
+    """q: (B,S,H,hd); k,v: (B,T,KV,hd).  Online softmax over KV chunks.
+    With the reference's default `scores_dtype="f32"` everything is
+    float32; with "bf16" the scaled q, the scores and the probabilities
+    are bfloat16 (each product summed in float32 and rounded once, the
+    masked score the bfloat16 of -1e30, exp(s - m) taken on bfloat16
+    operands), and m, l and the output accumulator stay float32, as the
+    reference's variant computes them.  Plain torch, so autograd
+    differentiates it as the reference's autodiff does."""
     b, s, h, hd = q.shape
     t = k.shape[1]
     n_kv = k.shape[2]
     g = h // n_kv
+    bf16 = scores_dtype == "bf16"
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(b, s, n_kv, g, hd).float() * scale
+    if bf16:
+        qg = qg.to(torch.bfloat16).float()
 
     kv_chunk = min(kv_chunk, t)
     t_orig = t
@@ -113,12 +131,19 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros((b, s, n_kv, g), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, s, n_kv, g, hd), dtype=torch.float32,
                       device=q.device)
+    if bf16:
+        # -1e30 as the reference's bfloat16 constant
+        neg = neg.to(torch.bfloat16).float()
     for idx in range(n_chunks):
         kb = k[:, idx * kv_chunk:(idx + 1) * kv_chunk].float()
         vb = v[:, idx * kv_chunk:(idx + 1) * kv_chunk].float()
+        if bf16:
+            kb, vb = (x.to(torch.bfloat16).float() for x in (kb, vb))
         kpos = idx * kv_chunk + torch.arange(kv_chunk, device=q.device) \
             + kv_offset
         scores = torch.einsum("bsgxd,bcgd->bsgxc", qg, kb)
+        if bf16:
+            scores = scores.to(torch.bfloat16).float()
         if causal:
             mask = kpos[None, None, None, None, :] \
                 <= q_positions[:, :, None, None, None]
@@ -127,7 +152,13 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             valid = (kpos < t_orig)[None, None, None, None, :]
             scores = torch.where(valid, scores, neg)
         m_new = torch.maximum(m, scores.amax(dim=-1))
-        p = torch.exp(scores - m_new[..., None])
+        if bf16:
+            # exp of bfloat16 operands, the result bfloat16
+            x = (scores.to(torch.bfloat16)
+                 - m_new[..., None].to(torch.bfloat16))
+            p = torch.exp(x.float()).to(torch.bfloat16).float()
+        else:
+            p = torch.exp(scores - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bsgxc,bcgd->bsgxd", p, vb)
@@ -136,25 +167,46 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
+def attention_route(impl: str, scores_dtype: str, t: int,
+                    kv_chunk: int) -> str:
+    """The reference's choice in `_self_attention`, with the port's names:
+    "flash" (kernel 11, `_flash_bwd` backward) for `impl="flash"` where T
+    is a multiple of min(kv_chunk, T); else "bf16" (the plain blockwise
+    route with bfloat16 scores) for `scores_dtype="bf16"`, which the TPU
+    kernel has no option for; else "exact" (kernel 11, the float32
+    blockwise gradient)."""
+    if impl == "flash" and t % min(kv_chunk, t) == 0:
+        return "flash"
+    return "bf16" if scores_dtype == "bf16" else "exact"
+
+
 def self_attention(p: GQA, x: torch.Tensor, positions: torch.Tensor,
                    n_heads: int, n_kv: int, head_dim: int, rope_theta: float,
-                   causal: bool = True, return_kv: bool = False):
-    """Full-sequence self-attention (prefill), causal unless `causal` is
-    False (Whisper's encoder).  x: (B,S,D); positions: (B,S), the same row
-    for every batch entry (the causal mask is by sequence index).  With
-    `return_kv`, also (k after RoPE, v), each (B,S,KV,hd), as the
-    reference caches them.  The reference's `kv_chunk`
-    belongs to its blockwise route; the flash kernel tiles on its own."""
+                   causal: bool = True, return_kv: bool = False,
+                   kv_chunk: int = 1024, scores_dtype: str = "f32",
+                   impl: str = "blockwise"):
+    """Full-sequence self-attention (prefill and training), causal unless
+    `causal` is False (Whisper's encoder).  x: (B,S,D); positions: (B,S),
+    the same row for every batch entry (the causal mask is by sequence
+    index).  With `return_kv`, also (k after RoPE, v), each (B,S,KV,hd),
+    as the reference caches them.  `attention_route` picks the route from
+    `impl`, `scores_dtype` and `kv_chunk` as the reference does: kernel
+    11 (which tiles on its own; `kv_chunk` is the backward's chunk), or
+    the plain blockwise loop for bf16 scores."""
     b, s, d = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
     if rope_theta > 0:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    # (B,S,H,hd) seen as (B,H,S,hd), k and v as (B,KV,T,hd): the kernel
-    # reads the strides and groups the query heads by kv head, and its
-    # output comes back in q's layout, so nothing is copied or repeated
-    out = ops.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal).transpose(1, 2)
+    route = attention_route(impl, scores_dtype, k.shape[1], kv_chunk)
+    if route == "bf16":
+        out = _blockwise_attention(q, k, v, positions, kv_chunk, causal,
+                                   scores_dtype="bf16")
+    else:
+        # (B,S,H,hd) seen as (B,H,S,hd), k and v as (B,KV,T,hd): the kernel
+        # reads the strides and groups the query heads by kv head, and its
+        # output comes back in q's layout, so nothing is copied or repeated
+        out = fl.attention(q, k, v, causal, route, kv_chunk)
     y = out.reshape(b, s, n_heads * head_dim) @ p.wo
     if return_kv:
         return y, (k, v)
@@ -193,6 +245,65 @@ def decode_attention(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
     return out.reshape(b, 1, n_heads * head_dim).to(x.dtype) @ p.wo
 
 
+# -- int8-quantized KV cache (`kv_cache_quant`) ------------------------------
+#
+# K and V quantize symmetrically per (token, kv head) to int8 when prefill
+# writes them and when decode appends; the scores factor exactly as
+# (q . k_q) * k_scale, so the cache is read as int8 plus one bfloat16 scale
+# a row: half the bytes of the bfloat16 cache.
+
+def quantize_kv(x: torch.Tensor):
+    """x: (..., hd) -> (int8 values, bfloat16 per-(...) scales): scale =
+    max(|x|) / 127 over hd (at least 1e-8), values round(x / scale)
+    clipped to [-127, 127], in float32 as the reference computes them."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    sc = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / sc), -127, 127).to(torch.int8)
+    return q, sc[..., 0].to(torch.bfloat16)
+
+
+def decode_attention_q8(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
+                        k_scale: torch.Tensor, cache_v: torch.Tensor,
+                        v_scale: torch.Tensor, cur_len: int, n_heads: int,
+                        n_kv: int, head_dim: int, rope_theta: float):
+    """Decode against the int8 cache: cache_k / cache_v (B,Smax,KV,hd)
+    int8, k_scale / v_scale (B,Smax,KV) bfloat16.  The token's quantized k
+    (after RoPE) and v and their scales are written at cur_len IN PLACE
+    (the reference returns updated copies).  The reference's arithmetic:
+    the scaled q rounded to bfloat16, raw = q . k_q in float32, scores =
+    raw * k_scale, a float32 softmax over the valid rows, the weights
+    times v_scale rounded to bfloat16 against v_q, summed in float32.
+    Returns the attention output (B,1,D)."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
+    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
+    if rope_theta > 0:
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    cache_k[:, cur_len:cur_len + 1] = kq
+    k_scale[:, cur_len:cur_len + 1] = ks
+    cache_v[:, cur_len:cur_len + 1] = vq
+    v_scale[:, cur_len:cur_len + 1] = vs
+    t = cache_k.shape[1]
+    g = n_heads // n_kv
+    scale = 1.0 / math.sqrt(head_dim)
+    qg = (q.reshape(b, n_kv, g, head_dim).float() * scale) \
+        .to(torch.bfloat16).float()
+    raw = torch.einsum("bgxd,btgd->bgxt", qg, cache_k.float())
+    scores = raw * k_scale.transpose(1, 2)[:, :, None, :].float()
+    mask = torch.arange(t, device=x.device)[None, None, None, :] <= cur_len
+    scores = torch.where(mask, scores,
+                         torch.tensor(NEG_INF, device=x.device))
+    w = torch.softmax(scores, dim=-1)
+    wv = (w * v_scale.transpose(1, 2)[:, :, None, :].float()) \
+        .to(torch.bfloat16).float()
+    out = torch.einsum("bgxt,btgd->bgxd", wv, cache_v.float())
+    return out.reshape(b, 1, n_heads * head_dim).to(x.dtype) @ p.wo
+
+
 # ---------------------------------------------------------------------------
 # Cross-attention (the vlm family's image layers, the encdec decoder's)
 # ---------------------------------------------------------------------------
@@ -204,6 +315,10 @@ def cross_kv(p: GQA, kv_src: torch.Tensor, n_kv: int, head_dim: int):
     k = matmul(kv_src, p.wk).reshape(b, t, n_kv, head_dim)
     v = matmul(kv_src, p.wv).reshape(b, t, n_kv, head_dim)
     return k, v
+
+
+# the reference's `cross_attention` chunks its blockwise route by 512
+CROSS_KV_CHUNK = 512
 
 
 def cross_attention(p: GQA, x: torch.Tensor, kv_src: torch.Tensor,
@@ -218,10 +333,10 @@ def cross_attention(p: GQA, x: torch.Tensor, kv_src: torch.Tensor,
     q = matmul(x, p.wq).reshape(b, s, n_heads, head_dim)
     k, v = cross_kv(p, kv_src, n_kv, head_dim)
     dt = torch.promote_types(q.dtype, k.dtype)
-    out = ops.flash_attention_fwd(q.to(dt).transpose(1, 2),
-                                  k.to(dt).transpose(1, 2),
-                                  v.to(dt).transpose(1, 2),
-                                  False).transpose(1, 2)
+    # the reference's blockwise route (chunks of min(512, T)): its
+    # gradient is the exact one
+    out = fl.attention(q.to(dt), k.to(dt), v.to(dt), False, "exact",
+                       min(CROSS_KV_CHUNK, kv_src.shape[1]))
     y = matmul(out.reshape(b, s, n_heads * head_dim).to(q.dtype), p.wo)
     if return_kv:
         return y, (k, v)

@@ -7,7 +7,8 @@ module per layer, with the reference's names and shapes (a weight is
 onto the other.  Each `*_init` of the reference is a module's
 constructor here (`Norm`, `MLP`, `Embed`), drawing from an explicit
 `torch.Generator` with the reference's distributions: normal in float32,
-scaled, then cast.  The chunked losses wait for training (ROADMAP A.5).
+scaled, then cast.  `chunked_softmax_xent` and `full_softmax_xent` are
+the reference's training losses.
 """
 
 from __future__ import annotations
@@ -16,12 +17,14 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    """Serving weights: no gradient is kept."""
+    """Serving weights: no gradient is kept (the trainer turns gradients
+    on for the parameters it updates, `training/train_step.py`)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -181,3 +184,54 @@ class Embed(nn.Module):
 
 def embed_lookup(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
     return p.tok[tokens]
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy
+# ---------------------------------------------------------------------------
+
+def _chunk_xent(hc: torch.Tensor, unembed: torch.Tensor,
+                lc: torch.Tensor) -> torch.Tensor:
+    """Summed next-token cross-entropy of one chunk: float32 logits of hc
+    (B, c, D) against unembed (D, V), logsumexp minus the gold logit."""
+    logits = (hc @ unembed).float()                     # (B, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
+                         labels: torch.Tensor, num_chunks: int = 8
+                         ) -> torch.Tensor:
+    """Mean next-token CE.  h: (B, S, D) final hidden states, unembed
+    (D, V), labels (B, S).  Loops over `num_chunks` sequence chunks, so
+    the logits of one chunk, (B, S / num_chunks, V), exist at a time; when
+    autograd records, each chunk runs under `torch.utils.checkpoint`, so
+    its backward recomputes the chunk's logits rather than keep every
+    chunk's for it (the reference's scan, whose logits XLA
+    rematerializes).  The chunks' sums add in float32 in order."""
+    b, s, d = h.shape
+    if s % num_chunks:
+        raise ValueError(f"sequence {s} is no multiple of {num_chunks} "
+                         f"loss chunks")
+    cs = s // num_chunks
+    record = torch.is_grad_enabled() and (h.requires_grad
+                                          or unembed.requires_grad)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(num_chunks):
+        hc, lc = h[:, i * cs:(i + 1) * cs], labels[:, i * cs:(i + 1) * cs]
+        if record:
+            total = total + torch.utils.checkpoint.checkpoint(
+                _chunk_xent, hc, unembed, lc, use_reentrant=False)
+        else:
+            total = total + _chunk_xent(hc, unembed, lc)
+    return total / (b * s)
+
+
+def full_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE over the whole (B, S, V) float32 logits."""
+    logits = (h @ unembed).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

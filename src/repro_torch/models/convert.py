@@ -15,6 +15,10 @@ numpy gives JAX's bfloat16 arrays the `ml_dtypes` bfloat16 dtype, which
 `torch.from_numpy` refuses; such an array crosses as its uint16 bits and
 is viewed as `torch.bfloat16` on the torch side.  `ml_dtypes` itself is
 not imported (a host without JAX need not have it).
+
+`opt_state_from_jax` carries the reference's AdamW state (step, master,
+mu, nu) the same way, so a checkpoint the reference wrote restores into
+the port and trains on.
 """
 
 from __future__ import annotations
@@ -34,7 +38,10 @@ STACKED_AXES = {"layers": 1, "group_mamba": 2, "tail_mamba": 1,
 
 def to_torch(a) -> torch.Tensor:
     """A numpy array as a torch tensor of the same dtype and shape,
-    bfloat16 and 0-d (a vlm gate) too."""
+    bfloat16 and 0-d (a vlm gate) too; a tensor (a leaf restored from a
+    checkpoint) as a contiguous copy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone().contiguous()
     # np.ascontiguousarray would make a 0-d array 1-d
     a = np.array(a, copy=True, order="C")
     if a.dtype.name == "bfloat16":
@@ -47,6 +54,8 @@ def _leaves(tree, path: Tuple[str, ...] = ()
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, path + (k,))
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
     else:
         yield path, np.asarray(tree)
 
@@ -72,3 +81,20 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, model: LM) -> LM:
                                                         cfg).items()}
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def opt_state_from_jax(np_opt: dict, cfg: ModelConfig, device=None
+                       ) -> dict:
+    """The port's AdamW state (`training.optim.init_opt_state`'s layout)
+    of the reference's: its `step`, and its float32 `master`, `mu` and
+    `nu` trees unstacked onto the port's parameter names as
+    `state_from_jax` unstacks the parameters, on `device` (default the
+    CPU).  Leaves may be numpy arrays or tensors (a restored
+    checkpoint's)."""
+    out = {"step": torch.as_tensor(np.asarray(np_opt["step"]),
+                                   dtype=torch.int32, device=device)
+           .reshape(())}
+    for key in ("master", "mu", "nu"):
+        out[key] = {n: t.to(device)
+                    for n, t in state_from_jax(np_opt[key], cfg).items()}
+    return out

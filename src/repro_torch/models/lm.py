@@ -22,15 +22,21 @@ The frontends are stubs, as in the reference: the batch carries
 `image_embeds` (B, n_frontend_tokens, d_model) for a vlm model and
 `frames` (B, enc_seq, d_model) for an encdec one; a missing one raises
 `KeyError` naming it.  A configuration that asks for what the port does
-not compute yet raises `NotImplementedError`: on a GQA `dense` or `moe`
-configuration, the int8 KV cache (`kv_cache_quant`); on those and on a
-`vlm` one, scores in another dtype than float32 (`attn_scores_dtype`);
-on a `moe` one, expert parallelism (`moe_impl="ep_shardmap"`).  Where
-the reference does not read a field, neither does the port: an MLA
-configuration's cache fields, a `vlm` model's `kv_cache_quant` (its cache
-is never quantized) and both fields of an `encdec` model.
-`attn_impl` and `attn_chunk_remat` choose the reference's route or
-backward, not the forward's function, and are not read.
+not compute yet raises `NotImplementedError`: on a `moe` one, expert
+parallelism (`moe_impl="ep_shardmap"`).  The two serving options of a
+GQA `dense` or `moe` configuration are the reference's: the int8 KV
+cache (`kv_cache_quant`: k and v int8 with bfloat16 scales a row,
+written quantized by prefill, read by `attention.decode_attention_q8`)
+and bfloat16 scores (`attn_scores_dtype="bf16"`, also read by a `vlm`
+model's self layers: the plain blockwise route, `attention.
+attention_route`).  Where the reference does not read a field, neither
+does the port: an MLA configuration's cache fields, a `vlm` model's
+`kv_cache_quant` (its cache is never quantized), both fields of an
+`encdec` model and of the hybrid shared attention.  `attn_impl` chooses
+the backward of the dense, moe and vlm self layers' attention (the
+reference's hand-written one for "flash", the exact float32 gradient
+otherwise; `models/flash.py`), not the forward's function;
+`attn_chunk_remat` changes only the reference's memory and is not read.
 
 The reference stacks each family's layers on a leading axis and runs them
 under `lax.scan`; the port keeps one module per layer (`nn.ModuleList`,
@@ -39,18 +45,23 @@ shared attention block is ONE module used by every group, as in the
 reference.  Sharding annotations (`act_shard`, `maybe_shard`) have no
 meaning on one card and are left out.
 
-Entry points: `build_model`, `prefill_fn` (full-sequence forward that
-writes the caches, allocated at `max_seq`), `decode_fn` (one token against
-the caches, updated in place).  On the card the prefill runs the two
-hand-written kernels where the reference runs their oracles: every GQA
-layer's attention (dense, GQA moe, vlm, encdec) and the shared attention
-through `flash_attention_fwd` (grouped-query, k/v never repeated), the
-cross-attention and Whisper's encoder through it too, non-causally; every
-Mamba2 block's SSD through `ssd_scan`.  MLA, the experts and decode's
-attention are plain torch, as they are plain JAX in the reference.  The
-reference's `aux` (the MoE layers' `frac_dropped`, summed), which prefill
-ignores, is what `_backbone_full(..., stats=[])` collects: each MoE
-layer's statistics.
+Entry points: `build_model`, `loss_fn` (the training loss: the chunked
+cross-entropy plus `AUX_LOSS_WEIGHT` times the MoE layers' summed
+`frac_dropped`), `prefill_fn` (full-sequence forward that writes the
+caches, allocated at `max_seq`), `decode_fn` (one token against the
+caches, updated in place). Where autograd records and `cfg.remat` is set
+(the default), each block the reference checkpoints (a stacked layer, a
+hybrid or vlm group, an encoder or decoder block) runs under
+`torch.utils.checkpoint`, so its backward recomputes its activations. On
+the card the prefill runs the two hand-written kernels where the reference
+runs their oracles: every GQA layer's attention (dense, GQA moe, vlm,
+encdec) and the shared attention through `flash_attention_fwd` (grouped-
+query, k/v never repeated), the cross-attention and Whisper's encoder
+through it too, non-causally; every Mamba2 block's SSD through `ssd_scan`.
+MLA, the experts and decode's attention are plain torch, as they are plain
+JAX in the reference. The reference's `aux` (the MoE layers'
+`frac_dropped`, summed), which prefill ignores, is what
+`_backbone_full(..., stats=[])` collects: each MoE layer's statistics.
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ModelConfig
@@ -66,13 +78,14 @@ from ..core.runtime import resolve_device
 from . import attention as att
 from . import mamba2 as m2
 from . import moe as moe_mod
-from .common import (MLP, Embed, Norm, _param, dense_init, embed_lookup,
-                     mlp_apply, norm_apply)
+from .common import (MLP, Embed, Norm, _param, chunked_softmax_xent,
+                     dense_init, embed_lookup, mlp_apply, norm_apply)
 
 Caches = Dict[str, torch.Tensor]
 FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "encdec")
 # the batch key of each cross-attending family's stub frontend output
 CROSS_INPUTS = {"vlm": "image_embeds", "encdec": "frames"}
+AUX_LOSS_WEIGHT = 0.01
 
 
 # ===========================================================================
@@ -260,21 +273,24 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: expert parallelism (moe_impl='ep_shardmap', a "
             f"mesh of several cards) is not ported yet; see ROADMAP A.5")
-    # an MLA model caches (c_kv, k_rope) and scores in float32 whatever
-    # these two fields say, as the reference's does; the hybrid shared
-    # attention and the encdec model read neither, and a vlm model only
-    # the score dtype (its self layers'; its cache is never quantized)
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.mla is not None:
-        return
-    if cfg.kv_cache_quant and cfg.family != "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 KV cache (kv_cache_quant=True) is not "
-            f"ported yet; see ROADMAP A.5")
-    if cfg.attn_scores_dtype != "f32":
-        raise NotImplementedError(
-            f"{cfg.name}: attention scores in {cfg.attn_scores_dtype!r} are "
-            f"not ported yet (the port computes them in float32); see "
-            f"ROADMAP A.5")
+
+
+def _quant_cache(cfg: ModelConfig) -> bool:
+    """Whether the stacked layers' k / v caches are int8: a GQA dense or
+    moe configuration with `kv_cache_quant` (an MLA model caches c_kv and
+    k_rope, a vlm model's cache is never quantized, as in the
+    reference)."""
+    return (cfg.kv_cache_quant and cfg.family in ("dense", "moe")
+            and cfg.mla is None)
+
+
+def _attn_opts(cfg: ModelConfig) -> dict:
+    """The reference's options of a dense, moe or vlm self layer's
+    attention (its `_attn_full`): the chunk, the score dtype and the
+    route; the hybrid shared block, the encoder and the encdec decoder
+    pass the chunk alone."""
+    return dict(kv_chunk=cfg.kv_chunk, scores_dtype=cfg.attn_scores_dtype,
+                impl=cfg.attn_impl)
 
 
 def build_model(cfg: ModelConfig, device=None,
@@ -304,7 +320,9 @@ def _grow_caches(cfg: ModelConfig, b: int, max_seq: int, dtype,
                  device, cross=None) -> Caches:
     """Zeroed caches sized to max_seq, for prefill to write into and
     decode to update in place, under the reference's names: the attention
-    k/v (L or G, B, max_seq, KV, hd) in the activation dtype, a vlm
+    k/v (L or G, B, max_seq, KV, hd) in the activation dtype (with
+    `kv_cache_quant` on a GQA dense or moe model, int8 plus bfloat16
+    k_scale / v_scale (L, B, max_seq, KV)), a vlm
     model's (G, n_self, B, max_seq, KV, hd) with time on axis 3; a vlm or
     encdec model's cross-attention xk / xv (G or L, B, T, KV, hd), where
     `cross` is (T, dtype): written once by prefill, read by decode; an
@@ -323,8 +341,15 @@ def _grow_caches(cfg: ModelConfig, b: int, max_seq: int, dtype,
         else:
             widths = (kv,) * 2
         n = cfg.n_layers - _first_dense(cfg)
-        out = {nm: zeros(n, b, max_seq, *w)
-               for nm, w in zip(_cache_names(cfg), widths)}
+        if _quant_cache(cfg):
+            out = {nm: zeros(n, b, max_seq, *kv, dt=torch.int8)
+                   for nm in ("k", "v")}
+            out.update({nm: zeros(n, b, max_seq, cfg.n_kv_heads,
+                                  dt=torch.bfloat16)
+                        for nm in ("k_scale", "v_scale")})
+        else:
+            out = {nm: zeros(n, b, max_seq, *w)
+                   for nm, w in zip(_cache_names(cfg), widths)}
         if _first_dense(cfg):
             out["k0"], out["v0"] = (zeros(b, max_seq, *w) for w in widths)
         return out
@@ -368,8 +393,18 @@ def _store_states(caches: Caches, ssm_key: str, conv_key: str, idx,
 
 
 # ===========================================================================
-# Full-sequence forward (prefill)
+# Full-sequence forward (prefill and training)
 # ===========================================================================
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """fn(*args), under `torch.utils.checkpoint` where autograd records
+    and `cfg.remat` is set (the reference's `jax.checkpoint` of the same
+    block): its backward recomputes the block's activations from args."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
 
 def _ffn(cfg: ModelConfig, ffn: nn.Module, h, stats: Optional[List] = None,
          dropless: bool = False):
@@ -385,13 +420,31 @@ def _ffn(cfg: ModelConfig, ffn: nn.Module, h, stats: Optional[List] = None,
     return y
 
 
+def _write_kv(cache_a, cache_b, ka, kb, scales=None) -> None:
+    """A layer's k / v (or c_kv / k_rope) into the first S rows of its
+    caches (B, max_seq, ...); with `scales` (the int8 cache's k_scale and
+    v_scale), quantized per row as the reference's prefill writes them."""
+    s = ka.shape[1]
+    if scales is None:
+        cache_a[:, :s] = ka
+        cache_b[:, :s] = kb
+        return
+    for cache, scale, val in ((cache_a, scales[0], ka),
+                              (cache_b, scales[1], kb)):
+        qv, sv = att.quantize_kv(val)
+        cache[:, :s] = qv
+        scale[:, :s] = sv
+
+
 def _self_attn_full(cfg: ModelConfig, attn: nn.Module, h, positions,
-                    cache_a=None, cache_b=None, causal: bool = True):
+                    cache_a=None, cache_b=None, causal: bool = True,
+                    opts: Optional[dict] = None, scales=None):
     """Self-attention of the normed h: MLA when the config has `mla` (plain
     torch), else GQA (kernel 11; non-causal with `causal=False`, Whisper's
-    encoder).  With caches (B, max_seq, ...), the layer's k after RoPE and
-    v (GQA) or c_kv and k_rope (MLA) are written into their first S
-    rows."""
+    encoder) with the options `opts` (`_attn_opts`, or the chunk alone).
+    With caches (B, max_seq, ...), the layer's k after RoPE and v (GQA) or
+    c_kv and k_rope (MLA) are written into their first S rows (`_write_kv`,
+    quantized with `scales`)."""
     want_kv = cache_a is not None
     if cfg.mla is not None:
         m = cfg.mla
@@ -401,22 +454,24 @@ def _self_attn_full(cfg: ModelConfig, attn: nn.Module, h, positions,
     else:
         out = att.self_attention(attn, h, positions, cfg.n_heads,
                                  cfg.n_kv_heads, cfg.hd, cfg.rope_theta,
-                                 causal=causal, return_kv=want_kv)
+                                 causal=causal, return_kv=want_kv,
+                                 **(opts or dict(kv_chunk=cfg.kv_chunk)))
     if want_kv:
         out, (ka, kb) = out
-        cache_a[:, :h.shape[1]] = ka
-        cache_b[:, :h.shape[1]] = kb
+        _write_kv(cache_a, cache_b, ka, kb, scales)
     return out
 
 
 def _attn_mlp_full(cfg: ModelConfig, ln_a: Norm, attn: nn.Module,
                    ln_m: Norm, ffn: nn.Module, x, positions, cache_a=None,
                    cache_b=None, stats: Optional[List] = None,
-                   causal: bool = True):
+                   causal: bool = True, opts: Optional[dict] = None,
+                   scales=None):
     """norm -> self-attention (`_self_attn_full`) -> residual, norm -> MLP
     or experts -> residual."""
     x = x + _self_attn_full(cfg, attn, norm_apply(cfg.norm, x, ln_a),
-                            positions, cache_a, cache_b, causal)
+                            positions, cache_a, cache_b, causal, opts,
+                            scales)
     h = norm_apply(cfg.norm, x, ln_m)
     return x + _ffn(cfg, ffn, h, stats)
 
@@ -436,34 +491,51 @@ def _hybrid_full(cfg: ModelConfig, model: LM, x, positions,
                  caches: Optional[Caches]):
     ap = model.shared_attn
     for gi, group in enumerate(model.group_mamba):
-        # shared attention slot: the same parameters in every group
-        kv = ((None, None) if caches is None
-              else (caches["attn_k"][gi], caches["attn_v"][gi]))
-        x = _attn_mlp_full(cfg, ap.ln, ap.attn, ap.ln2, ap.mlp, x,
-                           positions, *kv)
-        for li, lp in enumerate(group):
-            x = _mamba_full(cfg, lp, x, caches, "group_ssm", "group_conv",
-                            (gi, li))
+        def block(x, gi=gi, group=group):
+            # shared attention slot: the same parameters in every group
+            kv = ((None, None) if caches is None
+                  else (caches["attn_k"][gi], caches["attn_v"][gi]))
+            x = _attn_mlp_full(cfg, ap.ln, ap.attn, ap.ln2, ap.mlp, x,
+                               positions, *kv)
+            for li, lp in enumerate(group):
+                x = _mamba_full(cfg, lp, x, caches, "group_ssm",
+                                "group_conv", (gi, li))
+            return x
+        x = _remat(cfg, block, x)
     for li, lp in enumerate(getattr(model, "tail_mamba", ())):
-        x = _mamba_full(cfg, lp, x, caches, "tail_ssm", "tail_conv", li)
+        x = _remat(cfg, lambda x, li=li, lp=lp: _mamba_full(
+            cfg, lp, x, caches, "tail_ssm", "tail_conv", li), x)
     return x
 
 
 def _decoder_full(cfg: ModelConfig, model: LM, x, positions,
                   caches: Optional[Caches], stats: Optional[List]):
     """The dense and moe families' blocks: `layer0` first if the model
-    has one, then the stacked `layers`."""
+    has one, then the stacked `layers` (each a block for `_remat`)."""
     a, b = _cache_names(cfg)
+    opts = _attn_opts(cfg)
     if _first_dense(cfg):
         lp = model.layer0
         kv = (None, None) if caches is None else (caches["k0"],
                                                   caches["v0"])
         x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
-                           positions, *kv)
+                           positions, *kv, opts=opts)
     for i, lp in enumerate(model.layers):
         kv = (None, None) if caches is None else (caches[a][i], caches[b][i])
-        x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.ffn, x,
-                           positions, *kv, stats=stats)
+        scales = ((caches["k_scale"][i], caches["v_scale"][i])
+                  if caches is not None and "k_scale" in caches else None)
+
+        def block(x, lp=lp, kv=kv, scales=scales):
+            # the layer's statistics in a list of its own: a recomputation
+            # under `_remat` appends to a fresh one, which is dropped
+            st = [] if stats is not None else None
+            y = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.ffn, x,
+                               positions, *kv, stats=st, opts=opts,
+                               scales=scales)
+            return y, st
+        x, st = _remat(cfg, block, x)
+        if stats is not None:
+            stats.extend(st)
     return x
 
 
@@ -501,15 +573,18 @@ def _cross_full(cfg: ModelConfig, cross: att.GQA, h, src, caches, idx):
 
 def _vlm_full(cfg: ModelConfig, model: LM, x, positions, image_embeds,
               caches: Optional[Caches]):
+    opts = _attn_opts(cfg)
     for gi, (group, cp) in enumerate(zip(model.self_layers,
                                          model.cross_layers)):
-        for li, lp in enumerate(group):
-            kv = ((None, None) if caches is None
-                  else (caches["k"][gi, li], caches["v"][gi, li]))
-            x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
-                               positions, *kv)
-        x = _gated_cross(cfg, cp, x, lambda h: _cross_full(
-            cfg, cp.attn, h, image_embeds, caches, gi))
+        def block(x, src, gi=gi, group=group, cp=cp):
+            for li, lp in enumerate(group):
+                kv = ((None, None) if caches is None
+                      else (caches["k"][gi, li], caches["v"][gi, li]))
+                x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
+                                   positions, *kv, opts=opts)
+            return _gated_cross(cfg, cp, x, lambda h: _cross_full(
+                cfg, cp.attn, h, src, caches, gi))
+        x = _remat(cfg, block, x, image_embeds)
     return x
 
 
@@ -523,8 +598,9 @@ def _encoder_full(cfg: ModelConfig, model: LM, frames):
                              device=frames.device)[None].expand(b, t)
     x = frames.to(torch.bfloat16)
     for lp in model.encoder:
-        x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
-                           positions, causal=False)
+        x = _remat(cfg, lambda x, lp=lp: _attn_mlp_full(
+            cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x, positions,
+            causal=False), x)
     return norm_apply(cfg.norm, x, model.enc_final_norm)
 
 
@@ -533,14 +609,16 @@ def _encdec_decoder_full(cfg: ModelConfig, model: LM, x, positions, enc,
     for i, lp in enumerate(model.layers):
         kv = (None, None) if caches is None else (caches["k"][i],
                                                   caches["v"][i])
-        x = _cross_block(
-            cfg, lp, x,
-            lambda h: _self_attn_full(cfg, lp.attn, h, positions, *kv),
-            lambda h: _cross_full(cfg, lp.cross, h, enc, caches, i))
+
+        def block(x, enc, i=i, lp=lp, kv=kv):
+            return _cross_block(
+                cfg, lp, x,
+                lambda h: _self_attn_full(cfg, lp.attn, h, positions, *kv),
+                lambda h: _cross_full(cfg, lp.cross, h, enc, caches, i))
+        x = _remat(cfg, block, x, enc)
     return x
 
 
-@torch.no_grad()
 def _backbone_full(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
                    caches: Optional[Caches] = None,
                    stats: Optional[List] = None,
@@ -551,7 +629,9 @@ def _backbone_full(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
     with a list `stats`, each MoE layer appends its routing statistics
     (`moe.moe_apply`'s; the reference's `aux` is the sum of their
     `frac_dropped`).  `extra` holds a vlm model's `image_embeds` or an
-    encdec model's `frames` (`KeyError` without them)."""
+    encdec model's `frames` (`KeyError` without them).  Differentiable:
+    `loss_fn` trains through it (with no caches), `prefill_fn` calls it
+    under `torch.no_grad()`."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
@@ -560,7 +640,8 @@ def _backbone_full(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
         x = _decoder_full(cfg, model, x, positions, caches, stats)
     elif cfg.family == "ssm":
         for i, lp in enumerate(model.layers):
-            x = _mamba_full(cfg, lp, x, caches, "ssm", "conv", i)
+            x = _remat(cfg, lambda x, i=i, lp=lp: _mamba_full(
+                cfg, lp, x, caches, "ssm", "conv", i), x)
     elif cfg.family == "vlm":
         x = _vlm_full(cfg, model, x, positions, _cross_input(cfg, extra),
                       caches)
@@ -583,6 +664,26 @@ def _cross_input(cfg: ModelConfig, extra) -> torch.Tensor:
     missing one raises `KeyError` naming it, as the reference's lookup
     does."""
     return (extra or {})[CROSS_INPUTS[cfg.family]]
+
+
+def loss_fn(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """The reference's training loss: the mean next-token cross-entropy
+    of batch["labels"] (B,S) given batch["tokens"] (B,S)
+    (`chunked_softmax_xent` over `cfg.loss_chunks` chunks), plus
+    AUX_LOSS_WEIGHT times the MoE layers' `frac_dropped` summed (0 for
+    the other families; it carries no gradient, as in the reference).  A
+    vlm or encdec batch carries its frontend input too."""
+    check_ported(cfg)
+    stats = [] if cfg.family == "moe" else None
+    h = _backbone_full(cfg, model, batch["tokens"].long(), stats=stats,
+                       extra=batch)
+    loss = chunked_softmax_xent(h, _unembed(cfg, model), batch["labels"],
+                                cfg.loss_chunks)
+    if stats:
+        loss = loss + AUX_LOSS_WEIGHT * sum(st["frac_dropped"]
+                                            for st in stats)
+    return loss
 
 
 @torch.no_grad()
@@ -617,15 +718,21 @@ def prefill_fn(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor],
 
 def _attn_mlp_decode(cfg: ModelConfig, ln_a: Norm, attn: nn.Module,
                      ln_m: Norm, ffn: nn.Module, x, cache_a, cache_b,
-                     cur_len: int):
+                     cur_len: int, scales=None):
     """One token through norm -> GQA or MLA decode -> residual, norm ->
     MLP or dropless experts -> residual; the token's k and v (GQA) or
-    c_kv and k_rope (MLA) go into the caches at cur_len."""
+    c_kv and k_rope (MLA) go into the caches at cur_len (int8 with
+    `scales`, the k_scale / v_scale caches, through
+    `decode_attention_q8`)."""
     h = norm_apply(cfg.norm, x, ln_a)
     if cfg.mla is not None:
         m = cfg.mla
         a = att.mla_decode(attn, h, cache_a, cache_b, cur_len, cfg.n_heads,
                            m.nope_dim, m.rope_dim, m.v_dim)
+    elif scales is not None:
+        a = att.decode_attention_q8(attn, h, cache_a, scales[0], cache_b,
+                                    scales[1], cur_len, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.hd, cfg.rope_theta)
     else:
         a = att.decode_attention(attn, h, cache_a, cache_b, cur_len,
                                  cfg.n_heads, cfg.n_kv_heads, cfg.hd,
@@ -668,9 +775,12 @@ def _decoder_decode(cfg: ModelConfig, model: LM, x, caches: Caches,
         lp = model.layer0
         x = _attn_mlp_decode(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
                              caches["k0"], caches["v0"], cur_len)
+    quant = "k_scale" in caches
     for i, lp in enumerate(model.layers):
+        scales = ((caches["k_scale"][i], caches["v_scale"][i]) if quant
+                  else None)
         x = _attn_mlp_decode(cfg, lp.ln1, lp.attn, lp.ln2, lp.ffn, x,
-                             caches[a][i], caches[b][i], cur_len)
+                             caches[a][i], caches[b][i], cur_len, scales)
     return x
 
 

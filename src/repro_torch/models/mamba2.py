@@ -1,8 +1,9 @@
 """Mamba2 (SSD — state-space duality, arXiv:2405.21060) in PyTorch.
 
-Prefill runs the SSD scan through `kernels.ops.ssd_scan`: the hand-written
-kernel (`kernels/csrc/ssd.cu`, one launch per B/C group) on the card,
-`ssd_chunked` on the CPU.
+Prefill and training run the SSD scan through `kernels.ops.ssd_scan`: the
+hand-written kernel (`kernels/csrc/ssd.cu`, one launch per B/C group) on
+the card, `ssd_chunked` on the CPU; when autograd records, through
+`SSDScan`, whose backward differentiates `ssd_chunked` (plain torch).
 `ssd_chunked` is the chunked algorithm of the reference: within a chunk a
 masked (attention-like) matmul, across chunks a recurrence on the
 (H, P, N) state.  Decode is the linear recurrence
@@ -129,12 +130,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = dtc * A[None, None, None, :]                   # (b,nc,c,h) negative
     dA_cum = torch.cumsum(dA, dim=2)                    # within-chunk cumsum
 
-    # intra-chunk: L[i,j] = exp(dA_cum[i] - dA_cum[j]) for i >= j, masked
-    # before it is used (exp of the masked half may overflow)
+    # intra-chunk: L[i,j] = exp(dA_cum[i] - dA_cum[j]) for i >= j; the
+    # masked half is set to -inf before the exp (its exp may overflow, and
+    # an inf there would make the gradient 0 * inf)
     seg = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]  # (b,nc,c,c,h)
     ii = torch.arange(chunk, device=x.device)
     causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    L = torch.where(causal, torch.exp(seg), torch.zeros((), device=x.device))
+    L = torch.exp(torch.where(causal, seg, float("-inf")))
     CB = torch.einsum("bzcgn,bzdgn->bzcdg", Cc, Bc)     # (b,nc,c,c,g)
     CB = CB.repeat_interleave(hg, dim=-1)               # (b,nc,c,c,h)
     M = CB * L * dtc[:, :, None, :, :]                  # weight by dt_j
@@ -164,6 +166,53 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y[:, :s_orig].to(x.dtype), state
 
 
+def ssd_scan_vjp(x, dt, a, b, c, d, chunk: int, dy, dstate):
+    """The gradients (x, dt, a, b, c, d) of the SSD scan, given those of
+    its outputs y and final state: `ssd_scan_plain` recomputed under
+    autograd at the same inputs, and its vector-Jacobian product."""
+    from ..kernels.ssd_scan import ssd_scan_plain
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, a, b, c, d)]
+        y, state = ssd_scan_plain(*ins[:5], chunk, ins[5])
+        grads = torch.autograd.grad((y, state), ins, (dy, dstate),
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(ins, grads))
+
+
+class SSDScan(torch.autograd.Function):
+    """Kernel 12 (`kernels.ops.ssd_scan`) forward; the backward is
+    `ssd_scan_vjp`: the reference trains Mamba2 through autodiff of its
+    `ssd_chunked` and has no Pallas backward, so the port's backward is
+    plain PyTorch by design."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk: int, d):
+        y, state = ops.ssd_scan(x, dt, a, b, c, chunk, d=d)
+        ctx.save_for_backward(x, dt, a, b, c, d)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, d = ctx.saved_tensors
+        gx, gdt, ga, gb, gc, gd = ssd_scan_vjp(x, dt, a, b, c, d, ctx.chunk,
+                                               dy, dstate)
+        out = (gx, gdt, ga, gb, gc, None, gd)
+        return tuple(g if need else None
+                     for g, need in zip(out, ctx.needs_input_grad))
+
+
+def ssd_scan(x, dt, a, b, c, chunk: int, d):
+    """The SSD scan of a Mamba2 block: `SSDScan` where autograd records
+    (grad mode on and an input that requires grad), else the kernel's
+    call alone."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c, d)):
+        return SSDScan.apply(x, dt, a, b, c, chunk, d)
+    return ops.ssd_scan(x, dt, a, b, c, chunk, d=d)
+
+
 def mamba2_forward(p: Mamba2, x: torch.Tensor, d_model: int, cfg: SSMConfig,
                    return_state: bool = False):
     """Full-sequence Mamba2 block (prefill).  x: (B,S,D).  With
@@ -182,9 +231,9 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, d_model: int, cfg: SSMConfig,
                 xbc[..., di + g * n:])
     dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
     A = -torch.exp(p.A_log)
-    y, state = ops.ssd_scan(xs.reshape(b, s, nh, cfg.headdim), dt, A,
-                            B.unflatten(-1, (g, n)), C.unflatten(-1, (g, n)),
-                            min(cfg.chunk, s), d=p.D)
+    y, state = ssd_scan(xs.reshape(b, s, nh, cfg.headdim), dt, A,
+                        B.unflatten(-1, (g, n)), C.unflatten(-1, (g, n)),
+                        min(cfg.chunk, s), p.D)
     y = y.reshape(b, s, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p.norm_w)
     out = y @ p.out_proj

@@ -39,6 +39,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.core.storage\n"
         "import repro_torch.cluster, repro_torch.cluster.mesh\n"
         "import repro_torch.cluster.shard_exec, repro_torch.cluster.fleet\n"
+        "import repro_torch.training, repro_torch.training.pde_moe\n"
+        "import repro_torch.checkpoint, repro_torch.data\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "print(bad)")
@@ -121,7 +124,7 @@ def test_unported_paths_raise(tmp_path):
     assert srv.make_executor().mesh is mesh
     srv.shutdown()
     # every LM family is ported; an option the port does not compute yet
-    # (the int8 KV cache of a GQA dense model) raises
+    # (expert parallelism over a mesh of cards) raises
     import dataclasses
     assert len(build_model(get_config("yi-9b-smoke"), device="cpu").layers) \
         == 2
@@ -132,8 +135,32 @@ def test_unported_paths_raise(tmp_path):
     enc = build_model(get_config("whisper-base-smoke"), device="cpu")
     assert len(enc.encoder) == 2 and len(enc.layers) == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(get_config("yi-9b-smoke"),
-                                        kv_cache_quant=True), device="cpu")
+        build_model(dataclasses.replace(get_config(
+            "phi3.5-moe-42b-a6.6b-smoke"), moe_impl="ep_shardmap"),
+            device="cpu")
+    # the int8 KV cache and bf16 scores are ported: they build
+    for kw in (dict(kv_cache_quant=True), dict(attn_scores_dtype="bf16")):
+        cfg = dataclasses.replace(get_config("yi-9b-smoke"), **kw)
+        assert build_model(cfg, device="cpu").cfg == cfg
+
+
+def test_training_without_device_needs_a_card():
+    """The training CLI with no `--device` trains on the card, and raises
+    on a host without one rather than train on the CPU."""
+    out = _run(
+        "import torch\n"
+        "from repro_torch.launch import train\n"
+        "if torch.cuda.is_available():\n"
+        "    print('card')\n"
+        "else:\n"
+        "    try:\n"
+        "        train.main(['--steps', '1'])\n"
+        "        print('no-raise')\n"
+        "    except RuntimeError:\n"
+        "        print('raised')\n")
+    if out == "card":
+        pytest.skip("a CUDA device is present")
+    assert out == "raised"
 
 
 def test_cpu_session_trains_on_the_cpu():

@@ -208,11 +208,11 @@ def test_dtype_codes_keyed_by_torch_dtype():
 
 def test_build_signatures_match_the_wrappers():
     """The bound argument counts of the redesigned entry points: flash
-    takes a route code and the kv head count; group takes codes, values, n, G, its plan word,
+    takes a nullable LSE output, a route code and the kv head count; group takes codes, values, n, G, its plan word,
     the output (scratch follows it) and the stream; ssd takes a route code
     and a nullable D; decode takes input, table, output, n, table length,
     its plan word and the stream."""
-    assert len(_build.SIGNATURES["flash"][1]) == 26
+    assert len(_build.SIGNATURES["flash"][1]) == 27
     assert len(_build.SIGNATURES["group"][1]) == 7
     assert len(_build.SIGNATURES["ssd"][1]) == 22
     assert len(_build.SIGNATURES["decode"][1]) == 7

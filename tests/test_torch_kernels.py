@@ -801,7 +801,7 @@ def test_cuda_flash_mha_is_bit_identical_to_the_mha_kernel():
         want = torch.empty_like(q)
         route = tfa._ROUTE_CODES[tfa.flash_route(dt, hd)]
         rc = mha(q.data_ptr(), k.data_ptr(), v.data_ptr(), want.data_ptr(),
-                 _build.dtype_code(q), route, b, h, h, s, s, hd, 1,
+                 None, _build.dtype_code(q), route, b, h, h, s, s, hd, 1,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *want.stride()[:3], _build.stream_handle(q.device))
         assert rc == 0

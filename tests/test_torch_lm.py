@@ -529,37 +529,38 @@ def test_converter_carries_bfloat16_bits():
                                   np.asarray(x, np.float32))
 
 
-@pytest.mark.parametrize("kw", [dict(kv_cache_quant=True),
-                                dict(attn_scores_dtype="bf16")])
-def test_dense_options_not_ported_raise(kw):
-    """A dense configuration asking for the int8 KV cache or bf16 scores
-    raises, when built and when served by a model built without it,
-    rather than compute another function."""
-    cfg = dataclasses.replace(get_config("yi-9b-smoke"), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        lm.build_model(cfg, "cpu")
-    model = lm.build_model(get_config("yi-9b-smoke"), "cpu")
-    toks = torch.from_numpy(_tokens(cfg, 15))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        lm.prefill_fn(cfg, model, {"tokens": toks}, MAXS)
-
-
-@pytest.mark.parametrize("name,kw,raises", [
+@pytest.mark.parametrize("name,kw,reads", [
     ("llama-3.2-vision-11b-smoke", dict(attn_scores_dtype="bf16"), True),
     ("llama-3.2-vision-11b-smoke", dict(kv_cache_quant=True), False),
     ("whisper-base-smoke", dict(attn_scores_dtype="bf16"), False),
     ("whisper-base-smoke", dict(kv_cache_quant=True), False),
 ])
-def test_cross_family_options_follow_the_reference(name, kw, raises):
+def test_cross_family_options_follow_the_reference(name, kw, reads):
     """What the reference reads of the two cache and score fields: a vlm
-    model's self layers score in `attn_scores_dtype`, which the port does
-    not compute yet, so bf16 scores raise; its cache is never quantized
-    and an encdec model reads neither field, so those configurations build
-    and serve the function the plain configuration serves."""
+    model's self layers score in `attn_scores_dtype`, so bf16 scores
+    change its function, and the port's prefill logits and two decode
+    steps equal the reference's under that configuration (op by op; 2^-7,
+    the bf16 scores' rounding); its cache is never quantized and an encdec
+    model reads neither field, so those configurations build and serve
+    the function the plain configuration serves."""
     cfg = dataclasses.replace(get_config(name), **kw)
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-            lm.build_model(cfg, "cpu")
+    if reads:
+        jcfg, _, params, model = _models(name, "float32", seed=16)
+        jcfg = dataclasses.replace(jcfg, **kw)
+        toks = _tokens(cfg, 17)
+        jx, tx = _extras(cfg, 18)
+        with jax.disable_jit():
+            jl, jc = jlm.prefill_fn(jcfg, params, {"tokens": jnp.asarray(
+                toks), **jx}, MAXS)
+        tl, tc = lm.prefill_fn(cfg, model, {"tokens": torch.from_numpy(
+            toks), **tx}, MAXS)
+        assert _rel(tl, jl) < 2 ** -7
+        tok = np.asarray(jnp.argmax(jl[:, 0], -1)).astype(np.int32)[:, None]
+        with jax.disable_jit():
+            jd, _ = jlm.decode_fn(jcfg, params, jnp.asarray(tok), jc,
+                                  jnp.int32(S))
+        td, _ = lm.decode_fn(cfg, model, torch.from_numpy(tok), tc, S)
+        assert _rel(td, jd) < 2 ** -7
         return
     jcfg, base, params, model = _models(name, "float32", seed=16)
     assert lm.build_model(cfg, "cpu").cfg == cfg

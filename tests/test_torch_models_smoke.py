@@ -8,8 +8,10 @@ drawn N(0, 1) after the tokens and labels).
 The vlm gates are drawn N(0, 1) (their zero init hides the cross
 layers).  Prefill logits (B, 1, V) and finite, one decode step's logits
 finite, and decode(tok | prefill(S)) equal to the full forward over S + 1
-tokens to rel 0.05 (the reference test's bar, bf16 weights).  The reference test's
-`loss_fn` check waits for the port's training step (ROADMAP A.5).
+tokens to rel 0.05 (the reference test's bar, bf16 weights), and the
+reference test's `loss_fn` check: finite, within 2 of log V (a random
+init's cross-entropy).  The twin of its `test_smoke_train_step` is in
+tests/test_torch_train_step.py.
 """
 
 import jax
@@ -84,6 +86,10 @@ def test_smoke_forward_and_decode(arch):
     for cp in getattr(model, "cross_layers", ()):
         for g in (cp.gate, cp.mlp_gate):
             g.copy_(torch.randn((), generator=gen))
+
+    loss = float(lm.loss_fn(cfg, model, batch))
+    assert np.isfinite(loss)
+    assert abs(loss - np.log(cfg.vocab)) < 2.0  # random-init CE sanity
 
     logits_p, caches = lm.prefill_fn(cfg, model, batch, MAXS)
     assert logits_p.shape == (B, 1, cfg.vocab)

@@ -226,16 +226,6 @@ def test_expert_parallelism_raises(name):
 
 @pytest.mark.parametrize("kw", [dict(kv_cache_quant=True),
                                 dict(attn_scores_dtype="bf16")])
-def test_gqa_moe_cache_options_raise(kw):
-    """Phi-3.5-MoE's attention is GQA: the int8 cache and bf16 scores are
-    what the port does not compute yet, as for dense."""
-    cfg = dataclasses.replace(get_config(PHI), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        lm.build_model(cfg, "cpu")
-
-
-@pytest.mark.parametrize("kw", [dict(kv_cache_quant=True),
-                                dict(attn_scores_dtype="bf16")])
 def test_mla_moe_reads_no_cache_option(kw):
     """An MLA model caches (c_kv, k_rope) and scores in float32 whatever
     the two fields say (the reference's `_grow_caches` quantizes only a
