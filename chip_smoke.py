@@ -251,6 +251,33 @@ the plain-torch backwards of kernels 11 and 12 at the timed shapes.  The
 `train_launches`, and the run fails if 12b launched no flash or 12d no
 SSD scan.
 
+Phase 13 (after phase 12, whose models it releases first) runs expert
+parallelism (`moe_impl="ep_shardmap"`, `models/moe.moe_apply_ep`) on
+Phi-3.5-MoE (hf:microsoft/Phi-3.5-MoE-instruct) at full width and 2 of
+its 32 layers (2.86 B random bf16 weights, norms and biases drawn; 83.7 GB
+whole) under `set_mesh(make_debug_mesh(1, 4))`: four slots sharing the
+card, 4 of the 16 experts a slot.  13a serves phase 5's requests at
+capacity 1.25 through `serve_model` (2 tensor-core flash launches a
+prefill, every tensor on the card, float32 checks at the drop-free
+capacity: kernels vs plain, decode vs the full forward, and EP's prefill
+logits vs `moe_apply`'s, each within 1e-3), then prints each slot's
+dropped share of the assignments beside `moe_apply`'s `frac_dropped` on
+the same layer inputs, and the 4 x 2,048 prefill warm, busy (traced)
+and at its peak memory with each `moe_impl` on the one build.  13b
+trains the same model 5 AdamW steps of 4 x 2,048 tokens (lr 3e-3,
+`TokenPipeline` batches of phase 12's corpus, the batch from the memory
+reckoning) while `MoEReplanner` observes each step's expert load and
+replans after steps 2 and 4 (one train step kept a capacity bucket), as
+examples_torch/pde_moe_training.py does; then, on a float32 copy at 2
+layers with kernel 11's exact backward at the drop-free capacity, the
+loss and every gradient of EP against `moe_apply`'s within 1e-3 in norm.
+13c runs examples_torch/quickstart.py, sql_ml_pipeline.py and
+multi_tenant.py in this process on the card and on the CPU: their answer
+lines must be equal, and the card runs' kernel launches are printed.
+The `kernels` line gives every kernel its phase-13 launches (13a's
+generate, 13b's selection and steps, 13c's card runs) as `ep_launches`,
+and the run fails if phase 13 launched no flash.
+
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
 device (and without `--device cpu`), or outside a checkout of the repo,
@@ -265,6 +292,7 @@ import gc
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3131,7 +3159,8 @@ def on_card(label: str, what: str, tensors) -> None:
 
 def serve_model(torch, device, seed: int, label: str, cfg, requests,
                 per_prefill: dict, trace: bool = True, draw=None,
-                checks=None, check_cfg=None, extra=None) -> dict:
+                checks=None, check_cfg=None, extra=None, against=None,
+                report=None) -> dict:
     """Serve `cfg` (bf16 weights drawn on the device from `seed`, then
     `draw(model, generator)` if given; `extra(b)`, if given, draws each
     request's other prefill inputs, a vlm model's image embeddings or an
@@ -3150,6 +3179,9 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
     `check_cfg` (default: `cfg`; a `moe` model's drop-free capacity, where
     the full forward drops nothing that decode keeps) and gated at
     CONSISTENCY_REL; the same gaps with `cfg` are reported beside them.
+    With `against` (a config), the gated config's float32 prefill logits
+    are held to `against`'s within CONSISTENCY_REL too; `report(model,
+    prompts)`, if given, runs on the bf16 model after the main path.
     Returns the main path's launches of `per_prefill`'s kernels."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
@@ -3329,6 +3361,8 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
         peak = max(peak, torch.cuda.max_memory_allocated())
         print(f"{label}: peak device memory serving bf16 {peak} bytes",
               flush=True)
+    if report is not None:
+        report(model, prompts)
 
     def f32_gaps(c, toks, s, max_seq, ex):
         """(kernels vs plain, decode vs full forward, logits, plain
@@ -3369,6 +3403,17 @@ def serve_model(torch, device, seed: int, label: str, cfg, requests,
             fail(f"{label}: float32 consistency beyond {CONSISTENCY_REL}: "
                  f"kernels vs plain {r_plain}, decode vs full forward "
                  f"{r_dec}")
+        if against is not None:
+            other, _ = prefill(toks, s + new, extras[i], against)
+            r_other = rel(logits, other)
+            print(f"{label}: request {b} x {s}, float32 weights{what}: "
+                  f"prefill logits vs moe_impl={against.moe_impl!r}'s rel "
+                  f"{r_other:.4g}", flush=True)
+            if not r_other < CONSISTENCY_REL:
+                fail(f"{label}: float32 prefill vs moe_impl="
+                     f"{against.moe_impl!r} rel {r_other} beyond "
+                     f"{CONSISTENCY_REL}")
+            del other
         if check_cfg is not None:
             # the bf16 runs served cfg: their rounding is read against
             # float32 at cfg too
@@ -3683,14 +3728,16 @@ def loader(torch, device, cfg, batch: int, seed: int):
 
 
 def train_model(torch, device, seed: int, label: str, cfg, batch: int,
-                trace: bool) -> dict:
+                trace: bool, replan=None) -> dict:
     """`cfg` trained whole for TRAIN_STEPS AdamW steps on TokenPipeline
     batches (`batch` x TRAIN_SEQ): the loss of each step, finite and
     falling (the last below the first), the warm step time and tokens/s,
     a forward alone and the optimizer alone, peak device memory beside
     the reckoning, and the main path's launches (the selection and every
     step, counted from 0), which must include kernel 11 or 12 in the
-    forwards.  Returns those launches."""
+    forwards.  `replan(step, model, batch)`, if given, runs after each
+    step and may return the train step for the steps after it.  Returns
+    those launches."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.training import (AdamWConfig, adamw_update,
@@ -3749,6 +3796,8 @@ def train_model(torch, device, seed: int, label: str, cfg, batch: int,
               f"{float(m['grad_norm']):.4g} lr_scale "
               f"{float(m['lr_scale']):.4g} ({times[-1]:.3f} ms)",
               flush=True)
+        if replan is not None:
+            step_fn = replan(step, model, b) or step_fn
     launches = {k: v + counted[k] for k, v in ops.launch_counts().items()
                 if v + counted[k]}
     sess.shutdown()
@@ -4065,6 +4114,325 @@ def phase_training(torch, device, seed: int) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 13
+
+# Expert parallelism (moe_impl="ep_shardmap") on Phi-3.5-MoE
+# (hf:microsoft/Phi-3.5-MoE-instruct) at full width and 2 of its 32
+# layers (83.7 GB of bf16 weights whole: it needs more than the one card,
+# and slots on one card share its memory), over a (data 1, model 4) mesh
+# of slots sharing the card: 4 experts a slot.  13a serves phase 5's
+# requests at capacity 1.25 (the per-slot capacity drops other
+# assignments than moe_apply's); 13b trains 5 AdamW steps of 4 x 2,048
+# tokens with the PDE replanner of examples_torch/pde_moe_training.py;
+# 13c runs the engine examples on the card and on the CPU
+EP_ARCH = MOE_COVER
+EP_LAYERS = 2
+EP_MESH = (1, 4)
+EP_BATCH = 4
+EP_REPLAN_AFTER = (2, 4)
+EP_EXAMPLES = {
+    "quickstart": [r"day=7 rows: (\d+) +\(pruned (\d+)/16",
+                   r"^(\d+) groups;", r"^join result: (.*)$",
+                   r"COUNT = (\d+) "],
+    "sql_ml_pipeline": [r"after 5 iters: accuracy = ([0-9.]+)",
+                        r"after failure \+ 10 more iters: accuracy = "
+                        r"([0-9.]+)",
+                        r"^k-means objective: (.*)$"],
+    "multi_tenant": [r"^dashboard: (\d+) errors;"],
+}
+
+
+def ep_slot_drops(p, h, cfg) -> tuple:
+    """For one MoE layer's input h under the active mesh: the share of
+    assignments each slot of `moe_apply_ep` drops at its own capacity,
+    and `moe_apply`'s `frac_dropped` on the same h."""
+    from repro_torch.models import moe as moe_mod
+    slots, bl, sl, cap = moe_mod.ep_layout(h.shape, cfg.moe)
+    shares = []
+    for i in range(slots.shape[0]):
+        for j in range(slots.shape[1]):
+            xf = h[i * bl:(i + 1) * bl, j * sl:(j + 1) * sl]
+            _, _, topi = moe_mod._route(xf.reshape(bl * sl, -1), p.router,
+                                        cfg.moe.top_k)
+            _, keep = moe_mod._slots(topi.reshape(-1), cap)
+            shares.append(1.0 - float(keep.float().mean()))
+    _, st = moe_mod.moe_apply(p, h, cfg.moe, return_stats=True)
+    return shares, float(st["frac_dropped"])
+
+
+def ep_report(torch, device, label: str, cfg):
+    """`serve_model`'s report for 13a: on the bf16 build, each request's
+    EP drops by slot and layer beside moe_apply's, then the 4 x 2,048
+    prefill with each `moe_impl`: warm (median of 3), busy (traced) and
+    peak memory."""
+    import dataclasses
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def report(model, prompts):
+        for (b, s, new), prompt in zip(REQUESTS, prompts):
+            toks = torch.from_numpy(prompt).to(device)
+            seen, orig = [], moe_mod.moe_apply_ep
+
+            def record(p, x, c, return_stats=False):
+                seen.append((p, x))
+                return orig(p, x, c, return_stats)
+            moe_mod.moe_apply_ep = record
+            try:
+                with torch.no_grad():
+                    lm.prefill_fn(cfg, model, {"tokens": toks}, s + new)
+            finally:
+                moe_mod.moe_apply_ep = orig
+            for layer, (p, h) in enumerate(seen):
+                shares, frac = ep_slot_drops(p, h, cfg)
+                print(f"{label}: request {b} x {s}, layer {layer}, capacity "
+                      f"{cfg.moe.capacity_factor:g}: EP's dropped share by "
+                      f"slot {[round(x, 6) for x in shares]} (mean "
+                      f"{float(np.mean(shares)):.6g}), moe_apply's "
+                      f"frac_dropped {frac:.6g}", flush=True)
+            del seen
+        b, s, new = REQUESTS[0]
+        toks = torch.from_numpy(prompts[0]).to(device)
+        for impl in ("ep_shardmap", "gspmd"):
+            c = dataclasses.replace(cfg, moe_impl=impl)
+
+            def run():
+                with torch.no_grad():
+                    return lm.prefill_fn(c, model, {"tokens": toks}, s + new)
+            run()
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                run()
+                sync()
+                times.append((time.perf_counter() - t) * 1e3)
+            busy = "not measured"
+            if cuda:
+                peak = torch.cuda.max_memory_allocated()
+                rec = traced(torch, device, f"{label}: one prefill, {b} x "
+                             f"{s}, moe_impl={impl}", run)
+                busy = f"{rec['device_busy_ms']:.3f} ms"
+            else:
+                peak = 0
+            print(f"{label}: moe_impl={impl}: {b} x {s} prefill warm "
+                  f"{float(np.median(times)):.3f} ms (median of 3), busy "
+                  f"{busy}, peak device memory {peak} bytes", flush=True)
+    return report
+
+
+def ep_grad_check(torch, device, seed: int, label: str, cfg) -> dict:
+    """13b's gradient check: a float32 copy of `cfg` at GRAD_LAYERS layers
+    (norms and biases drawn), attn_impl="blockwise" (kernel 11's exact
+    backward) at the drop-free capacity: the loss and every parameter's
+    gradient of EP over the active mesh against moe_apply's, the loss
+    within GRAD_REL and each gradient within GRAD_REL in norm."""
+    import dataclasses
+    from repro_torch.models import lm
+    from repro_torch.parallel import get_abstract_mesh
+    mesh = get_abstract_mesh()
+    c = drop_free(dataclasses.replace(cfg, n_layers=GRAD_LAYERS,
+                                      attn_impl="blockwise"))
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+    model = lm.build_model(c, device, gen)
+    draw_biases_and_norms(model, gen)
+    model.float()
+    for p in model.parameters():
+        p.requires_grad_(True)
+    rng = np.random.default_rng(seed)
+    b, s = GRAD_BATCH
+    batch = {k: torch.from_numpy(rng.integers(0, c.vocab, (b, s))
+                                 .astype(np.int32)).to(device)
+             for k in ("tokens", "labels")}
+
+    def run(impl):
+        cc = dataclasses.replace(c, moe_impl=impl)
+        loss = lm.loss_fn(cc, model, batch)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, list(model.parameters()))
+    le, ge = run("ep_shardmap")
+    lg, gg = run("gspmd")
+    worst, where, norm = 0.0, None, 0.0
+    for (n, _), a, w in zip(model.named_parameters(), ge, gg):
+        worst_n = float((a - w).abs().max() / (w.abs().max() + 1e-30))
+        norm = max(norm, float((a - w).norm() / (w.norm() + 1e-30)))
+        if worst_n > worst:
+            worst, where = worst_n, n
+    gaps = {"loss_rel": abs(le - lg) / abs(lg), "grad_rel": worst,
+            "at": where, "grad_norm_rel": norm}
+    print(f"{label}: {cfg.name} at {GRAD_LAYERS} layers, float32, batch "
+          f"{b} x {s}, capacity {c.moe.capacity_factor:g} (drop-free), "
+          f"kernel 11's exact backward: EP over {mesh} vs moe_apply "
+          f"{json.dumps(gaps)}", flush=True)
+    if not (gaps["loss_rel"] < GRAD_REL and norm < GRAD_REL):
+        fail(f"{label}: EP vs moe_apply loss rel {gaps['loss_rel']}, "
+             f"gradient rel in norm {norm} beyond {GRAD_REL}")
+    del model, ge, gg
+    return gaps
+
+
+def ep_train(torch, device, seed: int, label: str, cfg) -> dict:
+    """13b: `cfg` trained through `train_model` (the steps' losses, the
+    held-out loss, step time, tokens/s, peak memory, launches) while
+    `MoEReplanner` observes each step's expert load (layer 0's router over
+    the embedded batch, as examples_torch/pde_moe_training.py observes it)
+    and replans after the steps in EP_REPLAN_AFTER, one train step kept
+    for each capacity bucket."""
+    import dataclasses
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import embed_lookup
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.training.pde_moe import MoEReplanner
+    replanner = MoEReplanner(cfg.moe.num_experts, cfg.moe.top_k)
+    steps = {cfg.moe.capacity_factor: None}
+    state = {"cf": cfg.moe.capacity_factor}
+    tokens = EP_BATCH * TRAIN_SEQ
+
+    def replan(step, model, batch):
+        with torch.no_grad():
+            x = embed_lookup(model.embed, batch["tokens"])
+            _, st = moe_mod.moe_apply(model.layers[0].moe, x, cfg.moe,
+                                      return_stats=True)
+        replanner.observe(st["expert_load"])
+        if step not in EP_REPLAN_AFTER:
+            return None
+        plan = replanner.plan(tokens)
+        changed = plan.capacity_factor != state["cf"]
+        print(f"{label}: [PDE] after step {step}: "
+              f"{'re-planning' if changed else 'plan unchanged'} — "
+              f"{plan.reason}", flush=True)
+        state["cf"] = plan.capacity_factor
+        if plan.capacity_factor not in steps:
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=plan.capacity_factor))
+            steps[plan.capacity_factor] = make_train_step(
+                c, AdamWConfig(lr=TRAIN_LR))
+        return steps[plan.capacity_factor]
+    launches = train_model(torch, device, seed, label, cfg,
+                           EP_BATCH if device.type == "cuda" else 1,
+                           device.type == "cuda", replan)
+    print(f"{label}: the step cache held {len(steps)} capacity variants "
+          f"{sorted(steps)}", flush=True)
+    return launches
+
+
+def load_example(name: str):
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ep_examples(torch, device) -> dict:
+    """13c: the engine examples of examples_torch/ run in this process on
+    `device` and on the CPU; their answer lines (EP_EXAMPLES) must be
+    equal.  Prints each card run's wall and kernel launches; returns the
+    launches summed over the card runs."""
+    import io
+    from repro_torch.kernels import ops
+    total = {}
+    for name, patterns in EP_EXAMPLES.items():
+        mod = load_example(name)
+        got = {}
+        for dev in (device, torch.device("cpu")):
+            buf = io.StringIO()
+            before = ops.launch_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(["--device", str(dev)])
+            wall = time.perf_counter() - t
+            out = buf.getvalue()
+            answers = []
+            for pat in patterns:
+                found = re.findall(pat, out, flags=re.M)
+                if len(found) != 1:
+                    fail(f"phase 13c: {name} on {dev}: {pat!r} matched "
+                         f"{found}")
+                answers.append(found[0])
+            got[dev.type] = answers
+            if dev == device:
+                runs = {k: v - before[k] for k, v in ops.launch_counts()
+                        .items() if v != before[k]}
+                for k, v in runs.items():
+                    total[k] = total.get(k, 0) + v
+                print(f"phase 13c: {name} on {dev} in {wall:.3f} s: "
+                      f"answers {json.dumps(answers)}; kernel launches "
+                      f"{json.dumps(runs)}", flush=True)
+        if got[device.type] != got["cpu"]:
+            fail(f"phase 13c: {name}: answers on {device} {got[device.type]}"
+                 f" differ from the CPU's {got['cpu']}")
+        print(f"phase 13c: {name}: the card's answers equal the CPU's",
+              flush=True)
+    return total
+
+
+def phase_ep(torch, device, seed: int) -> dict:
+    """Phase 13: expert parallelism and the examples.  13a serves
+    Phi-3.5-MoE at full width and EP_LAYERS layers with
+    moe_impl="ep_shardmap" over `make_debug_mesh(*EP_MESH)` (slots
+    `[device] * 4`) through `serve_model` on phase 5's requests at
+    capacity 1.25: 2 tensor-core flash launches a prefill, every tensor on
+    the card, float32 checks at the drop-free capacity (kernels vs plain,
+    decode vs full forward, and EP's prefill logits vs moe_apply's), then
+    `ep_report`.  13b: the same model and mesh trained (`ep_train`) and
+    `ep_grad_check`.  13c: `ep_examples`.  Returns the main paths'
+    launches, summed over 13a, 13b and 13c's card runs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import set_mesh
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    base = get_config(EP_ARCH if cuda else EP_ARCH + "-smoke")
+    if cuda:
+        base = dataclasses.replace(base, n_layers=EP_LAYERS)
+    cfg = dataclasses.replace(base, moe_impl="ep_shardmap",
+                              moe=dataclasses.replace(
+                                  base.moe, capacity_factor=MOE_CAPACITY))
+    mesh = make_debug_mesh(*EP_MESH, device=device)
+    print(f"phase 13: {cfg.name} at {cfg.n_layers} layers, "
+          f"moe_impl={cfg.moe_impl!r} over {mesh}: "
+          f"{cfg.moe.num_experts // EP_MESH[1]} experts a slot", flush=True)
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    with set_mesh(mesh):
+        add(serve_model(torch, device, seed, "phase 13a", cfg, REQUESTS,
+                        {"flash_attention_fwd": cfg.n_layers}, trace=True,
+                        draw=draw_biases_and_norms, check_cfg=drop_free(cfg),
+                        against=dataclasses.replace(drop_free(cfg),
+                                                    moe_impl="gspmd"),
+                        report=ep_report(torch, device, "phase 13a", cfg)))
+        free()
+        got = ep_train(torch, device, seed, "phase 13b", cfg)
+        if cuda and not got.get("flash_attention_fwd"):
+            fail(f"phase 13b: training never launched flash: {got}")
+        add(got)
+        free()
+        ep_grad_check(torch, device, seed, "phase 13b", cfg)
+        free()
+    add(ep_examples(torch, device))
+    print(f"phase 13: {time.perf_counter() - t_phase:.3f} s of wall, builds "
+          f"included; launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
 def release(torch, device, label: str, after: str) -> None:
     """Free what the last phase left (its models and caches are gone
     with its frame) and the allocator's cache; print the memory held."""
@@ -4127,6 +4495,8 @@ def main() -> int:
     cross = phase_cross(torch, device, args.seed)
     release(torch, device, "phase 12", "phase 11")
     train = phase_training(torch, device, args.seed)
+    release(torch, device, "phase 13", "phase 12")
+    ep = phase_ep(torch, device, args.seed)
     if device.type == "cuda":
         idle = [k for k, v in launches.items() if v == 0]
         if idle:
@@ -4139,6 +4509,8 @@ def main() -> int:
             if not got.get("flash_attention_fwd"):
                 fail(f"phase 11's {fam} model never launched "
                      f"flash_attention_fwd: {got}")
+        if not ep.get("flash_attention_fwd"):
+            fail(f"phase 13 never launched flash_attention_fwd: {ep}")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
         if name in SQL_KERNELS:
@@ -4158,6 +4530,9 @@ def main() -> int:
         # phase 12's training main paths (12b and 12d, the SQL selection
         # of their corpora included)
         rec["train_launches"] = train.get(name, 0)
+        # phase 13's main paths (13a's generate, 13b's selection and steps,
+        # 13c's card runs)
+        rec["ep_launches"] = ep.get(name, 0)
     kernels["colscan"]["two_columns"]["launches"] = \
         sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \

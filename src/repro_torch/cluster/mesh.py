@@ -29,6 +29,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel import compat
+
 MAX_RETRIES = 3     # dispatch retries after a device loss, without a policy
 
 
@@ -71,18 +73,10 @@ class MeshContext:
                     "MeshContext(): no CUDA device is available; pass "
                     "devices=[...] (e.g. [torch.device(\"cpu\")] * 4) to "
                     "place slots on the CPU")
-            devs = [torch.device("cuda", i)
-                    for i in range(torch.cuda.device_count())]
-        else:
-            devs = [torch.device(d) for d in devices]
-        if not devs:
-            raise ValueError("a mesh needs at least one device slot")
-        kinds = {d.type for d in devs}
-        if len(kinds) != 1:
-            raise ValueError(f"mesh slots of several device types: "
-                             f"{sorted(kinds)}")
-        self.devices = devs
-        self.alive: List[bool] = [True] * len(devs)
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        self.devices = compat.slot_devices(devices)
+        self.alive: List[bool] = [True] * len(self.devices)
         self.generation = 0
         # the ResiliencePolicy owns the dispatch retry budget when given
         self.max_retries = (policy.mesh_max_retries if policy is not None

@@ -2,10 +2,8 @@
 architectures (dense / MoE / MLA / SSM / hybrid / VLM / enc-dec).
 
 A copy of the reference's `repro/configs/base.py`, field for field, so the
-two registries compare equal; the port builds the `dense`, `ssm`,
-`hybrid` and `moe` families (`models/lm.build_model`) and raises for the
-rest, for a GQA dense or moe configuration with `kv_cache_quant` or
-`attn_scores_dtype` other than "f32", and for `moe_impl="ep_shardmap"`."""
+two registries compare equal; the port builds every family and option
+of a registered configuration (`models/lm.build_model`)."""
 
 from __future__ import annotations
 

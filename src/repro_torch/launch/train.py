@@ -17,9 +17,8 @@ restart path by restoring the latest checkpoint at step N and replaying
 from the manifest's step.  Weights are random, drawn from seed 0 on the
 device.
 
-The reference's `--mesh` (a debug mesh of host devices) has no
-counterpart: the port trains on one card, with no sharding (`parallel/`
-is not ported).
+The reference parses a `--mesh` flag and never reads it; the port has
+none.
 """
 
 from __future__ import annotations

@@ -21,9 +21,10 @@
 The frontends are stubs, as in the reference: the batch carries
 `image_embeds` (B, n_frontend_tokens, d_model) for a vlm model and
 `frames` (B, enc_seq, d_model) for an encdec one; a missing one raises
-`KeyError` naming it.  A configuration that asks for what the port does
-not compute yet raises `NotImplementedError`: on a `moe` one, expert
-parallelism (`moe_impl="ep_shardmap"`).  The two serving options of a
+`KeyError` naming it.  A `moe` configuration with
+`moe_impl="ep_shardmap"` runs its prefill and training over the active
+mesh's slots (`models/moe.moe_apply_ep`, `parallel.set_mesh`), its decode
+dropless, as the reference's does.  The two serving options of a
 GQA `dense` or `moe` configuration are the reference's: the int8 KV
 cache (`kv_cache_quant`: k and v int8 with bfloat16 scales a row,
 written quantized by prefill, read by `attention.decode_attention_q8`)
@@ -42,8 +43,8 @@ The reference stacks each family's layers on a leading axis and runs them
 under `lax.scan`; the port keeps one module per layer (`nn.ModuleList`,
 `models/convert.py` unstacks a reference tree) and loops in Python.  The
 shared attention block is ONE module used by every group, as in the
-reference.  Sharding annotations (`act_shard`, `maybe_shard`) have no
-meaning on one card and are left out.
+reference.  Sharding annotations (`act_shard`, `maybe_shard`) only
+constrain XLA's placement and are left out (`parallel/__init__.py`).
 
 Entry points: `build_model`, `loss_fn` (the training loss: the chunked
 cross-entropy plus `AUX_LOSS_WEIGHT` times the MoE layers' summed
@@ -67,6 +68,7 @@ JAX in the reference. The reference's `aux` (the MoE layers'
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import torch
@@ -75,6 +77,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..core.runtime import resolve_device
+from ..parallel.compat import get_abstract_mesh, set_mesh
 from . import attention as att
 from . import mamba2 as m2
 from . import moe as moe_mod
@@ -269,10 +272,6 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
             f"runs {FAMILIES}; see ROADMAP A.5")
-    if cfg.family == "moe" and cfg.moe_impl == "ep_shardmap":
-        raise NotImplementedError(
-            f"{cfg.name}: expert parallelism (moe_impl='ep_shardmap', a "
-            f"mesh of several cards) is not ported yet; see ROADMAP A.5")
 
 
 def _quant_cache(cfg: ModelConfig) -> bool:
@@ -399,9 +398,16 @@ def _store_states(caches: Caches, ssm_key: str, conv_key: str, idx,
 def _remat(cfg: ModelConfig, fn, *args):
     """fn(*args), under `torch.utils.checkpoint` where autograd records
     and `cfg.remat` is set (the reference's `jax.checkpoint` of the same
-    block): its backward recomputes the block's activations from args."""
+    block): its backward recomputes the block's activations from args,
+    under the mesh the forward saw (autograd may run the backward on
+    another thread, or after the caller's `set_mesh` has exited)."""
     if cfg.remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        mesh = get_abstract_mesh()
+
+        def run(*a):
+            with set_mesh(mesh):
+                return fn(*a)
+        return torch.utils.checkpoint.checkpoint(run, *args,
                                                  use_reentrant=False)
     return fn(*args)
 
@@ -409,13 +415,18 @@ def _remat(cfg: ModelConfig, fn, *args):
 def _ffn(cfg: ModelConfig, ffn: nn.Module, h, stats: Optional[List] = None,
          dropless: bool = False):
     """The block's second half on the normed h: the MLP, or the routed
-    experts (appending their statistics to `stats` when given)."""
+    experts (appending their statistics to `stats` when given): over the
+    active mesh's slots with `moe_impl="ep_shardmap"` (prefill and
+    training), dropless at decode, as the reference's decode is."""
     if not isinstance(ffn, moe_mod.MoE):
         return mlp_apply(cfg.mlp, ffn, h)
+    if cfg.moe_impl == "ep_shardmap" and not dropless:
+        apply = moe_mod.moe_apply_ep
+    else:
+        apply = functools.partial(moe_mod.moe_apply, dropless=dropless)
     if stats is None:
-        return moe_mod.moe_apply(ffn, h, cfg.moe, dropless=dropless)
-    y, st = moe_mod.moe_apply(ffn, h, cfg.moe, return_stats=True,
-                              dropless=dropless)
+        return apply(ffn, h, cfg.moe)
+    y, st = apply(ffn, h, cfg.moe, return_stats=True)
     stats.append(st)
     return y
 

@@ -41,11 +41,58 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.cluster.shard_exec, repro_torch.cluster.fleet\n"
         "import repro_torch.training, repro_torch.training.pde_moe\n"
         "import repro_torch.checkpoint, repro_torch.data\n"
-        "import repro_torch.launch.train\n"
+        "import repro_torch.launch.train, repro_torch.launch.mesh\n"
+        "import repro_torch.parallel, repro_torch.parallel.compat\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "print(bad)")
     assert out == "[]"
+
+
+EXAMPLES = ("multi_tenant", "pde_moe_training", "quickstart", "serve_lm",
+            "sql_ml_pipeline", "train_lm")
+_LOAD_EXAMPLE = (
+    "import importlib.util, sys\n"
+    "def load(name):\n"
+    f"    path = {str(Path(SRC).parent / 'examples_torch')!r} + '/' + name + "
+    "'.py'\n"
+    "    spec = importlib.util.spec_from_file_location(name, path)\n"
+    "    mod = importlib.util.module_from_spec(spec)\n"
+    "    spec.loader.exec_module(mod)\n"
+    "    return mod\n")
+
+
+def test_examples_import_no_jax_and_no_reference():
+    out = _run(
+        _LOAD_EXAMPLE +
+        f"mods = [load(n) for n in {EXAMPLES!r}]\n"
+        "assert all(callable(m.main) for m in mods)\n"
+        "import repro_torch.parallel, repro_torch.launch.mesh\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
+        "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
+        "print(bad)")
+    assert out == "[]"
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_without_device_needs_a_card(name):
+    """Each example of examples_torch/ run without `--device` computes on
+    the card, and raises on a host without one rather than run on the
+    CPU."""
+    out = _run(
+        _LOAD_EXAMPLE +
+        "import torch\n"
+        "if torch.cuda.is_available():\n"
+        "    print('card')\n"
+        "else:\n"
+        "    try:\n"
+        f"        load({name!r}).main([])\n"
+        "        print('no-raise')\n"
+        "    except RuntimeError as e:\n"
+        "        print('raised', 'CUDA' in str(e))\n")
+    if out == "card":
+        pytest.skip("a CUDA device is present")
+    assert out == "raised True"
 
 
 def test_session_without_device_needs_a_card():
@@ -123,8 +170,8 @@ def test_unported_paths_raise(tmp_path):
     srv = SharkServer(device="cpu", mesh=mesh)
     assert srv.make_executor().mesh is mesh
     srv.shutdown()
-    # every LM family is ported; an option the port does not compute yet
-    # (expert parallelism over a mesh of cards) raises
+    # every LM family and option is ported: expert parallelism builds,
+    # and with no mesh it is moe_apply
     import dataclasses
     assert len(build_model(get_config("yi-9b-smoke"), device="cpu").layers) \
         == 2
@@ -134,10 +181,15 @@ def test_unported_paths_raise(tmp_path):
     assert len(vlm.cross_layers) == 2 and len(vlm.self_layers[0]) == 1
     enc = build_model(get_config("whisper-base-smoke"), device="cpu")
     assert len(enc.encoder) == 2 and len(enc.layers) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(get_config(
-            "phi3.5-moe-42b-a6.6b-smoke"), moe_impl="ep_shardmap"),
-            device="cpu")
+    ep = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b-smoke"),
+                             moe_impl="ep_shardmap")
+    from repro_torch.models import lm, moe as moe_mod
+    x = torch.randn((2, 4, ep.d_model), generator=torch.Generator()
+                    .manual_seed(0)).to(torch.bfloat16)
+    layer = build_model(ep, device="cpu").layers[0].moe
+    assert torch.equal(moe_mod.moe_apply_ep(layer, x, ep.moe),
+                       moe_mod.moe_apply(layer, x, ep.moe))
+    assert lm.check_ported(ep) is None
     # the int8 KV cache and bf16 scores are ported: they build
     for kw in (dict(kv_cache_quant=True), dict(attn_scores_dtype="bf16")):
         cfg = dataclasses.replace(get_config("yi-9b-smoke"), **kw)

@@ -1,6 +1,6 @@
 """The port's MoE layer (`models/moe.py`), MLA (`models/attention.py`) and
 the `moe` family's `check_ported` rules against the JAX reference, on the
-CPU.
+CPU (expert parallelism under a mesh: tests/test_torch_moe_ep.py).
 
 Each comparison feeds the same numpy inputs, made from a seed, to the
 reference function (jitted, float32) and to the port's, with the
@@ -215,13 +215,22 @@ def test_mla_decode_matches_reference(cur_len):
 
 @pytest.mark.parametrize("name", [DS, PHI])
 def test_expert_parallelism_raises(name):
+    """Named for when expert parallelism raised: `moe_impl="ep_shardmap"`
+    now builds, and with no mesh its prefill and decode are `moe_apply`'s
+    bit for bit (tests/test_torch_moe_ep.py holds it to the reference's
+    EP under a mesh)."""
     cfg = dataclasses.replace(get_config(name), moe_impl="ep_shardmap")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        lm.build_model(cfg, "cpu")
-    model = lm.build_model(get_config(name), "cpu")
-    toks = torch.zeros((B, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ep_shardmap"):
-        lm.prefill_fn(cfg, model, {"tokens": toks}, 8)
+    model = lm.build_model(cfg, "cpu")
+    lm.check_ported(cfg)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (B, 4)).astype(np.int64))
+    outs = []
+    for c in (cfg, get_config(name)):
+        logits, caches = lm.prefill_fn(c, model, {"tokens": toks}, 8)
+        step, _ = lm.decode_fn(c, model, toks[:, :1], caches, 4)
+        outs.append((logits, step, *caches.values()))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kw", [dict(kv_cache_quant=True),

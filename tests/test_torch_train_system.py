@@ -5,9 +5,9 @@ twin of tests/test_elastic.py (a checkpoint the reference wrote after 3
 steps restores into the port and trains on), and the training CLI with
 a simulated preemption.
 
-test_elastic.py's mesh resize (4 x 2 -> 2 x 2 -> 4 x 2 host devices) has
-no counterpart: the port trains on one card.  Its twin keeps the rest:
-the reference trains 3 steps and checkpoints with its CheckpointManager;
+test_elastic.py's mesh resize (4 x 2 -> 2 x 2 -> 4 x 2 host devices) is
+twinned on CPU slots in tests/test_torch_elastic.py.  This twin keeps the
+rest: the reference trains 3 steps and checkpoints with its CheckpointManager;
 the port restores that directory (`restore_checkpoint`, then
 `convert.params_from_jax` and `convert.opt_state_from_jax`), takes step 4
 on the same batch, and its loss equals the reference's own step 4 from
