@@ -254,8 +254,8 @@ SSD scan.
 Phase 13 (after phase 12, whose models it releases first) runs expert
 parallelism (`moe_impl="ep_shardmap"`, `models/moe.moe_apply_ep`) on
 Phi-3.5-MoE (hf:microsoft/Phi-3.5-MoE-instruct) at full width and 2 of
-its 32 layers (2.86 B random bf16 weights, norms and biases drawn; 83.7 GB
-whole) under `set_mesh(make_debug_mesh(1, 4))`: four slots sharing the
+its 32 layers (2.86 B random bf16 weights, norms and biases drawn; 83.7e9
+bytes whole) under `set_mesh(make_debug_mesh(1, 4))`: four slots sharing the
 card, 4 of the 16 experts a slot.  13a serves phase 5's requests at
 capacity 1.25 through `serve_model` (2 tensor-core flash launches a
 prefill, every tensor on the card, float32 checks at the drop-free
@@ -277,6 +277,31 @@ lines must be equal, and the card runs' kernel launches are printed.
 The `kernels` line gives every kernel its phase-13 launches (13a's
 generate, 13b's selection and steps, 13c's card runs) as `ep_launches`,
 and the run fails if phase 13 launched no flash.
+
+Phase 14 (after phase 13, whose models it releases first) is the dry
+run (`repro_torch/launch/dryrun.py`).  14a counts the 32 cells of
+`dryrun.cell_list()` (10 architectures x `SHAPES`, `long_500k` for the
+sub-quadratic ones) on the meta device in 8 spawned worker processes and
+prints a line a cell: the predicted peak memory and whether it fits the
+card's memory (`launch/cost.H100.hbm_bytes`, printed beside the card's
+own `total_memory`), the three roofline terms by the data sheet's peaks
+(`launch/cost.H100`), the bound, the useful share of the counted FLOPs
+and the kernel calls; it fails unless kernel 11 is counted in every
+train and prefill of a family with GQA layers, kernel 12 in those of the
+ssm and hybrid families, and neither in a decode.  14b holds the dry run
+against the card: Yi-9B whole on phase 9's 4 x 2,048 prefill (max_seq
+2,112) and Qwen2.5-3B whole on one AdamW step of 4 x 2,048 tokens, each
+called warm, then timed with its peak memory (`max_memory_allocated`
+after `reset_peak_memory_stats`), then counted on the card
+(`launch/cost.analyze`): its op count, FLOPs by dtype, elementwise
+FLOPs, HBM bytes, wire bytes and kernel calls must equal the meta dry
+run's, kernel 11 must launch on its tensor-core route as often as
+counted, and the dry run's peak must lie within 10% of the measured one.
+The warm time is printed beside the roofline's bound and model FLOPs /
+989 TFLOP/s / time (reported, not gated).  Rows 11-12's bounds in phase
+1 come from the same formulas (`launch/cost.flash_cost`, `ssd_cost`).
+The `kernels` line gives every kernel its phase-14b launches as
+`dry_launches`, and the run fails if phase 14 launched no flash.
 
 Output: the card's name and power limit, per-phase lines, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -302,12 +327,6 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-# the guide's table lists no float64 rate; the float32 rate outside the
-# tensor cores (67 TFLOP/s) is the nearest listed peak for these kernels'
-# scalar float work
-PEAK_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12          # dense bf16 tensor cores, same data sheet
 # 64 partitions put 64 x 50 = 3,200 partial-state rows into query (c)'s
 # reduce, past PDEConfig.reduce_min_compiled_rows (2048), so the merge
 # takes segmented_merge; the main path is timed over REPS runs
@@ -519,10 +538,15 @@ def one_kernel(name: str, fn) -> None:
           f"graph of the call: {json.dumps(kinds)})", flush=True)
 
 
-def bound(nbytes: float, ops: float, peak: float = PEAK_OPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(nbytes: float, ops: float, dtype: str = "float32"):
+    """(ms, "bytes" or "operations"): the least time of work that moves
+    `nbytes` and does `ops` operations on `dtype` operands, by the H100's
+    data-sheet peaks (`repro_torch.launch.cost.H100`, which the dry run
+    uses too).  The table lists no float64 rate: the float32 rate outside
+    the tensor cores (67 TFLOP/s), the default, is the nearest listed peak
+    for the SQL kernels' scalar work."""
+    from repro_torch.launch.cost import H100
+    return H100.bound_ms(nbytes, ops, dtype)
 
 
 # ---------------------------------------------------------------- phase 1
@@ -1303,8 +1327,11 @@ def phase_sql(torch, device, rows: int, seed: int) -> dict:
     cfg = PDEConfig(segment_force_kernels=rehearsal,
                     reduce_force_compiled=rehearsal,
                     broadcast_threshold_bytes=threshold)
+    # speculation off: a straggler's backup splits its partition again, so
+    # the split counts held below would follow task timing (ROADMAP C.8)
     sess = SharkSession(device=str(device), num_workers=8, max_threads=8,
-                        default_shuffle_buckets=64, pde_config=cfg)
+                        default_shuffle_buckets=64, pde_config=cfg,
+                        speculation=False)
     sess.create_table("lineitem", Schema.of(
         L_QUANTITY=DType.INT32, L_EXTENDEDPRICE=DType.FLOAT64,
         L_DISCOUNT=DType.FLOAT64, L_SHIPMODE=DType.STRING,
@@ -2721,32 +2748,8 @@ GQA_HEADS, GQA_KV, GQA_HD = 32, 4, 128
 # Llama-3.2-Vision-11B's cross-attention prefill: 32 query heads over 8 kv
 # heads of 128 against 1,601 image tokens (row 11X)
 CROSS_HEADS, CROSS_KV, CROSS_HD, CROSS_T = 32, 8, 128, 1601
-SSD_HEADS, SSD_P, SSD_N, SSD_CHUNK, SSD_TILE = 64, 112, 64, 256, 64
+SSD_HEADS, SSD_P, SSD_N, SSD_CHUNK = 64, 112, 64, 256
 BF16_STEP = 2.0 ** -7            # one bfloat16 rounding step, relative
-
-
-def flash_cost(b, h, s, hd, itemsize, kv=None, t=None):
-    """(bytes, flops) of attention: q and k, v (kv heads, default h; t rows,
-    default s) read and o written once; two hd-long dot products per (row,
-    col) pair of each query head, col <= row when causal (t None), every
-    col of t otherwise."""
-    kv = h if kv is None else kv
-    if t is None:
-        return ((2.0 * h + 2.0 * kv) * b * s * hd * itemsize,
-                4.0 * b * h * hd * s * (s + 1) / 2)
-    return ((2.0 * h * s + 2.0 * kv * t) * b * hd * itemsize,
-            4.0 * b * h * hd * s * t)
-
-
-def ssd_cost(b, s, h, p, n, itemsize):
-    """(bytes, flops) of the SSD scan with 64-row tiles: x, B, C (x's dtype)
-    and dt read once, y (x's dtype) and the float32 final state written
-    once; per row and head the causal halves of C B^T and M x, C . state
-    and the state update."""
-    nbytes = (2.0 * b * s * h * p + 2.0 * b * s * n) * itemsize \
-        + 4.0 * b * s * h + 4.0 * b * h * p * n + 8.0 * h
-    flops = 2.0 * b * s * h * (SSD_TILE / 2 * (n + p) + 2.0 * n * p)
-    return nbytes, flops
 
 
 def phase_kernels_lm(torch, device, seed: int) -> dict:
@@ -2759,6 +2762,7 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
     shape (row 11X)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.launch.cost import flash_cost, ssd_cost
     import torch.nn.functional as F
 
     rng = np.random.default_rng(seed + 5)
@@ -2989,7 +2993,7 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
                    lambda: kf.flash_attention_fwd(qg, kg, vg))
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in cases.items():
-        b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
         out[name] = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name], "launches": 0,
@@ -3028,7 +3032,7 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
             qg, kr, vr, is_causal=True)
         lib_call = "scaled_dot_product_attention on k/v repeated beforehand"
     gb, gf = flash_cost(b, gh, s, GQA_HD, 2, GQA_KV)
-    g_ms, g_by = bound(gb, gf, BF16_OPS_PER_S)
+    g_ms, g_by = bound(gb, gf, "bfloat16")
     gqa = {
         "row": "11G", "name": "flash_attention_fwd", "route": "cuda",
         "source": SOURCES["flash_attention_fwd"],
@@ -3076,7 +3080,7 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
                    "1,601)", lambda: kf.flash_attention_fwd(qx, kx, vx,
                                                             False))
     xb, xf = flash_cost(b, xh, s, CROSS_HD, 2, CROSS_KV, CROSS_T)
-    x_ms, x_by = bound(xb, xf, BF16_OPS_PER_S)
+    x_ms, x_by = bound(xb, xf, "bfloat16")
     cross = {
         "row": "11X", "name": "flash_attention_fwd", "route": "cuda",
         "source": SOURCES["flash_attention_fwd"],
@@ -3525,8 +3529,8 @@ def phase_dense(torch, device, seed: int) -> dict:
 
 # DeepSeek-V2-Lite (arXiv:2405.04434) served at full width and depth on
 # phase 5's requests at the reference's capacity factor; Phi-3.5-MoE at
-# full width and 2 of its 32 layers (84 GB of bf16 weights at full depth:
-# it needs four cards), 1 x 1,000 + 8 tokens.  The float32 checks run on
+# full width and 2 of its 32 layers (its 83.7e9 bytes of bf16 weights at
+# full depth leave 1.3e9 of the card's 85.0e9), 1 x 1,000 + 8 tokens.  The float32 checks run on
 # the 1 x 1,000 request only: DeepSeek-V2-Lite's float32 weights are 62.8
 # GB, and a drop-free 4 x 2,048 buffer would add about 15 GB
 MOE_ARCH = "deepseek-v2-lite-16b"
@@ -4118,8 +4122,8 @@ def phase_training(torch, device, seed: int) -> dict:
 
 # Expert parallelism (moe_impl="ep_shardmap") on Phi-3.5-MoE
 # (hf:microsoft/Phi-3.5-MoE-instruct) at full width and 2 of its 32
-# layers (83.7 GB of bf16 weights whole: it needs more than the one card,
-# and slots on one card share its memory), over a (data 1, model 4) mesh
+# layers (83.7e9 bytes of bf16 weights whole leave 1.3e9 of the card's
+# 85.0e9, and slots on one card share its memory), over a (data 1, model 4) mesh
 # of slots sharing the card: 4 experts a slot.  13a serves phase 5's
 # requests at capacity 1.25 (the per-slot capacity drops other
 # assignments than moe_apply's); 13b trains 5 AdamW steps of 4 x 2,048
@@ -4433,6 +4437,221 @@ def phase_ep(torch, device, seed: int) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 14
+
+# 14b holds the dry run against the card on two of the card's own runs:
+# Yi-9B whole on phase 9's 4 x 2,048 prefill (caches at its max_seq, 64
+# rows for the decode steps) and Qwen2.5-3B whole on one AdamW step of
+# phase 12's 4 x 2,048 tokens (lr 3e-3, one microbatch)
+DRY_NEW = 64
+DRY_PEAK_RTOL = 0.10
+# what the card's count must equal of the dry run's
+DRY_EQUAL = (("program", "ops"), ("program", "dot_flops_by_dtype"),
+             ("program", "elementwise_flops"), ("program", "traffic_bytes"),
+             ("program", "kernel_calls"), ("roofline", "wire_bytes"))
+# the dry runs' worker processes on the card's machine (spawned; they
+# count on the meta device): its 8 cores
+DRY_JOBS = 8
+
+
+def dry_line(rec: dict) -> str:
+    """One 14a line: a cell's memory, roofline terms and kernel calls."""
+    from repro_torch.launch.roofline import enrich
+    e = enrich(rec)
+    return (f"phase 14a: {rec['arch']} x {rec['shape']}: peak_bytes "
+            f"{rec['memory']['peak_bytes']} (fits {rec['fits']}), compute "
+            f"{e['compute_s']:.6g} s, memory {e['memory_s']:.6g} s, "
+            f"collective {e['collective_s']:.6g} s, {e['dominant']}-bound, "
+            f"useful_ratio {e['useful_ratio']:.4f}, kernel calls "
+            f"{json.dumps(rec['program']['kernel_calls'])}, counted in "
+            f"{rec['compile_s']:.1f} s")
+
+
+def dry_check_cell(rec: dict, cfg) -> None:
+    """A 14a record's own checks: FLOPs and bytes counted, no wire bytes
+    on one card, and the kernels the family's path runs: kernel 11 in
+    every train and prefill of a family with GQA layers, kernel 12 in
+    those of the ssm and hybrid families, neither in a decode."""
+    rl, calls = rec["roofline"], rec["program"]["kernel_calls"]
+    cell = f"{rec['arch']} x {rec['shape']}"
+    if not (rl["flops"] > 0 and rl["hbm_bytes"] > 0
+            and rec["memory"]["peak_bytes"] > 0):
+        fail(f"phase 14a: {cell} counted nothing: {json.dumps(rl)}")
+    if rl["wire_bytes"] != 0:
+        fail(f"phase 14a: {cell} counted wire bytes on one card")
+    decode = rec["shape"].startswith(("decode", "long"))
+    want = set()
+    if not decode and cfg.family != "ssm" and cfg.mla is None:
+        want.add("flash_attention_fwd")
+    if not decode and cfg.family in ("ssm", "hybrid"):
+        want.add("ssd_scan")
+    if set(calls) != want:
+        fail(f"phase 14a: {cell} called kernels {calls}, expected {want}")
+
+
+def dry_vs_card(torch, device, label: str, fn, args, meta: dict,
+                mflops: float) -> dict:
+    """14b on one cell: a warm fn(*args), then one timed at its peak
+    memory, then one counted on the device (`launch/cost.analyze`), whose
+    counts (`DRY_EQUAL`) must equal the meta dry run's `meta`, with kernel
+    11 launched on its tensor-core route as often as the count says, and
+    the dry run's peak within `DRY_PEAK_RTOL` of the measured one.
+    Returns the counted call's launches."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cost import H100, analyze
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    out = fn(*args)
+    sync()
+    del out
+    gc.collect()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if cuda else None
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync()
+    warm_s = time.perf_counter() - t0
+    measured = torch.cuda.max_memory_allocated() if cuda else None
+    del out
+    gc.collect()
+    ops.reset_launch_counts()
+    routes = dict(kf.ROUTES)
+    _, card = analyze(fn, *args)
+    sync()
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    for part, key in DRY_EQUAL:
+        if card[part][key] != meta[part][key]:
+            a, b = card["cost_analysis_raw"], meta["cost_analysis_raw"]
+            diff = {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+                    if a.get(k) != b.get(k)}
+            fail(f"phase 14b: {label}: the card counted {part}.{key} "
+                 f"{card[part][key]!r}, the dry run {meta[part][key]!r}; "
+                 f"ops (card, meta) that differ: {json.dumps(diff)}")
+    calls = card["program"]["kernel_calls"].get("flash_attention_fwd", {})
+    tc = kf.ROUTES["tensor_core"] - routes["tensor_core"]
+    if cuda and not (launched.get("flash_attention_fwd", 0)
+                     == calls.get("tensor_core", 0) == tc > 0
+                     and set(calls) == {"tensor_core"}):
+        fail(f"phase 14b: {label}: flash launched {launched}, {tc} on "
+             f"tensor_core, counted {calls}")
+    rl = meta["roofline"]
+    bound_s = max(rl["compute_s"], rl["memory_s"], rl["collective_s"])
+    peak = meta["memory"]["peak_bytes"]
+    if cuda:
+        gap = abs(peak - measured) / measured
+        if gap > DRY_PEAK_RTOL:
+            fail(f"phase 14b: {label}: the dry run's peak {peak} bytes is "
+                 f"{gap:.4f} off the card's {measured}")
+        mem = (f"peak {peak} bytes predicted, {measured} measured "
+               f"(max_memory_allocated; {held} held before the call), "
+               f"rel gap {gap:.6f}")
+    else:
+        mem = f"peak {peak} bytes predicted, not measured on the CPU"
+    print(f"phase 14b: {label}: counts on the {device.type} equal the dry "
+          f"run's ({card['program']['ops']} ops, dot FLOPs "
+          f"{json.dumps(card['program']['dot_flops_by_dtype'])}, "
+          f"elementwise {card['program']['elementwise_flops']:.6g}, "
+          f"{card['program']['traffic_bytes']:.6g} HBM bytes, kernel calls "
+          f"{json.dumps(card['program']['kernel_calls'])}); {mem}; warm "
+          f"{warm_s * 1e3:.3f} ms against the roofline's bound "
+          f"{bound_s * 1e3:.3f} ms ({rl['dominant']}: compute "
+          f"{rl['compute_s'] * 1e3:.3f}, memory {rl['memory_s'] * 1e3:.3f}); "
+          f"model FLOPs {mflops:.6g} / {H100.peak('bfloat16') / 1e12:.0f} "
+          f"TFLOP/s / time = {mflops / H100.peak('bfloat16') / warm_s:.4f}"
+          + (f" on {card_line()}" if cuda else ""), flush=True)
+    return launched
+
+
+def phase_dryrun(torch, device, seed: int) -> dict:
+    """Phase 14: the dry run (`launch/dryrun.py`).  14a counts the 32
+    cells of `dryrun.cell_list()` on the meta device in `DRY_JOBS` worker
+    processes and prints a line a cell (`dry_line`, `dry_check_cell`).
+    14b (`dry_vs_card`): Yi-9B whole on phase 9's prefill and Qwen2.5-3B
+    whole on one of phase 12's steps, counted on the card and on meta
+    (the CPU rehearsal: their smoke variants at 2 x 256).  Returns 14b's
+    launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import H100
+    from repro_torch.launch.roofline import cell_model_flops
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.training import AdamWConfig
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    b, s = (LM_BATCH, LM_SEQ) if cuda else (2, 256)
+    suffix = "" if cuda else "-smoke"
+    pre = (get_config(DENSE_ARCH + suffix),
+           ShapeConfig("phase9_prefill", "prefill", s, b))
+    step = (get_config(TRAIN_ARCH + suffix),
+            ShapeConfig("phase12_step", "train", s, b))
+    cells = dryrun.cell_list()
+    # the CPU rehearsal shares its machine: two processes
+    jobs = DRY_JOBS if cuda else 2
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(jobs, mp_context=ctx) as pool:
+        metas = [pool.submit(dryrun.dry_run, *pre, 1, s + DRY_NEW),
+                 pool.submit(dryrun.dry_run, *step)]
+        # the train steps first: the longest counts (Zamba2's about 20 s),
+        # which submitted last would finish alone
+        futs = {c: pool.submit(dryrun.cell_record, *c) for c in sorted(
+            cells, key=lambda c: not c[1].startswith("train"))}
+        recs, errors = [], []
+        for a, sh in cells:
+            try:
+                recs.append(futs[a, sh].result())
+            except Exception as e:      # the worker's error, reported below
+                errors.append(f"{a} x {sh}: {e!r}")
+        try:
+            meta_pre, meta_step = (f.result() for f in metas)
+        except Exception as e:          # the worker's error, reported below
+            errors.append(f"14b's dry runs: {e!r}")
+    if errors:
+        fail(f"phase 14a: dry runs failed: {errors}")
+    for rec in recs:
+        print(dry_line(rec), flush=True)
+        dry_check_cell(rec, get_config(rec["arch"]))
+    print(f"phase 14a: {len(recs)} cells dry-run on the meta device in "
+          f"{time.perf_counter() - t_phase:.3f} s ({jobs} processes); "
+          f"{sum(r['fits'] for r in recs)} fit the dry run's capacity of "
+          f"{H100.hbm_bytes} bytes", flush=True)
+    if cuda:
+        # the capacity `fits` compares with, beside the card's own
+        total = torch.cuda.get_device_properties(device).total_memory
+        print(f"phase 14a: the card's total_memory {total} bytes, the dry "
+              f"run's capacity {H100.hbm_bytes} ({total - H100.hbm_bytes:+d})",
+              flush=True)
+    launches = {}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for label, (cfg, shape), meta, kw in (
+            (f"{pre[0].name} prefill {b} x {s}, max_seq {s + DRY_NEW}", pre,
+             meta_pre, {"max_seq": s + DRY_NEW}),
+            (f"{step[0].name} AdamW step of {b} x {s} tokens", step,
+             meta_step, {"opt": AdamWConfig(lr=TRAIN_LR)})):
+        # the weights drawn from seed 0 on the device (`lm.build_model`),
+        # the tokens from the run's seed
+        fn, args = build_cell(cfg, shape, device=device, **kw)
+        for t in args[-1].values():
+            t.random_(0, cfg.vocab, generator=gen)
+        got = dry_vs_card(torch, device, label, fn, args, meta,
+                          cell_model_flops(cfg, shape))
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        del fn, args
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    print(f"phase 14: {time.perf_counter() - t_phase:.3f} s of wall; "
+          f"launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
 def release(torch, device, label: str, after: str) -> None:
     """Free what the last phase left (its models and caches are gone
     with its frame) and the allocator's cache; print the memory held."""
@@ -4497,6 +4716,8 @@ def main() -> int:
     train = phase_training(torch, device, args.seed)
     release(torch, device, "phase 13", "phase 12")
     ep = phase_ep(torch, device, args.seed)
+    release(torch, device, "phase 14", "phase 13")
+    dry = phase_dryrun(torch, device, args.seed)
     if device.type == "cuda":
         idle = [k for k, v in launches.items() if v == 0]
         if idle:
@@ -4511,6 +4732,8 @@ def main() -> int:
                      f"flash_attention_fwd: {got}")
         if not ep.get("flash_attention_fwd"):
             fail(f"phase 13 never launched flash_attention_fwd: {ep}")
+        if not dry.get("flash_attention_fwd"):
+            fail(f"phase 14 never launched flash_attention_fwd: {dry}")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
         if name in SQL_KERNELS:
@@ -4533,6 +4756,9 @@ def main() -> int:
         # phase 13's main paths (13a's generate, 13b's selection and steps,
         # 13c's card runs)
         rec["ep_launches"] = ep.get(name, 0)
+        # phase 14b's counted card runs (the Yi-9B prefill, the Qwen2.5-3B
+        # step)
+        rec["dry_launches"] = dry.get(name, 0)
     kernels["colscan"]["two_columns"]["launches"] = \
         sql["colscan.two_columns"]
     kernels["bitpack_decode"]["batched"]["launches"] = \

@@ -1351,7 +1351,8 @@ def probe_scan(torch, np) -> None:
     and spills."""
     import chip_smoke
     from repro_torch.kernels import _build, colscan as kc, dictdecode as kd
-    hbm = chip_smoke.HBM_BYTES_PER_S
+    from repro_torch.launch.cost import H100
+    hbm = H100.hbm_bytes_per_s
     src = (_build.CSRC / "scan.cu").read_text()
     sources = {
         "scan_ts": patched(src, SCAN_STAMPS) + TIMESTAMP_READER,

@@ -36,6 +36,15 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
+def one_device(*tensors: torch.Tensor) -> None:
+    """Raises unless every tensor lies on one device (a fake
+    implementation's check: the dispatcher sends a meta and a CPU operand
+    to it together)."""
+    devices = {t.device for t in tensors}
+    if len(devices) > 1:
+        raise ValueError(f"kernel operands on mixed devices: {devices}")
+
+
 def check_cuda_operand(t: torch.Tensor, name: str, n: int = None) -> None:
     if t.dim() != 1:
         raise ValueError(f"{name} must be 1-D, got shape {tuple(t.shape)}")

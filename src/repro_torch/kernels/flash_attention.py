@@ -34,17 +34,26 @@ Both take each operand's batch, head and sequence strides, so a (B, S, H,
 hd) tensor seen through `.transpose(1, 2)` needs no copy; the output is
 allocated in q's layout.  On CPU tensors the wrapper runs
 `flash_attention_fwd_plain`, the masked softmax in float32 over the
-queries grouped by kv head.
+queries grouped by kv head.  The call is one operator,
+`torch.ops.repro_torch.flash_attention_fwd`, with an implementation for
+each of the CPU, CUDA and meta devices: a dispatch mode such as the dry
+run's cost counter (`launch/cost.CostCounter`) sees it once, and not the
+operations it runs inside; on meta tensors it makes the card's checks
+and returns the card's outputs, unwritten.  It is defined with
+`torch.library.Library`: `torch.library.custom_op` would import
+`torch._dynamo` at its first call (about 10 s on an H100 host, paid by a
+fresh server's first prefill).
 """
 
 from __future__ import annotations
 
 import math
+from typing import List
 
 import torch
 
 from . import _build
-from ._common import count_launch, on_cpu
+from ._common import count_launch, one_device
 
 LAUNCHES = {"flash_attention_fwd": 0}
 # launches per route (the tensor-core and the float32 SIMT kernel)
@@ -138,17 +147,41 @@ def _check_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, return_lse: bool = False):
-    if on_cpu(q, k, v):
-        return flash_attention_fwd_plain(q, k, v, causal, return_lse)
+    got = torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal,
+                                                    return_lse)
+    return (got[0], got[1]) if return_lse else got[0]
+
+
+def _outputs(q, k, v, return_lse: bool) -> List[torch.Tensor]:
+    """The card's checks, and its outputs allocated: o in q's layout when
+    dense, else contiguous, and the (B, H, S) log-sum-exp if asked."""
+    one_device(q, k, v)
     _check(q, k, v)
+    if flash_route(q.dtype, int(q.shape[3])) == "tensor_core":
+        _check_tma(q, k, v)
+    b, h, s = (int(x) for x in q.shape[:3])
+    return [torch.empty_like(q)] + (
+        [torch.empty((b, h, s), dtype=torch.float32, device=q.device)]
+        if return_lse else [])
+
+
+def _plain_op(q, k, v, causal: bool, return_lse: bool) -> List[torch.Tensor]:
+    """The CPU's [o] or [o, lse]: the plain version, o in q's layout as
+    the kernel writes it."""
+    one_device(q, k, v)
+    got = flash_attention_fwd_plain(q, k, v, causal, return_lse)
+    o = got[0] if return_lse else got
+    return [torch.empty_like(q).copy_(o)] + ([got[1]] if return_lse else [])
+
+
+def _launch_op(q, k, v, causal: bool, return_lse: bool
+               ) -> List[torch.Tensor]:
+    """The card's [o] or [o, lse]: one launch of csrc/flash.cu."""
+    outs = _outputs(q, k, v, return_lse)
+    out, lse = outs[0], (outs[1] if return_lse else None)
     b, h, s, hd = (int(x) for x in q.shape)
     kv, t = int(k.shape[1]), int(k.shape[2])
     route = flash_route(q.dtype, hd)
-    if route == "tensor_core":
-        _check_tma(q, k, v)
-    out = torch.empty_like(q)      # q's layout when dense, else contiguous
-    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-           if return_lse else None)
     rc = _build.kernel_fn("flash")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None, _build.dtype_code(q),
@@ -158,4 +191,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_launch("flash_attention_fwd", rc)
     count_launch(LAUNCHES, "flash_attention_fwd")
     count_launch(ROUTES, route)
-    return (out, lse) if return_lse else out
+    return outs
+
+
+def _meta_op(q, k, v, causal: bool, return_lse: bool) -> List[torch.Tensor]:
+    return _outputs(q, k, v, return_lse)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "bool return_lse) -> Tensor[]")
+_LIB.impl("flash_attention_fwd", _plain_op, "CPU")
+_LIB.impl("flash_attention_fwd", _launch_op, "CUDA")
+_LIB.impl("flash_attention_fwd", _meta_op, "Meta")

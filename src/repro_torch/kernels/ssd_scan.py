@@ -38,7 +38,14 @@ n)` and counted in `ROUTES`:
   elements, and the wrapper raises on anything else rather than copy.
 - `simt`: float32, and bfloat16 at any other P, N <= 128, run the
   float32 FMA kernel on the CUDA cores.
-On CPU tensors it runs `ssd_scan_plain`, which is `ssd_chunked`.
+On CPU tensors it runs `ssd_scan_plain`, which is `ssd_chunked`.  The
+call is one operator, `torch.ops.repro_torch.ssd_scan`, whatever number
+of launches it makes, with an implementation for each of the CPU, CUDA
+and meta devices (`torch.library.Library`, as kernel 11's): a dispatch
+mode such as the dry run's cost counter (`launch/cost.CostCounter`) sees
+it once, and not the operations it runs inside; on meta tensors it takes
+the card's path, checks included, and returns its outputs unwritten in
+place of each launch.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from ._common import count_launch, on_cpu
+from ._common import count_launch, one_device
 
 LAUNCHES = {"ssd_scan": 0}
 # launches per route (the tensor-core and the float32 SIMT kernel)
@@ -138,6 +145,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, chunk: int = 128,
              d: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return torch.ops.repro_torch.ssd_scan(x, dt, a, b, c, chunk, d)
+
+
+def _plain_op(x, dt, a, b, c, chunk: int, d
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CPU's (y, state): the plain version, both dense as the kernel
+    writes them."""
+    one_device(x, dt, a, b, c, *(() if d is None else (d,)))
+    _check_groups(x, b, c, chunk)
+    y, state = ssd_scan_plain(x, dt, a, b, c, chunk, d)
+    return y.contiguous(), state.contiguous()
+
+
+def _launch_op(x, dt, a, b, c, chunk: int, d
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _scan(x, dt, a, b, c, chunk, d, launch=True)
+
+
+def _meta_op(x, dt, a, b, c, chunk: int, d
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _scan(x, dt, a, b, c, chunk, d, launch=False)
+
+
+def _check_groups(x, b, c, chunk: int) -> None:
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     grouped = b.dim() == 4
@@ -146,27 +177,35 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_scan takes b, c (B, S, G, N) with G dividing "
                          f"x's H; got x {tuple(x.shape)}, b "
                          f"{tuple(b.shape)}, c {tuple(c.shape)}")
-    operands = (x, dt, a, b, c) + ((d,) if d is not None else ())
-    if on_cpu(*operands):
-        return ssd_scan_plain(x, dt, a, b, c, chunk, d)
-    if not grouped:
-        return _launch(x, dt, a, b, c, d)
+
+
+def _scan(x, dt, a, b, c, chunk: int, d, launch: bool
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The card's path: one launch a group of heads (none without
+    `launch`: the outputs unwritten)."""
+    one_device(x, dt, a, b, c, *(() if d is None else (d,)))
+    _check_groups(x, b, c, chunk)
+    if b.dim() == 3:
+        return _launch(x, dt, a, b, c, d, launch)
     g, h = int(b.shape[2]), int(x.shape[2])
     if g == 1:
-        return _launch(x, dt, a, b[:, :, 0], c[:, :, 0], d)
+        return _launch(x, dt, a, b[:, :, 0], c[:, :, 0], d, launch)
     hg = h // g
     # dt (B, S, H) -> (G, B, S, H / G): each group's columns contiguous
     dtg = dt.unflatten(2, (g, hg)).movedim(2, 0).contiguous()
     outs = [_launch(x[:, :, k * hg:(k + 1) * hg], dtg[k],
                     a[k * hg:(k + 1) * hg], b[:, :, k], c[:, :, k],
-                    d[k * hg:(k + 1) * hg] if d is not None else None)
+                    d[k * hg:(k + 1) * hg] if d is not None else None,
+                    launch)
             for k in range(g)]
     return (torch.cat([y for y, _ in outs], 2),
             torch.cat([st for _, st in outs], 1))
 
 
-def _launch(x, dt, a, b, c, d) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One kernel launch: b and c (B, S, N), one group."""
+def _launch(x, dt, a, b, c, d, launch: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch: b and c (B, S, N), one group (its outputs
+    unwritten without `launch`)."""
     _check(x, dt, a, b, c, d)
     bsz, s, h, p = (int(v) for v in x.shape)
     n = int(b.shape[2])
@@ -176,6 +215,8 @@ def _launch(x, dt, a, b, c, d) -> Tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32,
                         device=x.device)
+    if not launch:
+        return y, state
     rc = _build.kernel_fn("ssd")(
         x.data_ptr(), _build.dtype_code(x), _ROUTE_CODES[route], x.stride(0),
         x.stride(1), dt.data_ptr(), a.data_ptr(),
@@ -186,3 +227,11 @@ def _launch(x, dt, a, b, c, d) -> Tuple[torch.Tensor, torch.Tensor]:
     count_launch(LAUNCHES, "ssd_scan")
     count_launch(ROUTES, route)
     return y, state
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, "
+            "int chunk, Tensor? d) -> (Tensor, Tensor)")
+_LIB.impl("ssd_scan", _plain_op, "CPU")
+_LIB.impl("ssd_scan", _launch_op, "CUDA")
+_LIB.impl("ssd_scan", _meta_op, "Meta")

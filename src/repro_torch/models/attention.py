@@ -49,7 +49,8 @@ import torch
 from torch import nn
 
 from . import flash as fl
-from .common import _param, apply_rope, dense_init, matmul, rmsnorm
+from .common import (_param, apply_rope, dense_init, matmul, named_scope,
+                     rmsnorm)
 
 NEG_INF = -1e30
 
@@ -180,6 +181,7 @@ def attention_route(impl: str, scores_dtype: str, t: int,
     return "bf16" if scores_dtype == "bf16" else "exact"
 
 
+@named_scope("attention")
 def self_attention(p: GQA, x: torch.Tensor, positions: torch.Tensor,
                    n_heads: int, n_kv: int, head_dim: int, rope_theta: float,
                    causal: bool = True, return_kv: bool = False,
@@ -213,6 +215,7 @@ def self_attention(p: GQA, x: torch.Tensor, positions: torch.Tensor,
     return y
 
 
+@named_scope("attention")
 def decode_attention(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cur_len: int, n_heads: int,
                      n_kv: int, head_dim: int, rope_theta: float):
@@ -263,6 +266,7 @@ def quantize_kv(x: torch.Tensor):
     return q, sc[..., 0].to(torch.bfloat16)
 
 
+@named_scope("attention")
 def decode_attention_q8(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
                         k_scale: torch.Tensor, cache_v: torch.Tensor,
                         v_scale: torch.Tensor, cur_len: int, n_heads: int,

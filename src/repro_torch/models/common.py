@@ -13,6 +13,7 @@ the reference's training losses.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -20,6 +21,42 @@ import torch
 import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+
+def cost_counter():
+    """The innermost active cost counter (`launch/cost.CostCounter`, a
+    dispatch mode), or None: what `named_scope` and `exchange` report
+    to."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "counts_cost", False):
+            return mode
+    return None
+
+
+def named_scope(name: str):
+    """The reference's `jax.named_scope(name)` around a function: under a
+    cost counter (`launch/cost.CostCounter`) the function's operations,
+    and those of its backward, count under `name`; without one the
+    function runs as it is."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            counter = cost_counter()
+            if counter is None:
+                return fn(*args, **kwargs)
+            return counter.scoped(name, fn, args, kwargs)
+        return run
+    return wrap
+
+
+def exchange(tensors, n: int) -> None:
+    """Report an all-to-all among n mesh slots whose results are
+    `tensors` to the active cost counter (the exchange itself is the
+    caller's `Tensor.to`, a no-op between slots of one device)."""
+    counter = cost_counter()
+    if counter is not None:
+        counter.collective("all-to-all", list(tensors), n)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:

@@ -296,10 +296,11 @@ def build_model(cfg: ModelConfig, device=None,
                 generator: Optional[torch.Generator] = None) -> LM:
     """A model of `cfg` with the reference's init distributions, drawn on
     `device` (default: the card) from `generator` (default: seed 0 on that
-    device)."""
+    device).  On the meta device (the dry run) nothing is drawn and no
+    generator is made."""
     check_ported(cfg)
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
         return LM(cfg, dev, generator)
@@ -525,6 +526,7 @@ def _decoder_full(cfg: ModelConfig, model: LM, x, positions,
     has one, then the stacked `layers` (each a block for `_remat`)."""
     a, b = _cache_names(cfg)
     opts = _attn_opts(cfg)
+    keep_stats = stats is not None
     if _first_dense(cfg):
         lp = model.layer0
         kv = (None, None) if caches is None else (caches["k0"],
@@ -538,8 +540,12 @@ def _decoder_full(cfg: ModelConfig, model: LM, x, positions,
 
         def block(x, lp=lp, kv=kv, scales=scales):
             # the layer's statistics in a list of its own: a recomputation
-            # under `_remat` appends to a fresh one, which is dropped
-            st = [] if stats is not None else None
+            # under `_remat` appends to a fresh one, which is dropped.  The
+            # block must not hold `stats` itself: the statistics' autograd
+            # graph keeps `_remat`'s checkpoint, and so this closure, alive,
+            # a cycle through C++ that the garbage collector cannot see
+            # (it kept a trained model's every parameter after its release)
+            st = [] if keep_stats else None
             y = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.ffn, x,
                                positions, *kv, stats=st, opts=opts,
                                scales=scales)

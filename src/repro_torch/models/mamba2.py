@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from .common import _param, dense_init, normal, rmsnorm
+from .common import _param, dense_init, named_scope, normal, rmsnorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +213,7 @@ def ssd_scan(x, dt, a, b, c, chunk: int, d):
     return ops.ssd_scan(x, dt, a, b, c, chunk, d=d)
 
 
+@named_scope("mamba")
 def mamba2_forward(p: Mamba2, x: torch.Tensor, d_model: int, cfg: SSMConfig,
                    return_state: bool = False):
     """Full-sequence Mamba2 block (prefill).  x: (B,S,D).  With
@@ -243,6 +244,7 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     return out
 
 
+@named_scope("mamba")
 def mamba2_decode(p: Mamba2, x: torch.Tensor, ssm_state: torch.Tensor,
                   conv_state: torch.Tensor, d_model: int, cfg: SSMConfig):
     """Single-token step.  x: (B,1,D); ssm_state: (B,H,P,N) fp32;

@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from ..parallel.compat import get_abstract_mesh
-from .common import _param, normal, swiglu
+from .common import _param, exchange, named_scope, normal, swiglu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +134,14 @@ def _combine(out_buf, flat_e, slot, keep, topw, k: int) -> torch.Tensor:
     return weighted.reshape(-1, k, out_buf.shape[-1]).sum(dim=1)
 
 
+def _expert_load(flat_e: torch.Tensor, e: int) -> torch.Tensor:
+    """Assignments per expert, (E,) float32: the reference's bincount of
+    length E, as an int64 scatter-add, which needs no host read of the
+    largest id (so it runs on the meta device too)."""
+    return torch.zeros(e, dtype=torch.int64, device=flat_e.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e)).float()
+
+
 def _shared(p: MoE, x: torch.Tensor, cfg: MoEConfig, y: torch.Tensor):
     """y plus the shared experts over the whole x, where there are any."""
     if cfg.n_shared == 0:
@@ -144,6 +152,7 @@ def _shared(p: MoE, x: torch.Tensor, cfg: MoEConfig, y: torch.Tensor):
     return y + sh.reshape(b, s, d)
 
 
+@named_scope("moe")
 def moe_apply(p: MoE, x: torch.Tensor, cfg: MoEConfig,
               return_stats: bool = False, dropless: bool = False):
     """x: (B, S, D) -> (B, S, D).  Permutation dispatch with capacity drop.
@@ -170,7 +179,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: MoEConfig,
 
     if not return_stats:
         return y
-    load = torch.bincount(flat_e, minlength=e).float()          # per expert
+    load = _expert_load(flat_e, e)
     frac_dropped = 1.0 - keep.sum() / (t * k)
     entropy = -torch.mean(torch.sum(gates * torch.log(gates + 1e-9), -1))
     return y, {"expert_load": load, "frac_dropped": frac_dropped,
@@ -212,6 +221,7 @@ def ep_layout(shape, cfg: MoEConfig):
     return slots[:, :, 0], b // nb, s // ep, cap_src
 
 
+@named_scope("moe")
 def moe_apply_ep(p: MoE, x: torch.Tensor, cfg: MoEConfig,
                  return_stats: bool = False):
     """Expert-parallel MoE: the reference's `moe_apply_ep` over the active
@@ -256,6 +266,7 @@ def moe_apply_ep(p: MoE, x: torch.Tensor, cfg: MoEConfig,
             send = _dispatch(xf, flat_e, slot, keep, e, cap, k)
             sends.append(send.reshape(ep, e_loc, cap, d))
             routes.append((flat_e, slot, keep, topw))
+        exchange(sends, ep)
         # slot j: its experts over every source's chunk j, in source order
         outs = []
         for j in range(ep):
@@ -266,6 +277,7 @@ def moe_apply_ep(p: MoE, x: torch.Tensor, cfg: MoEConfig,
             out = swiglu(buf, p.w_gate[w].to(dev), p.w_up[w].to(dev),
                          p.w_down[w].to(dev))
             outs.append(out.reshape(e_loc, ep, cap, d).transpose(0, 1))
+        exchange(outs, ep)
         # and back: source slot src takes chunk src of every expert slot
         row = []
         for src in range(ep):
@@ -280,8 +292,7 @@ def moe_apply_ep(p: MoE, x: torch.Tensor, cfg: MoEConfig,
         return y
     _, _, topi = _route(x.reshape(-1, d), p.router, k)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return y, {"expert_load": torch.bincount(topi.reshape(-1),
-                                             minlength=e).float(),
+    return y, {"expert_load": _expert_load(topi.reshape(-1), e),
                "frac_dropped": zero, "router_entropy": zero.clone()}
 
 

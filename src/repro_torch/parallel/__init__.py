@@ -6,7 +6,10 @@ The reference's `sharding.py` (`act_shard`, `maybe_shard`,
 `filter_spec`, `batch_spec`) has no counterpart.  Its helpers only
 constrain where XLA places a tensor over a mesh; they change no function
 the model computes, and the port places a tensor where it computes it.
-The one module that reads the mesh is `models/moe.moe_apply_ep`.
+So the pod meshes' per-device costs that the reference's dry run reads
+from GSPMD's partitioned program stay out of the port's dry run too
+(`launch/dryrun.py` counts one card's program).  The one module that
+reads the mesh is `models/moe.moe_apply_ep`.
 """
 
 from .compat import (Mesh, current_axis_sizes, get_abstract_mesh, make_mesh,

@@ -43,6 +43,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.checkpoint, repro_torch.data\n"
         "import repro_torch.launch.train, repro_torch.launch.mesh\n"
         "import repro_torch.parallel, repro_torch.parallel.compat\n"
+        "import repro_torch.launch.cost, repro_torch.launch.specs\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "print(bad)")
@@ -130,6 +132,20 @@ def test_server_without_device_needs_a_card():
     if out == "card":
         pytest.skip("a CUDA device is present")
     assert out == "raised 0"
+
+
+def test_dry_run_needs_no_card_and_no_reference():
+    """The dry run counts a full-size cell on the meta device: it runs
+    without a card and imports neither JAX nor the reference, while the
+    model's entry points still mean the card without `device=`."""
+    out = _run(
+        "import sys, torch\n"
+        "from repro_torch.launch.dryrun import cell_record\n"
+        "rec = cell_record('mamba2-370m', 'long_500k')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
+        "or m.startswith(('jax.', 'repro.')))\n"
+        "print(bad, rec['device'], rec['fits'], torch.cuda.is_available())")
+    assert out in ("[] meta True False", "[] meta True True")
 
 
 def test_model_without_device_needs_a_card():

@@ -289,3 +289,29 @@ def test_router_statistics_are_collected_per_layer():
     assert abs(total - float(aux)) < 1e-6
     for st in stats:
         assert float(st["expert_load"].sum()) == B * S * cfg.moe.top_k
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b-smoke",
+                                  "deepseek-v2-lite-16b-smoke"])
+def test_moe_loss_leaves_nothing_alive(name, backward):
+    """A MoE model's training loss under remat frees the model once the
+    model and the loss are dropped, with or without its backward.  The
+    layers' statistics carry an autograd graph (`router_entropy`), whose
+    checkpoint must not hold a closure that holds the statistics: such a
+    cycle runs through autograd's C++ nodes, which the garbage collector
+    cannot see, and kept every parameter alive."""
+    import gc
+    import weakref
+    cfg = get_config(name)
+    model = lm.build_model(cfg, "cpu")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    refs = [weakref.ref(p) for p in model.parameters()]
+    toks = torch.zeros(2, 16, dtype=torch.int32)
+    loss = lm.loss_fn(cfg, model, {"tokens": toks, "labels": toks})
+    if backward:
+        loss.backward()
+    del model, loss, p
+    gc.collect()
+    assert [r for r in refs if r() is not None] == []
