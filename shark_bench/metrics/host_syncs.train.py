@@ -1,0 +1,9 @@
+"""host_syncs.train: the host's waits for the device a traced training step
+(`cudaStreamSynchronize`, `cudaDeviceSynchronize`,
+`cudaEventSynchronize` calls) that start inside the program's spans."""
+
+from shark_bench.metrics._spans import SYNC, count
+
+
+def read(rec):
+    return count(rec, "train", SYNC)

@@ -18,26 +18,9 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-import time as _time
-
 from .columnar import Partition
 from .expr import ColumnVal
 from .types import DType, Schema
-
-# Wall-clock spent on the exchange path, summed across worker threads
-# (plain dict adds under the GIL — diagnostics, not exact accounting):
-#   hash     — shuffle key hashing / join-key materialization,
-#   decode   — map-side raw-string materialization (legacy exchange only),
-#   assemble — reduce-side piece assembly (concat + dictionary unification).
-# benchmarks/shuffle_bench.py resets and reads these to price the exchange
-# separately from the (shared) scan/aggregate work around it.
-EXCHANGE_TIMERS = {"hash": 0.0, "decode": 0.0, "assemble": 0.0}
-
-
-def reset_exchange_timers() -> None:
-    for k in EXCHANGE_TIMERS:
-        EXCHANGE_TIMERS[k] = 0.0
-
 
 def merge_string_dicts(dicts: Sequence[np.ndarray]
                        ) -> "tuple[np.ndarray, List[np.ndarray]]":
@@ -126,14 +109,12 @@ class PartitionBatch:
         """Replace dictionary-coded strings with raw string arrays — the
         LEGACY exchange's map-side step (exchange="decoded"); the
         dictionary-preserving exchange never calls this."""
-        t0 = _time.perf_counter()
         out = {}
         for n, v in self.cols.items():
             if v.is_string:
                 out[n] = ColumnVal(v.decoded(), None)
             else:
                 out[n] = v
-        EXCHANGE_TIMERS["decode"] += _time.perf_counter() - t0
         return PartitionBatch(out)
 
     @staticmethod
@@ -183,7 +164,6 @@ class PartitionBatch:
             # unify (a lone unsorted-dict column still needs the remap below
             # so downstream code-space grouping sees one code per value)
             return batches[0]
-        t0 = _time.perf_counter()
         names = batches[0].names()
         sizes = [b.num_rows for b in batches]
         total = int(sum(sizes))
@@ -229,7 +209,6 @@ class PartitionBatch:
                 for a, lo, hi in zip(arrs, offsets, offsets[1:]):
                     merged[lo:hi] = a
                 out[n] = ColumnVal(merged)
-        EXCHANGE_TIMERS["assemble"] += _time.perf_counter() - t0
         return PartitionBatch(out)
 
     @staticmethod

@@ -133,20 +133,13 @@ def _key_arrays(lbatch: PartitionBatch, rbatch: PartitionBatch,
     """Join keys comparable across the two sides.  String keys stay codes:
     both sides remap into the union of their (small) dictionaries, so no row
     ever materializes a string."""
-    import time
-
-    from .batch import EXCHANGE_TIMERS
-    t0 = time.perf_counter()
     lv, rv = lbatch.col(lkey), rbatch.col(rkey)
     if lv.is_string and rv.is_string:
         _, (lmap, rmap) = merge_string_dicts([lv.sdict, rv.sdict])
-        out = (lmap.astype(np.int64)[np.asarray(lv.arr)],
-               rmap.astype(np.int64)[np.asarray(rv.arr)])
-        EXCHANGE_TIMERS["hash"] += time.perf_counter() - t0
-        return out
+        return (lmap.astype(np.int64)[np.asarray(lv.arr)],
+                rmap.astype(np.int64)[np.asarray(rv.arr)])
     lk = lv.decoded() if lv.is_string else np.asarray(lv.arr)
     rk = rv.decoded() if rv.is_string else np.asarray(rv.arr)
-    EXCHANGE_TIMERS["hash"] += time.perf_counter() - t0
     return lk, rk
 
 

@@ -152,37 +152,27 @@ def _kernel_device(kernel):
 
 def bucket_by_hash(key: str, num_buckets: int, kernel=None
                    ) -> Callable[[PartitionBatch], Partition]:
-    from .batch import EXCHANGE_TIMERS
     device = _kernel_device(kernel)
 
     def partitioner(batch: PartitionBatch) -> np.ndarray:
-        import time
-        t0 = time.perf_counter()
         k = _row_keys(batch, key)
-        out = (split_keys(k, num_buckets, device) if device is not None
-               else _mix_mod(k, num_buckets))
-        EXCHANGE_TIMERS["hash"] += time.perf_counter() - t0
-        return out
+        return (split_keys(k, num_buckets, device) if device is not None
+                else _mix_mod(k, num_buckets))
     return partitioner
 
 
 def bucket_by_composite(keys: Sequence[str], num_buckets: int,
                         kernel=None
                         ) -> Callable[[PartitionBatch], Partition]:
-    from .batch import EXCHANGE_TIMERS
     device = _kernel_device(kernel)
 
     def partitioner(batch: PartitionBatch) -> np.ndarray:
-        import time
-        t0 = time.perf_counter()
         h = np.zeros(batch.num_rows, np.int64)
         for key in keys:
             k = _row_keys(batch, key)
             h = h * np.int64(1000003) + k
-        out = (split_keys(h, num_buckets, device) if device is not None
-               else _mix_mod(h, num_buckets))
-        EXCHANGE_TIMERS["hash"] += time.perf_counter() - t0
-        return out
+        return (split_keys(h, num_buckets, device) if device is not None
+                else _mix_mod(h, num_buckets))
     return partitioner
 
 

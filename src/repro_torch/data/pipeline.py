@@ -34,6 +34,7 @@ import numpy as np
 from ..core.columnar import Table
 from ..core.session import SharkSession
 from ..core.types import DType, Schema
+from ..spans import span
 
 
 def synthetic_corpus(session: SharkSession, name: str, vocab: int,
@@ -94,16 +95,18 @@ class TokenPipeline:
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
         """Deterministic batch: offsets drawn from a counter-based RNG keyed
-        by (seed, step) — replayable after restart, no cursor state."""
-        rng = np.random.default_rng(
-            np.random.SeedSequence(entropy=self.seed, spawn_key=(step,)))
-        n = len(self.stream) - self.seq_len - 1
-        offs = rng.integers(0, max(n, 1), self.global_batch)
-        toks = np.stack([self.stream[o:o + self.seq_len] for o in offs])
-        labels = np.stack([self.stream[o + 1:o + self.seq_len + 1]
-                           for o in offs])
-        return {"tokens": toks.astype(np.int32),
-                "labels": labels.astype(np.int32)}
+        by (seed, step) — replayable after restart, no cursor state.  Under
+        a profiler the draw is the span `repro_torch.data.batch`."""
+        with span("data.batch"):
+            rng = np.random.default_rng(
+                np.random.SeedSequence(entropy=self.seed, spawn_key=(step,)))
+            n = len(self.stream) - self.seq_len - 1
+            offs = rng.integers(0, max(n, 1), self.global_batch)
+            toks = np.stack([self.stream[o:o + self.seq_len] for o in offs])
+            labels = np.stack([self.stream[o + 1:o + self.seq_len + 1]
+                               for o in offs])
+            return {"tokens": toks.astype(np.int32),
+                    "labels": labels.astype(np.int32)}
 
     def manifest(self, step: int) -> Dict:
         return dataclasses.asdict(PipelineManifest(

@@ -6,7 +6,11 @@ moe: deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b; vlm:
 llama-3.2-vision-11b; encdec: whisper-base).  A vlm or encdec prefill
 takes its stub frontend output in `extra` (`image_embeds` or `frames`).
 It computes on the model's device (the card unless the model was built on
-the CPU); the sampled tokens stay there until the end."""
+the CPU); the sampled tokens stay there until the end.  Under a profiler
+`generate` records the spans `repro_torch.serve.prefill` (the prompt's
+upload, the prefill and the first sample), `repro_torch.serve.decode`
+(one a decode step, with its sample) and `repro_torch.serve.to_host`
+(`spans.py`)."""
 
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import lm
+from ..spans import span
 
 
 class ServeEngine:
@@ -45,18 +50,21 @@ class ServeEngine:
         if s + max_new_tokens > self.max_seq:
             raise ValueError(f"{s} prompt + {max_new_tokens} new tokens "
                              f"exceed max_seq={self.max_seq}")
-        tokens = torch.from_numpy(np.ascontiguousarray(prompt_tokens)).to(
-            self.device)
-        batch = {"tokens": tokens}
-        for k, v in (extra or {}).items():
-            batch[k] = torch.as_tensor(v).to(self.device)
-        logits, caches = lm.prefill_fn(self.cfg, self.model, batch,
-                                       max_seq=self.max_seq)
+        with span("serve.prefill"):
+            tokens = torch.from_numpy(
+                np.ascontiguousarray(prompt_tokens)).to(self.device)
+            batch = {"tokens": tokens}
+            for k, v in (extra or {}).items():
+                batch[k] = torch.as_tensor(v).to(self.device)
+            logits, caches = lm.prefill_fn(self.cfg, self.model, batch,
+                                           max_seq=self.max_seq)
+            tok = self._sample(logits)
         out = []
-        tok = self._sample(logits)
         for i in range(max_new_tokens):
             out.append(tok)
-            logits, caches = lm.decode_fn(self.cfg, self.model, tok[:, None],
-                                          caches, s + i)
-            tok = self._sample(logits)
-        return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+            with span("serve.decode"):
+                logits, caches = lm.decode_fn(self.cfg, self.model,
+                                              tok[:, None], caches, s + i)
+                tok = self._sample(logits)
+        with span("serve.to_host"):
+            return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)

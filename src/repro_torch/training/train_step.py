@@ -11,6 +11,11 @@ gradients.  With microbatches > 1 the global batch splits along axis 0
 and the gradients accumulate in float32; the loss and gradients are the
 microbatches' means.  Metrics are the reference's: `loss`, `grad_norm`
 (before clipping) and `lr_scale` (`warmup_cosine` of the new step).
+
+Under a profiler the step records the spans `repro_torch.train.forward`
+and `repro_torch.train.backward` (once a microbatch) and
+`repro_torch.train.optimizer` (the schedule, the global norm, the clip
+and the update; `spans.py`).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import lm
+from ..spans import span
 from .optim import AdamWConfig, adamw_update
 from .schedule import warmup_cosine
 
@@ -35,8 +41,10 @@ def _trainable(model) -> Dict[str, torch.Tensor]:
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
                     microbatches: int = 1):
     def grads_of(model, params, batch):
-        loss = lm.loss_fn(cfg, model, batch)
-        gs = torch.autograd.grad(loss, list(params.values()))
+        with span("train.forward"):
+            loss = lm.loss_fn(cfg, model, batch)
+        with span("train.backward"):
+            gs = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, gs))
 
     def train_step(model, opt_state, batch):
@@ -63,10 +71,11 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
             loss = loss / microbatches
             for gi in grads.values():
                 gi /= microbatches
-        lr_scale = warmup_cosine(opt_state["step"] + 1)
-        _, opt_state, gnorm = adamw_update(
-            opt, grads, {n: p.data for n, p in params.items()}, opt_state,
-            lr_scale)
+        with span("train.optimizer"):
+            lr_scale = warmup_cosine(opt_state["step"] + 1)
+            _, opt_state, gnorm = adamw_update(
+                opt, grads, {n: p.data for n, p in params.items()},
+                opt_state, lr_scale)
         return model, opt_state, {"loss": loss, "grad_norm": gnorm,
                                   "lr_scale": lr_scale}
 
