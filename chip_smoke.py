@@ -239,17 +239,21 @@ tokens/s, a forward and AdamW alone, peak memory, a torch.profiler trace
 of one warm step, and the main path's launches (the selection and the
 steps: kernel 11 in every forward and in each block's recomputation).
 12d: Mamba2-370m whole (0.42 B) the same way, 8 x 2,048 a step, kernel
-12.  12e: `qwen2.5-3b-smoke` on the card, checkpointed asynchronously
+12 forward and backward.  12e: `qwen2.5-3b-smoke` on the card, checkpointed asynchronously
 after 3 of 8 steps into a temporary directory, a simulated preemption,
 the model and optimizer restored into fresh objects and the steps from
 the manifest's step replayed: losses within rel 1e-3 of the
 uninterrupted run's (no deterministic algorithms are set).  Phase 1 also
 holds kernel 11's log-sum-exp output (what the backward reads) against
 its plain version on both routes, times the kernel with it, and times
-the plain-torch backwards of kernels 11 and 12 at the timed shapes.  The
+the plain-torch backwards of kernels 11 and 12 at the timed shapes, and
+kernel 12's backward kernel (`ssd_scan_bwd`) beside the plain VJP at the
+table's shape and at the training cell's (16 x 2,048, 32 heads of 64,
+state 128): ms, graphed device ms, bound, plain ms, and each gradient's
+largest relative error against the float32 VJP (`SSD_BWD_BOUNDS`).  The
 `kernels` line gives every kernel its phase-12 launches as
 `train_launches`, and the run fails if 12b launched no flash or 12d no
-SSD scan.
+SSD scan or no SSD backward.
 
 Phase 13 (after phase 12, whose models it releases first) runs expert
 parallelism (`moe_impl="ep_shardmap"`, `models/moe.moe_apply_ep`) on
@@ -2752,6 +2756,77 @@ SSD_HEADS, SSD_P, SSD_N, SSD_CHUNK = 64, 112, 64, 256
 BF16_STEP = 2.0 ** -7            # one bfloat16 rounding step, relative
 
 
+# kernel 12's backward against the float32 plain VJP, relative to its
+# largest value, per gradient (dx, ddt, da, db, dc, dd): dx, dB and dC are
+# bf16, one step (the kernel rounds once, half a step; the CPU
+# rehearsal's plain VJP rounds dx's two paths apart and adds them in
+# bf16), the rest stay float32
+SSD_BWD_NAMES = ("dx", "ddt", "da", "db", "dc", "dd")
+SSD_BWD_BOUNDS = (2.0 ** -7, 1e-3, 1e-3, 2.0 ** -7, 2.0 ** -7, 1e-4)
+# Mamba2-370m's training shape in the benchmark's cell: 16 x 2,048 tokens,
+# 32 heads of 64, state 128
+SSD_CELL = (16, 2048, 32, 64, 128)
+
+
+def ssd_bwd_timings(torch, device, timer, rng, cut: int) -> dict:
+    """Kernel 12's backward (`ssd_scan_bwd`, csrc/ssd_bwd.cu on the card)
+    beside the plain VJP (`ssd_scan_vjp`) at the table's shape and at the
+    training cell's, bf16 x, B, C as the in-projection's slices: ms,
+    graphed device ms, the bound by `ssd_bwd_cost`, the plain VJP's ms,
+    and each gradient's largest relative error against the float32 plain
+    VJP.  The CPU rehearsal cuts batch and heads by `cut` and times one
+    call."""
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.launch.cost import ssd_bwd_cost
+    from repro_torch.models import mamba2 as mm2
+    import torch.nn.functional as F
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def t(shape, dt=f32):
+        return torch.from_numpy(rng.normal(size=shape)).to(device).to(dt)
+    out = {}
+    for name, (b, s, h, p, n) in (
+            ("table", (LM_BATCH, LM_SEQ, SSD_HEADS, SSD_P, SSD_N)),
+            ("cell", SSD_CELL)):
+        b, h = max(1, b // cut), max(1, h // cut)
+        xbc = t((b, s, h * p + 2 * n), bf16)
+        x = xbc[..., :h * p].reshape(b, s, h, p)
+        bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+        dtt = F.softplus(t((b, s, h)))
+        a = -torch.exp(t((h,)))
+        d = t((h,))
+        dy, ds = t((b, s, h, p), bf16), t((b, h, p, n))
+        kern = lambda: ks.ssd_scan_bwd(  # noqa: E731
+            x, dtt, a, bm, cm, d, SSD_CHUNK, dy, ds)
+        plain = lambda: mm2.ssd_scan_vjp(  # noqa: E731
+            x, dtt, a, bm, cm, d, SSD_CHUNK, dy, ds)
+        want = mm2.ssd_scan_vjp(x.float(), dtt, a, bm.float(), cm.float(), d,
+                                SSD_CHUNK, dy.float(), ds)
+        errs = {k: float((g.float() - w).abs().max() / w.abs().max())
+                for k, g, w in zip(SSD_BWD_NAMES, kern(), want)}
+        del want
+        over = {k: e for (k, e), lim in zip(errs.items(), SSD_BWD_BOUNDS)
+                if not e <= lim}
+        if over:
+            fail(f"ssd backward at {(b, s, h, p, n)} beyond its bounds "
+                 f"{SSD_BWD_BOUNDS}: {over}")
+        b_ms, b_by = bound(*ssd_bwd_cost(b, s, h, p, n, 2), "bfloat16")
+        out[name] = {
+            "shape": [b, s, h, p, n],
+            "route": (ks.ssd_bwd_route(bf16, p, n) if device.type == "cuda"
+                      else "plain (cpu)"),
+            "ms": timer(kern, reps=10 if cut == 1 else 1,
+                        warmup=2 if cut == 1 else 0),
+            "device_ms": timer.graphed(kern, calls=3, replays=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": timer(plain, reps=2 if cut == 1 else 1,
+                              warmup=1 if cut == 1 else 0),
+            "max_rel_err": errs}
+    print(f"phase 1: kernel 12's backward beside the plain VJP (ms, max rel "
+          f"err against the float32 VJP): {json.dumps(out)}", flush=True)
+    return out
+
+
 def phase_kernels_lm(torch, device, seed: int) -> dict:
     """The flash and SSD kernels against their plain versions on the device,
     at Zamba2's prefill shapes, at Mamba2-370m's SSD head geometry, at a
@@ -2987,6 +3062,7 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
     del res, om, lse, d_o, dy, dstate
     print(f"phase 1: plain-torch backwards at the timed shapes (ms): "
           f"{json.dumps(backward)}", flush=True)
+    ssd_bwd = ssd_bwd_timings(torch, dev, timer, rng, cut)
     if device.type == "cuda":
         one_kernel("bf16 ssd_scan", cases["ssd_scan"][0])
         one_kernel("bf16 GQA flash_attention_fwd (32 heads over 4)",
@@ -3017,8 +3093,10 @@ def phase_kernels_lm(torch, device, seed: int) -> dict:
         backward_ms={"exact": backward["flash_exact_ms"],
                      "flash": backward["flash_flash_ms"]},
         backward_route="plain torch")
-    out["ssd_scan"].update(backward_ms=backward["ssd_ms"],
-                           backward_route="plain torch")
+    out["ssd_scan"].update(backward_ms=ssd_bwd["table"]["ms"],
+                           backward_route=ssd_bwd["table"]["route"],
+                           backward_plain_ms=backward["ssd_ms"],
+                           backward=ssd_bwd)
     # the library yardstick groups k/v itself where the installed torch
     # takes `enable_gqa`; else it is timed on k/v repeated beforehand
     sdpa_gqa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -4106,9 +4184,11 @@ def phase_training(torch, device, seed: int) -> dict:
         cfg = get_config(arch if cuda else arch + "-smoke")
         got = train_model(torch, device, seed, label, cfg,
                           batch if cuda else 1, trace)
-        kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention_fwd"
-        if cuda and not got.get(kernel):
-            fail(f"{label}: training never launched {kernel}: {got}")
+        kernels = (("ssd_scan", "ssd_scan_bwd") if cfg.family == "ssm"
+                   else ("flash_attention_fwd",))
+        for kernel in kernels:
+            if cuda and not got.get(kernel):
+                fail(f"{label}: training never launched {kernel}: {got}")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         free()

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("scan", "group", "radix", "decode", "train", "topk", "flash",
-           "ssd")
+           "ssd", "ssd_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -53,6 +53,15 @@ SIGNATURES = {
     "ssd": ("shark_ssd_scan",
             [_vp, _i, _i, _ll, _ll, _vp, _vp, _vp, _vp, _ll, _ll, _vp, _ll,
              _ll, _i, _i, _i, _i, _i, _vp, _vp, _vp]),
+    # x, dy, dt (each with batch and sequence strides), a, d, b, c (with
+    # strides), dstate (batch stride), B, S, H, P, N, dx, ddt (with
+    # strides), the da and dD partials (batch stride), dB, dC (with
+    # strides), the scratch and the stream
+    "ssd_bwd": ("shark_ssd_scan_bwd",
+                [_vp, _ll, _ll, _vp, _ll, _ll, _vp, _ll, _ll, _vp, _vp,
+                 _vp, _ll, _ll, _vp, _ll, _ll, _vp, _ll, _i, _i, _i, _i, _i,
+                 _vp, _ll, _ll, _vp, _ll, _ll, _vp, _vp, _ll, _vp, _ll, _ll,
+                 _vp, _ll, _ll, _vp, _vp]),
 }
 
 LIBRARY = {"bitpack": "decode", "topk_fused": "topk"}

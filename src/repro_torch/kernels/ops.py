@@ -38,6 +38,7 @@ KERNEL_MODULES = {
     "train_grad": _tg,
     "flash_attention_fwd": _fa,
     "ssd_scan": _ssd,
+    "ssd_scan_bwd": _ssd,
 }
 
 
@@ -146,6 +147,14 @@ def ssd_scan(x, dt, a, b, c, chunk: int = 128, d=None):
     `d` is given), final_state (B, H, P, N) float32 (every Mamba2
     prefill)."""
     return _ssd.ssd_scan(x, dt, a, b, c, chunk, d)
+
+
+def ssd_scan_bwd(x, dt, a, b, c, d, chunk: int, dy, dstate):
+    """The SSD scan's gradients (dx, ddt, da, db, dc, dd) given dy and
+    dstate, those of y and the final state (every Mamba2 training step's
+    backward): kernel 12's backward for bf16 at a (P, N) the kernels are
+    compiled for, the plain VJP otherwise."""
+    return _ssd.ssd_scan_bwd(x, dt, a, b, c, d, chunk, dy, dstate)
 
 
 # -- double-buffered kernel dispatch (DESIGN.md §14) --------------------

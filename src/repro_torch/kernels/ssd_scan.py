@@ -46,6 +46,22 @@ mode such as the dry run's cost counter (`launch/cost.CostCounter`) sees
 it once, and not the operations it runs inside; on meta tensors it takes
 the card's path, checks included, and returns its outputs unwritten in
 place of each launch.
+
+Backward: `ssd_scan_bwd(x, dt, a, b, c, d, chunk, dy, dstate)` returns
+the gradients (dx, ddt, da, db, dc, dd) of the scan at the same inputs,
+given dy and dstate, those of y and the final state; one operator,
+`torch.ops.repro_torch.ssd_scan_bwd`, with CPU, CUDA and meta
+implementations.  Two routes, chosen by `ssd_bwd_route(dtype, p, n)` and
+counted in `BWD_ROUTES` on the card:
+- `tensor_core`: bfloat16 at a (P, N) of `TC_SHAPES` launches
+  `csrc/ssd_bwd.cu` once a group (its design note is in the source): dx
+  in x's dtype, ddt, and each (batch, head)'s da and dD, which the wrapper
+  sums over the batch; dB and dC summed over the group's heads in float32
+  by atomics, cast once to b's dtype.  The wrapper allocates the outputs
+  and the kernel's scratch (the chunk states, B H (ceil(S / 64) - 1) 2 N P
+  bf16) and counts `LAUNCHES["ssd_scan_bwd"]`;
+- `plain`: float32 and every other shape run `models/mamba2.ssd_scan_vjp`
+  (the plain scan recomputed under autograd), as the CPU always does.
 """
 
 from __future__ import annotations
@@ -57,12 +73,16 @@ import torch
 from . import _build
 from ._common import count_launch, one_device
 
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 # launches per route (the tensor-core and the float32 SIMT kernel)
 ROUTES = {"tensor_core": 0, "simt": 0}
+# backward calls on the card per route (the tensor-core kernel and the
+# plain VJP)
+BWD_ROUTES = {"tensor_core": 0, "plain": 0}
 _ROUTE_CODES = {"simt": 0, "tensor_core": 1}
 MAX_STATE = 128         # N, the kernels' shared-memory tiles
 MAX_HEADDIM = 128       # P
+_TILE = 64              # rows a chunk in both kernels
 # (P, N) the tensor-core kernel is compiled for: Zamba2-7B, Mamba2-370m and
 # their smoke variants (csrc/ssd.cu's launch_tc instantiations).  A new
 # configuration adds its (P, N) here and there; a CPU test fails until it
@@ -79,6 +99,14 @@ def ssd_route(dtype: torch.dtype, p: int, n: int) -> str:
                          f"1 <= N <= {MAX_STATE}; got P={p}, N={n}")
     return ("tensor_core" if dtype == torch.bfloat16 and (p, n) in TC_SHAPES
             else "simt")
+
+
+def ssd_bwd_route(dtype: torch.dtype, p: int, n: int) -> str:
+    """The backward a CUDA call takes: `tensor_core` for bfloat16 at a
+    (P, N) of `TC_SHAPES` (csrc/ssd_bwd.cu is compiled for the forward's
+    shapes), `plain` for float32 and any other shape."""
+    return ("tensor_core" if dtype == torch.bfloat16 and (p, n) in TC_SHAPES
+            else "plain")
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -229,9 +257,109 @@ def _launch(x, dt, a, b, c, d, launch: bool
     return y, state
 
 
+# ---------------------------------------------------------------- backward
+
+def ssd_scan_bwd(x, dt, a, b, c, d, chunk: int, dy, dstate):
+    return torch.ops.repro_torch.ssd_scan_bwd(x, dt, a, b, c, d, chunk, dy,
+                                              dstate)
+
+
+# the dispatch keys of code outside any operator: under a dispatch mode
+# (the cost counter's) an implementation runs below autograd, and the plain
+# VJP records its own graph
+_PLAIN_KEYS = (torch._C._dispatch_tls_local_include_set(),
+               torch._C._dispatch_tls_local_exclude_set())
+
+
+def _bwd_plain_op(x, dt, a, b, c, d, chunk: int, dy, dstate):
+    """The CPU's gradients: `ssd_scan_vjp`."""
+    from ..models.mamba2 import ssd_scan_vjp
+    one_device(x, dt, a, b, c, d, dy, dstate)
+    with torch._C._ForceDispatchKeyGuard(*_PLAIN_KEYS):
+        return ssd_scan_vjp(x, dt, a, b, c, d, chunk, dy, dstate)
+
+
+def _bwd_launch_op(x, dt, a, b, c, d, chunk: int, dy, dstate):
+    if ssd_bwd_route(x.dtype, int(x.shape[3]), int(b.shape[-1])) == "plain":
+        out = _bwd_plain_op(x, dt, a, b, c, d, chunk, dy, dstate)
+        count_launch(BWD_ROUTES, "plain")
+        return out
+    return _bwd(x, dt, a, b, c, d, chunk, dy, dstate, launch=True)
+
+
+def _bwd_meta_op(x, dt, a, b, c, d, chunk: int, dy, dstate):
+    if ssd_bwd_route(x.dtype, int(x.shape[3]), int(b.shape[-1])) == "plain":
+        one_device(x, dt, a, b, c, d, dy, dstate)
+        _check_groups(x, b, c, chunk)
+        return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                     for t in (x, dt, a, b, c, d))
+    return _bwd(x, dt, a, b, c, d, chunk, dy, dstate, launch=False)
+
+
+def _bwd(x, dt, a, b, c, d, chunk: int, dy, dstate, launch: bool):
+    """The card's `tensor_core` path: one launch a group of heads (none
+    without `launch`: the outputs unwritten)."""
+    one_device(x, dt, a, b, c, d, dy, dstate)
+    _check_groups(x, b, c, chunk)
+    bsz, s, h, p = (int(v) for v in x.shape)
+    bg, cg = (b, c) if b.dim() == 4 else (b[:, :, None], c[:, :, None])
+    g, n = int(bg.shape[2]), int(bg.shape[3])
+    hg = h // g
+    if dy.shape != x.shape or dy.dtype != x.dtype \
+            or dstate.shape != (bsz, h, p, n) or dstate.dtype != torch.float32:
+        raise ValueError(f"ssd_scan_bwd takes dy like x {tuple(x.shape)} "
+                         f"and a float32 dstate (B, H, P, N); got "
+                         f"{tuple(dy.shape)} {dy.dtype}, "
+                         f"{tuple(dstate.shape)} {dstate.dtype}")
+    for k in range(g):
+        _check(x, dt, a, bg[:, :, k], cg[:, :, k], d)
+        _check_tc(x, bg[:, :, k], cg[:, :, k])
+    # dense (H, P) rows of 16-byte aligned groups: cp.async's rules hold
+    dy, dstate = dy.contiguous(), dstate.contiguous()
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((bsz, s, h), dtype=f32, device=dev)
+    # each (batch, head)'s da and dD, summed over the batch below
+    parts = torch.empty((2, bsz, h), dtype=f32, device=dev)
+    db = torch.zeros((bsz, s, g, n), dtype=f32, device=dev)
+    dc = torch.zeros((bsz, s, g, n), dtype=f32, device=dev)
+    chunks = -(-s // _TILE)
+    scratch = torch.empty(bsz * hg * (chunks - 1) * 2 * n * p,
+                          dtype=torch.bfloat16, device=dev)
+    if launch:
+        fn = _build.kernel_fn("ssd_bwd")
+        stream = _build.stream_handle(dev)
+        for k in range(g):
+            h0 = k * hg
+            rc = fn(x[:, :, h0:].data_ptr(), x.stride(0), x.stride(1),
+                    dy[:, :, h0:].data_ptr(), dy.stride(0), dy.stride(1),
+                    dt[:, :, h0:].data_ptr(), dt.stride(0), dt.stride(1),
+                    a[h0:].data_ptr(), d[h0:].data_ptr(),
+                    bg[:, :, k].data_ptr(), bg.stride(0), bg.stride(1),
+                    cg[:, :, k].data_ptr(), cg.stride(0), cg.stride(1),
+                    dstate[:, h0:].data_ptr(), dstate.stride(0), bsz, s, hg,
+                    p, n, dx[:, :, h0:].data_ptr(), dx.stride(0), dx.stride(1),
+                    ddt[:, :, h0:].data_ptr(), ddt.stride(0), ddt.stride(1),
+                    parts[0, :, h0:].data_ptr(), parts[1, :, h0:].data_ptr(),
+                    h, db[:, :, k].data_ptr(), db.stride(0), db.stride(1),
+                    dc[:, :, k].data_ptr(), dc.stride(0), dc.stride(1),
+                    scratch.data_ptr(), stream)
+            _build.check_launch("ssd_scan_bwd", rc)
+            count_launch(LAUNCHES, "ssd_scan_bwd")
+        count_launch(BWD_ROUTES, "tensor_core")
+    return (dx, ddt, parts[0].sum(0), db.to(b.dtype).reshape(b.shape),
+            dc.to(c.dtype).reshape(c.shape), parts[1].sum(0))
+
+
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
 _LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, "
             "int chunk, Tensor? d) -> (Tensor, Tensor)")
 _LIB.impl("ssd_scan", _plain_op, "CPU")
 _LIB.impl("ssd_scan", _launch_op, "CUDA")
 _LIB.impl("ssd_scan", _meta_op, "Meta")
+_LIB.define("ssd_scan_bwd(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, "
+            "Tensor d, int chunk, Tensor dy, Tensor dstate) -> (Tensor, "
+            "Tensor, Tensor, Tensor, Tensor, Tensor)")
+_LIB.impl("ssd_scan_bwd", _bwd_plain_op, "CPU")
+_LIB.impl("ssd_scan_bwd", _bwd_launch_op, "CUDA")
+_LIB.impl("ssd_scan_bwd", _bwd_meta_op, "Meta")

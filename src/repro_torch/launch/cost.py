@@ -34,9 +34,11 @@ Per operation (first order, as `hlo_cost.py` counts):
     result_bytes (n - 1) / n, summed over the slots, in the forward and
     again in the backward.
 
-The two LM kernels count as one operation each (`kernel_calls`), with the
-bytes and FLOPs of their formulas (`flash_cost`, `ssd_cost`) on the route
-the card takes: each wrapper call is one operator
+The LM kernels count as one operation each (`kernel_calls`), with the
+bytes and FLOPs of their formulas (`flash_cost`, `ssd_cost`, and
+`ssd_bwd_cost` for the SSD scan's backward, whose `plain` route, the
+float32 VJP, is counted by the kernel's formula at float32's peak) on the
+route the card takes: each wrapper call is one operator
 (`torch.ops.repro_torch.*`, with an implementation for each device), so
 the counter sees it once, and whatever it runs inside (its output
 allocations on the card, the plain version on the CPU, the empty outputs
@@ -77,7 +79,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from ..kernels.flash_attention import flash_route
-from ..kernels.ssd_scan import ssd_route
+from ..kernels.ssd_scan import ssd_bwd_route, ssd_route
 
 # the SSD kernels walk the sequence in tiles of 64 rows (csrc/ssd.cu)
 SSD_TILE = 64
@@ -163,6 +165,20 @@ def ssd_cost(b, s, h, p, n, itemsize, groups: int = 1):
     return nbytes, flops
 
 
+def ssd_bwd_cost(b, s, h, p, n, itemsize, groups: int = 1):
+    """(bytes, flops) of the SSD scan's backward with 64-row tiles: x, dy
+    and dx (x's dtype), B, C, dB and dC (`groups` a row), dt and ddt, and
+    the float32 dstate each moved once, a and d read, da and dD written;
+    per row and head the causal halves of C B^T, dy x^T, dG B, dG^T C and
+    M^T dy, and five N x P products (the rebuilt state, B dh^T, x dh,
+    dy h and dh's update)."""
+    nbytes = (3.0 * b * s * h * p + 4.0 * b * s * groups * n) * itemsize \
+        + 8.0 * b * s * h + 4.0 * b * h * p * n + 16.0 * h
+    flops = 2.0 * b * s * h * (SSD_TILE / 2 * (3.0 * n + 2.0 * p)
+                               + 5.0 * n * p)
+    return nbytes, flops
+
+
 def _flash_call(q, k, v, causal, return_lse):
     b, h, s, hd = (int(x) for x in q.shape)
     kv, t = int(k.shape[1]), int(k.shape[2])
@@ -179,14 +195,24 @@ def _ssd_call(x, dt, a, b, c, chunk, d):
             *ssd_cost(bsz, s, h, p, n, x.element_size(), groups))
 
 
+def _ssd_bwd_call(x, dt, a, b, c, d, chunk, dy, dstate):
+    bsz, s, h, p = (int(v) for v in x.shape)
+    n = int(b.shape[-1])
+    groups = int(b.shape[2]) if b.dim() == 4 else 1
+    return (ssd_bwd_route(x.dtype, p, n),
+            *ssd_bwd_cost(bsz, s, h, p, n, x.element_size(), groups))
+
+
 # a kernel's operator name -> (route, bytes, flops) of one call, from its
 # arguments
 KERNEL_COSTS: Dict[str, Callable] = {"flash_attention_fwd": _flash_call,
-                                     "ssd_scan": _ssd_call}
+                                     "ssd_scan": _ssd_call,
+                                     "ssd_scan_bwd": _ssd_bwd_call}
 # the namespace of the kernels' operators
 KERNEL_NAMESPACE = "repro_torch"
 # the dtype whose peak bounds a kernel route's operations
-ROUTE_DTYPES = {"tensor_core": "bfloat16", "simt": "float32"}
+ROUTE_DTYPES = {"tensor_core": "bfloat16", "simt": "float32",
+                "plain": "float32"}
 
 
 # ---------------------------------------------------------------------------

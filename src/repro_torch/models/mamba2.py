@@ -3,7 +3,10 @@
 Prefill and training run the SSD scan through `kernels.ops.ssd_scan`: the
 hand-written kernel (`kernels/csrc/ssd.cu`, one launch per B/C group) on
 the card, `ssd_chunked` on the CPU; when autograd records, through
-`SSDScan`, whose backward differentiates `ssd_chunked` (plain torch).
+`SSDScan`, whose backward is `kernels.ops.ssd_scan_bwd`: the hand-written
+backward (`kernels/csrc/ssd_bwd.cu`) for bf16 on the card, and on the CPU
+and for float32 `ssd_scan_vjp`, which differentiates `ssd_chunked` (plain
+torch).
 `ssd_chunked` is the chunked algorithm of the reference: within a chunk a
 masked (attention-like) matmul, across chunks a recurrence on the
 (H, P, N) state.  Decode is the linear recurrence
@@ -181,10 +184,12 @@ def ssd_scan_vjp(x, dt, a, b, c, d, chunk: int, dy, dstate):
 
 
 class SSDScan(torch.autograd.Function):
-    """Kernel 12 (`kernels.ops.ssd_scan`) forward; the backward is
-    `ssd_scan_vjp`: the reference trains Mamba2 through autodiff of its
-    `ssd_chunked` and has no Pallas backward, so the port's backward is
-    plain PyTorch by design."""
+    """Kernel 12 (`kernels.ops.ssd_scan`) forward and backward
+    (`kernels.ops.ssd_scan_bwd`).  The reference trains Mamba2 through
+    autodiff of its `ssd_chunked` and has no Pallas backward: the port's
+    backward is a hand-written kernel for bf16 at the kernels' (P, N) on
+    the card, and `ssd_scan_vjp` (plain PyTorch) for float32, other shapes
+    and the CPU."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, chunk: int, d):
@@ -196,8 +201,8 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dstate):
         x, dt, a, b, c, d = ctx.saved_tensors
-        gx, gdt, ga, gb, gc, gd = ssd_scan_vjp(x, dt, a, b, c, d, ctx.chunk,
-                                               dy, dstate)
+        gx, gdt, ga, gb, gc, gd = ops.ssd_scan_bwd(x, dt, a, b, c, d,
+                                                   ctx.chunk, dy, dstate)
         out = (gx, gdt, ga, gb, gc, None, gd)
         return tuple(g if need else None
                      for g, need in zip(out, ctx.needs_input_grad))

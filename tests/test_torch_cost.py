@@ -289,6 +289,38 @@ def test_ssd_wrapper_counts_one_kernel_op(device, dtype, route, grouped):
     assert state.shape == (2, 4, 16, 16) and state.dtype == torch.float32
 
 
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
+                                         (torch.float32, "plain")])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_ssd_bwd_wrapper_counts_one_kernel_op(device, dtype, route, grouped):
+    """The backward is one operation by `ssd_bwd_cost` on the card's
+    route (the plain VJP's products below the counter on the CPU, the
+    empty outputs on meta)."""
+    x, dt, a, bm, cm, chunk, d = _ssd_inputs(device, dtype, grouped)
+    dy = _randn(*x.shape, device=device, dtype=dtype, seed=3)
+    ds = _randn(2, 4, 16, 16, device=device, seed=4)
+    c, grads = _count(ks.ssd_scan_bwd, x, dt, a, bm, cm, d, chunk, dy, ds,
+                      device=device)
+    prog = c.analyze()["program"]
+    assert c.ops == 1 and dict(c.op_counts) == {"ssd_scan_bwd": 1}
+    assert prog["kernel_calls"] == {"ssd_scan_bwd": {route: 1}}
+    nbytes, flops = cost.ssd_bwd_cost(2, 48, 4, 16, 16, x.element_size())
+    assert prog["traffic_bytes"] == nbytes
+    assert prog["dot_flops_by_dtype"] == {cost.ROUTE_DTYPES[route]: flops}
+    assert [(g.shape, g.dtype) for g in grads] == [
+        (t.shape, t.dtype) for t in (x, dt, a, bm, cm, d)]
+
+
+def test_ssd_bwd_cost_at_the_cells_shape():
+    """Mamba2-370m's training shape (16 x 2,048, 32 heads of 64, N 128):
+    0.46 GB and 120 GFLOP, bound by bytes at 0.138 ms on the H100."""
+    nbytes, flops = cost.ssd_bwd_cost(16, 2048, 32, 64, 128, 2)
+    assert round(nbytes / 1e9, 2) == 0.46 and round(flops / 1e9) == 120
+    ms, by = cost.H100.bound_ms(nbytes, flops, "bfloat16")
+    assert round(ms, 3) == 0.138 and by == "bytes"
+
+
 def test_kernel_op_has_its_scope_and_backward():
     """Under autograd, kernel 11's forward counts in `attention`, and the
     plain backward's products in `attention_bwd`."""

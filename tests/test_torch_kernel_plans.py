@@ -433,6 +433,104 @@ def test_ssd_groups_are_the_one_group_scans_of_their_heads():
         torch.testing.assert_close(st[:, hs], sk, rtol=1e-5, atol=1e-5)
 
 
+# -- the SSD scan's backward ------------------------------------------------
+
+
+@pytest.mark.parametrize("p,n", sorted(tss.TC_SHAPES))
+def test_ssd_bwd_route_bf16_config_shapes_take_tensor_cores(p, n):
+    assert tss.ssd_bwd_route(torch.bfloat16, p, n) == "tensor_core"
+
+
+@pytest.mark.parametrize("dtype,p,n", [
+    (torch.float32, 64, 128), (torch.float32, 112, 64),
+    (torch.float32, 16, 16), (torch.bfloat16, 64, 64),
+    (torch.bfloat16, 48, 40), (torch.bfloat16, 256, 128)])
+def test_ssd_bwd_route_float32_and_other_shapes_take_plain(dtype, p, n):
+    """float32 at any shape and bf16 outside TC_SHAPES (a P past the
+    forward kernels' 128 too) take the plain VJP: nothing raises."""
+    assert tss.ssd_bwd_route(dtype, p, n) == "plain"
+
+
+def test_ssd_bwd_kernel_is_compiled_at_every_tc_shape():
+    """csrc/ssd_bwd.cu's instantiations (`launch<P, N>` in its entry
+    point) are the forward's TC_SHAPES: a configuration that adds its
+    (P, N) to one adds it to the other."""
+    import re
+    source = (_build.CSRC / "ssd_bwd.cu").read_text()
+    got = {(int(p), int(n))
+           for p, n in re.findall(r"return launch<(\d+), (\d+)>", source)}
+    assert got == tss.TC_SHAPES
+    assert "ssd_fwd" not in source
+
+
+def test_ssd_bwd_signature_passes_pointers_and_strides_wide():
+    """shark_ssd_scan_bwd's pointers (x, dy, dt, a, d, b, c, dstate, dx,
+    ddt, da, dd, db, dc, scratch, stream) are c_void_p and its strides
+    c_longlong; the five sizes B, S, H, P, N are ints."""
+    args = _build.SIGNATURES["ssd_bwd"][1]
+    ct = _build.ctypes
+    assert len(args) == 41
+    assert [i for i, t in enumerate(args) if t is ct.c_void_p] == [
+        0, 3, 6, 9, 10, 11, 14, 17, 24, 27, 30, 31, 33, 36, 39, 40]
+    assert [i for i, t in enumerate(args) if t is ct.c_int] == [
+        19, 20, 21, 22, 23]
+    assert "ssd_bwd" in _build.SOURCES
+
+
+def _ssd_bwd_args(dtype, g, device="cpu"):
+    rng = np.random.default_rng(5)
+    b, s, h, p, n = 2, 37, 4, 16, 16
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape)).float().to(device)
+    x, dy = t(b, s, h, p).to(dtype), t(b, s, h, p).to(dtype)
+    bm, cm = t(b, s, g, n).to(dtype), t(b, s, g, n).to(dtype)
+    dt = torch.nn.functional.softplus(t(b, s, h))
+    return (x, dt, -torch.exp(t(h)), bm, cm, t(h), 16, dy, t(b, h, p, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_bwd_cpu_is_the_plain_vjp_bit_for_bit(dtype, g):
+    """The CPU implementation is `ssd_scan_vjp`, unchanged: the same
+    gradients bit for bit, and no launch or route counted."""
+    from repro_torch.models.mamba2 import ssd_scan_vjp
+    args = _ssd_bwd_args(dtype, g)
+    routes, launches = dict(tss.BWD_ROUTES), dict(tss.LAUNCHES)
+    got = tss.ssd_scan_bwd(*args)
+    assert tss.BWD_ROUTES == routes and tss.LAUNCHES == launches
+    want = ssd_scan_vjp(*args)
+    assert len(got) == 6
+    for u, v in zip(got, want):
+        assert u.dtype == v.dtype and torch.equal(u, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_bwd_meta_returns_the_six_shapes_and_dtypes(dtype, g):
+    """On meta both routes return (dx, ddt, da, db, dc, dd) unwritten in
+    the inputs' shapes and dtypes, as the CPU's gradients are."""
+    args = _ssd_bwd_args(dtype, g)
+    want = tss.ssd_scan_bwd(*args)
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    got = tss.ssd_scan_bwd(*meta)
+    assert [(tuple(t.shape), t.dtype, t.device.type) for t in got] == [
+        (tuple(t.shape), t.dtype, "meta") for t in want]
+
+
+def test_ssd_bwd_meta_runs_the_cards_checks():
+    """The tensor-core route's checks hold on meta: a B off cp.async's
+    16 bytes and a dstate of the wrong shape raise."""
+    x, dt, a, bm, cm, d, chunk, dy, ds = (
+        t.to("meta") if isinstance(t, torch.Tensor) else t
+        for t in _ssd_bwd_args(torch.bfloat16, 1))
+    wide = torch.zeros(2, 37, 1, 17, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="stride"):
+        tss.ssd_scan_bwd(x, dt, a, wide[..., :16], cm, d, chunk, dy, ds)
+    with pytest.raises(ValueError, match="dstate"):
+        tss.ssd_scan_bwd(x, dt, a, bm, cm, d, chunk, dy, ds[:, :2])
+
+
 def test_ssd_groups_must_divide_the_heads():
     x = torch.zeros(1, 5, 3, 16)
     bm = torch.zeros(1, 5, 2, 16)

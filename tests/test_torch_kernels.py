@@ -467,8 +467,10 @@ def test_wrappers_count_only_kernel_launches():
     xs = x.float().reshape(1, 10, 1, 1)
     tops.ssd_scan(xs, xs[..., 0].abs(), -x[:1].float(), xs[..., 0],
                   xs[..., 0], 4)
+    tops.ssd_scan_bwd(xs, xs[..., 0].abs(), -x[:1].float(), xs[..., 0],
+                      xs[..., 0], x[:1].float(), 4, xs, xs[:, :1, :, :1])
     counts = tops.launch_counts()
-    assert len(counts) == 12 and set(counts.values()) == {0}
+    assert len(counts) == 13 and set(counts.values()) == {0}
 
 
 def test_mixed_devices_raise():
