@@ -2,7 +2,8 @@
 
 Everything a cell is comes from files found by name: the cell's entry in
 `BENCHMARK.json` (its configuration, traffic and chips), the configuration
-(`configs/<config>.json`), the traffic mix (`traffic/<traffic>.json`, whose
+(`configs/<config>.json`) and its family (`families/<family>.py`,
+`reference/<family>.py`), the traffic mix (`traffic/<traffic>.json`, whose
 `kind` names the kind), the kind (`kinds/<kind>.py`: its generator, its run,
 its reference check and its controls), the cell's limits
 (`workloads/<cell>.json`), and one reader a per-layer metric
@@ -18,7 +19,6 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import json
 import math
 import sys
@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from . import trace
-from .spec import Spec, load_spec
+from .spec import Spec, found, load_spec
 
 HERE = Path(__file__).resolve().parent
 
@@ -53,7 +53,8 @@ def load_cell(root: Path, name: str, bench_dir: Path = HERE) -> Cell:
     if not entries:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     entry = entries[0]
-    spec = load_spec(bench_dir / "configs" / f"{entry['config']}.json")
+    spec = load_spec(bench_dir / "configs" / f"{entry['config']}.json",
+                     bench_dir)
     traffic = json.loads(
         (bench_dir / "traffic" / f"{entry['traffic']}.json").read_text())
     limits = json.loads(
@@ -91,24 +92,14 @@ def cell_metrics(cell: Cell, section: str) -> List[dict]:
             and ("workloads" in m or m["moves"] in moves)]
 
 
-def _module(path: Path, prefix: str):
-    name = prefix + path.stem.replace(".", "_").replace("-", "_")
-    mod_spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod
-
-
 def read_metric(name: str, rec: Record, bench_dir: Path = HERE):
     """The reader `metrics/<name>.py`'s value of the record, or None."""
-    return _module(bench_dir / "metrics" / f"{name}.py",
-                   "shark_bench_metric_").read(rec)
+    return found(bench_dir, "metrics", name).read(rec)
 
 
 def kind_of(cell: Cell):
     """The module `kinds/<kind>.py` of the cell's traffic."""
-    return _module(cell.bench_dir / "kinds" / f"{cell.traffic['kind']}.py",
-                   "shark_bench_kind_")
+    return found(cell.bench_dir, "kinds", cell.traffic["kind"])
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,7 @@ kernel's share of its roofline in a traced window."""
 from __future__ import annotations
 
 from shark_bench import yardstick
+from shark_bench.spec import family
 
 
 def mfu(rec, kind: str, flops) -> "float | None":
@@ -15,19 +16,21 @@ def mfu(rec, kind: str, flops) -> "float | None":
     return 100.0 * total / (rec.window_s * yardstick.PEAK_FLOPS)
 
 
-def mixer_roofline(rec, kind: str, family: str, pattern) -> "float | None":
-    """The least time of every layer's mixer forward in the traced window's
-    steps or batches (one forward a layer each), over the device time of
-    the kernels whose names match `pattern`, in percent."""
-    if (rec.kind != kind or rec.spec.family != family or rec.trace is None
-            or not rec.traced_work):
+def roofline(rec, kind: str, kernel: str, pattern) -> "float | None":
+    """The least time of the work the configuration's family charges to
+    `kernel` (`kernels` in `families/<family>.py`: calls and cost of each
+    call in a pass over a traced step's or batch's shape), over the device
+    time of the kernels whose names match `pattern`, in percent."""
+    if rec.kind != kind or rec.trace is None or not rec.traced_work:
+        return None
+    work = [family(rec.spec).kernels(rec.spec, b, s)
+            for b, s in rec.traced_work]
+    if kernel not in work[0]:
         return None
     launches, us = rec.trace.kernel_us(pattern)
     if launches == 0 or us <= 0:
         return None
-    least = sum(rec.spec.n_layers
-                * yardstick.bound_s(yardstick.mixer_cost(rec.spec, b, s))
-                for b, s in rec.traced_work)
+    least = sum(w[kernel][0] * yardstick.bound_s(w[kernel][1]) for w in work)
     return 100.0 * least / (us / 1e6)
 
 

@@ -5,11 +5,11 @@ implement it, matched by PATTERN."""
 
 import re
 
-from shark_bench.metrics._common import mixer_roofline
+from shark_bench.metrics._common import roofline
 
 # kernel 11's two routes (csrc/flash.cu: flash_fwd_tc, flash_fwd_simt)
 PATTERN = re.compile(r"flash_fwd")
 
 
 def read(rec):
-    return mixer_roofline(rec, "prefill", "dense", PATTERN)
+    return roofline(rec, "prefill", "flash_fwd", PATTERN)

@@ -4,11 +4,11 @@ matched by PATTERN."""
 
 import re
 
-from shark_bench.metrics._common import mixer_roofline
+from shark_bench.metrics._common import roofline
 
 # kernel 12's two routes (csrc/ssd.cu: ssd_fwd_tc, ssd_fwd)
 PATTERN = re.compile(r"ssd_fwd")
 
 
 def read(rec):
-    return mixer_roofline(rec, "prefill", "ssm", PATTERN)
+    return roofline(rec, "prefill", "ssd_fwd", PATTERN)

@@ -1,6 +1,8 @@
 """The one module of the benchmark that imports the program (`repro_torch`):
 the system under test, driven through its own entry points.
 
+- `model_config`: the program's configuration, from the settings the
+  configuration's family gives (`families/<family>.py`'s `program`);
 - `model`: the program's model of a configuration, given the benchmark's
   weights (`weights.load`);
 - `pipeline`: the corpus loaded into a `SharkSession` and the SQL-fed
@@ -14,43 +16,44 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import sys
 from typing import List
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.core import DType, Schema, SharkSession
 from repro_torch.data import TokenPipeline
 from repro_torch.models import lm
 from repro_torch.models.mamba2 import SSMConfig
+from repro_torch.models.moe import MoEConfig
 from repro_torch.serving import ServeEngine
 from repro_torch.serving import engine as _engine
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 
 from . import weights
-from .spec import Spec
+from .spec import Spec, family
+
+
+# the program's classes of the nested configurations a family's
+# `program(spec)` gives as dicts
+NESTED = {"ssm": SSMConfig, "moe": MoEConfig, "mla": MLAConfig}
 
 
 def model_config(spec: Spec) -> ModelConfig:
-    """The program's configuration of the published widths; its run-time
-    options are the program's defaults."""
-    if spec.family == "dense":
-        return ModelConfig(
-            name=spec.name, family="dense", n_layers=spec.n_layers,
-            d_model=spec.d_model, n_heads=spec.n_heads,
-            n_kv_heads=spec.n_kv_heads, d_ff=spec.d_ff, vocab=spec.vocab,
-            head_dim=spec.head_dim, norm="rms", mlp="swiglu",
-            qkv_bias=spec.qkv_bias, rope_theta=spec.rope_theta,
-            tie_embeddings=spec.tied)
-    return ModelConfig(
-        name=spec.name, family="ssm", n_layers=spec.n_layers,
-        d_model=spec.d_model, n_heads=0, n_kv_heads=0, d_ff=0,
-        vocab=spec.vocab, norm="rms", rope_theta=0.0,
-        tie_embeddings=spec.tied,
-        ssm=SSMConfig(d_state=spec.d_state, expand=spec.expand,
-                      headdim=spec.headdim, ngroups=spec.ngroups,
-                      d_conv=spec.d_conv, chunk=spec.chunk),
-        sub_quadratic=True)
+    """The program's configuration of the published widths: the keyword
+    values of the family's `program(spec)` that `ModelConfig` declares; its
+    run-time options are the program's defaults.  A value it does not
+    declare is left out, and named on standard error: the program then
+    departs from the configuration there."""
+    declared = {f.name for f in dataclasses.fields(ModelConfig)}
+    kw = family(spec).program(spec)
+    for k in sorted(set(kw) - declared):
+        print(f"shark_bench: the program's ModelConfig declares no {k!r}; "
+              f"{spec.name}'s {k}={kw[k]!r} is left out", file=sys.stderr,
+              flush=True)
+    return ModelConfig(**{k: NESTED[k](**v) if k in NESTED else v
+                          for k, v in kw.items() if k in declared})
 
 
 def model(spec: Spec, seed: int, device, cfg: ModelConfig = None):

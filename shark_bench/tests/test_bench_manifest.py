@@ -1,7 +1,8 @@
 """BENCHMARK.json against its required form; the files each entry names;
 that a run loads neither JAX nor the JAX package and the reference nothing
 of the program; that new cells, configurations, traffic and per-layer
-metrics are picked up as new files; and that the control fails the limits."""
+metrics, kinds and model families are picked up as new files; and that the
+control fails the limits."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import sys
 
 import pytest
 
-from conftest import BENCH, REPO, make_root, smoke_run
+from conftest import BENCH, REPO, make_root, smoke_cell, smoke_run
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -251,6 +252,67 @@ def test_new_kind_is_picked_up(tmp_path):
     assert out["checks"] == {"sum_gap": {"value": 0.0, "limit": 0.0}}
     traced = smoke_run(root, "qwen-smoke.ones-64", seconds=0.2, traced=True)
     assert traced["metrics"]["sums.ones"]["value"] >= 1
+    assert {p: p.read_bytes() for p in before} == before
+
+
+FAMILY = '''"""A family for the test: the dense decoder, its configuration's
+keys named as GPT-2's config.json names them, with full multi-head
+attention."""
+from shark_bench.families import dense
+
+Sizes = dense.Sizes
+leaves, mixer_cost, flops_per_token, kernels, program = (
+    dense.leaves, dense.mixer_cost, dense.flops_per_token, dense.kernels,
+    dense.program)
+
+
+def fields(c):
+    return dict(n_layers=c["n_layer"], d_model=c["n_embd"],
+                vocab=c["vocab_size"], tied=c["tie_word_embeddings"],
+                eps=c["layer_norm_epsilon"],
+                sizes=Sizes(n_heads=c["n_head"], n_kv_heads=c["n_head"],
+                            head_dim=c["n_embd"] // c["n_head"],
+                            d_ff=c["n_inner"], qkv_bias=False,
+                            rope_theta=c["rope_theta"]))
+'''
+
+
+def test_new_family_is_picked_up(tmp_path):
+    """A model family added as files (`families/<family>.py` and
+    `reference/<family>.py`), a configuration of it whose keys the harness
+    has never read, a cell and its entries: a training run is correct, and
+    no file of the harness is edited."""
+    root = make_root(tmp_path)
+    b = root / "shark_bench"
+    before = {p: p.read_bytes() for p in b.rglob("*.py")}
+    (b / "families/gpt.py").write_text(FAMILY)
+    (b / "reference/gpt.py").write_text(
+        "from shark_bench.reference.dense import block  # noqa: F401\n")
+    (b / "configs/gpt-smoke.json").write_text(json.dumps({
+        "name": "gpt-smoke", "family": "gpt", "n_layer": 2, "n_embd": 64,
+        "n_head": 4, "n_inner": 128, "vocab_size": 256,
+        "tie_word_embeddings": True, "layer_norm_epsilon": 1e-5,
+        "rope_theta": 10000.0, "reduced": []}))
+    (b / "workloads/gpt-smoke.train-smoke.json").write_text(json.dumps(
+        {"limits": json.loads((b / "workloads/qwen2.5-3b.train-4x2k-smoke"
+                                    ".json").read_text())["limits"]}))
+    man = json.loads((root / "BENCHMARK.json").read_text())
+    man["configs"].append({"name": "gpt-smoke", "source": "test",
+                           "file": "shark_bench/configs/gpt-smoke.json",
+                           "reduced": [], "why": "test"})
+    man["workloads"].append({"name": "gpt-smoke.train-smoke",
+                             "config": "gpt-smoke", "traffic": "train-smoke",
+                             "chips": 1, "why": "test"})
+    for e in man["end_to_end"]:
+        if e["name"] == "train_tokens_per_s":
+            e["workloads"].append("gpt-smoke.train-smoke")
+    (root / "BENCHMARK.json").write_text(json.dumps(man))
+    cell = smoke_cell(root, "gpt-smoke.train-smoke")
+    assert (cell.spec.family, cell.spec.n_layers, cell.spec.sizes.n_kv_heads,
+            cell.spec.tied) == ("gpt", 2, 4, True)
+    out = smoke_run(root, "gpt-smoke.train-smoke")
+    assert out["correct"], out["checks"]
+    assert set(out["metrics"]) == {"setup_s", "train_tokens_per_s"}
     assert {p: p.read_bytes() for p in before} == before
 
 

@@ -129,3 +129,42 @@ def test_kernel_patterns_match_the_kernels():
         pattern = re.search(r're\.compile\(r"([^"]+)"\)', src).group(1)
         assert re.search(pattern, names[kernel])
         assert not re.search(pattern, "ampere_bf16_s16816gemm")
+
+
+def test_ssd_bwd_cost_is_the_programs_at_the_cell_shape():
+    """The frozen copy reads as `launch/cost.ssd_bwd_cost` at the training
+    cell's shape (16 x 2,048 tokens, 32 heads of 64, state 128): 0.461 GB
+    and 120.3 GFLOP, bound by the bytes at 0.1377 ms."""
+    from repro_torch.launch import cost
+    m = mamba()
+    z = m.sizes
+    shape = (16, 2048, z.ssm_heads, z.headdim, z.d_state, 2, z.ngroups)
+    assert shape == (16, 2048, 32, 64, 128, 2, 1)
+    nbytes, flops = yardstick.ssd_bwd_cost(*shape)
+    assert (nbytes, flops) == cost.ssd_bwd_cost(*shape)
+    assert nbytes == pytest.approx(0.4614e9, rel=1e-3)
+    assert flops == pytest.approx(120.26e9, rel=1e-3)
+    assert yardstick.bound_s((nbytes, flops)) == pytest.approx(
+        0.1377e-3, rel=1e-3)
+
+
+def test_ssd_bwd_roofline_reads_the_backward_kernel():
+    """One backward a layer a traced step, over the time of the kernels
+    named ssd_bwd; nothing where the family has no SSD scan, or where the
+    backward ran no such kernel."""
+    m = mamba()
+    least_us = m.n_layers * yardstick.bound_s(yardstick.ssd_bwd_cost(
+        16, 2048, 32, 64, 128, 2)) * 1e6
+    ops = [("void (anonymous namespace)::ssd_bwd_tc<64, 128>(Args)", 0.0,
+            10 * least_us),
+           ("void (anonymous namespace)::ssd_fwd_tc<64, 128>(...)",
+            10 * least_us, 11 * least_us)]
+    rec = _record("train", m, ops, work=((16, 2048),))
+    assert bench.read_metric("ssd_bwd_roofline.train", rec) == \
+        pytest.approx(10.0)
+    assert bench.read_metric("ssd_bwd_roofline.train",
+                             _record("prefill", m, ops)) is None
+    assert bench.read_metric("ssd_bwd_roofline.train",
+                             _record("train", qwen(), ops)) is None
+    assert bench.read_metric("ssd_bwd_roofline.train",
+                             _record("train", m, ops[1:])) is None

@@ -13,12 +13,13 @@ The program's model gets these values (`load`); it never draws its own.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
 
-from .spec import Leaf, Spec, leaves
+from .spec import Leaf, Spec, family, leaves
 
 CHUNK = 1 << 28
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -29,14 +30,15 @@ def numel(leaf: Leaf) -> int:
 
 
 def chunks(spec: Spec) -> List[List[Leaf]]:
-    """The leaves of one dtype and one kind of draw (normal or uniform) in
-    their order, cut before a chunk would pass CHUNK elements (a leaf
+    """The leaves of one dtype and one kind of sample (normal or uniform)
+    in their order, cut before a chunk would pass CHUNK elements (a leaf
     larger than CHUNK is a chunk of its own)."""
     out: List[List[Leaf]] = []
     size = 0
-    for leaf in sorted(leaves(spec), key=_kind):
+    kind = functools.partial(_kind, _inits(spec))
+    for leaf in sorted(leaves(spec), key=kind):
         n = numel(leaf)
-        if (not out or _kind(out[-1][0]) != _kind(leaf)
+        if (not out or kind(out[-1][0]) != kind(leaf)
                 or size + n > CHUNK):
             out.append([])
             size = 0
@@ -45,42 +47,44 @@ def chunks(spec: Spec) -> List[List[Leaf]]:
     return out
 
 
-def _kind(leaf: Leaf) -> Tuple[str, bool]:
-    return leaf.dtype, leaf.init == "normal"
+def _inits(spec: Spec) -> dict:
+    """{init: (its sample, "normal" or "uniform"; the value from it)}:
+    norm weights, and the family's own (its `INITS`).  A "normal" leaf is
+    N(0, std^2)."""
+    return {"norm": ("uniform", lambda z: 0.8 + 0.4 * z),   # ~1
+            **getattr(family(spec), "INITS", {})}
+
+
+def _kind(inits: dict, leaf: Leaf) -> Tuple[str, bool]:
+    if leaf.init != "normal" and leaf.init not in inits:
+        raise ValueError(f"{leaf.name}: unknown init {leaf.init!r}")
+    return leaf.dtype, (leaf.init == "normal"
+                        or inits[leaf.init][0] == "normal")
 
 
 def _seed(seed: int, i: int) -> int:
     return (int(seed) * 1_000_003 + 7919 * i + 1) % (1 << 63)
 
 
-def _value(leaf: Leaf, z: torch.Tensor) -> torch.Tensor:
-    """A leaf's float32 value from its slice z: N(0, 1) draws for "normal"
-    leaves, U(0, 1) for the rest."""
+def _value(inits: dict, leaf: Leaf, z: torch.Tensor) -> torch.Tensor:
+    """A leaf's float32 value from its slice z of its sample."""
     if leaf.init == "normal":
         return z * leaf.std
-    if leaf.init == "norm":                   # norm weights and D: ~1
-        return 0.8 + 0.4 * z
-    if leaf.init == "conv_b":
-        return 0.2 * (z - 0.5)
-    if leaf.init == "A_log":                  # A = -exp(A_log) in [-16, -1]
-        return torch.log(1.0 + 15.0 * z)
-    if leaf.init == "dt_bias":                # softplus(dt_bias) in [1e-3, 0.1]
-        dt = torch.exp(math.log(1e-3) + z * (math.log(0.1) - math.log(1e-3)))
-        return dt + torch.log(-torch.expm1(-dt))
-    raise ValueError(f"{leaf.name}: unknown init {leaf.init!r}")
+    return inits[leaf.init][1](z)
 
 
-def draw_chunk(seed: int, i: int, group: List[Leaf], device
+def draw_chunk(spec: Spec, seed: int, i: int, group: List[Leaf], device
                ) -> Iterator[Tuple[Leaf, torch.Tensor]]:
     """(leaf, value in the leaf's dtype) for each leaf of chunk i."""
+    inits = _inits(spec)
     g = torch.Generator(device=device).manual_seed(_seed(seed, i))
-    draw = torch.randn if group[0].init == "normal" else torch.rand
+    draw = torch.randn if _kind(inits, group[0])[1] else torch.rand
     z = draw(sum(numel(l) for l in group), generator=g, device=device)
     off = 0
     for leaf in group:
         n = numel(leaf)
-        yield leaf, _value(leaf, z[off:off + n]).view(leaf.shape).to(
-            DTYPES[leaf.dtype])
+        yield leaf, _value(inits, leaf, z[off:off + n]).view(
+            leaf.shape).to(DTYPES[leaf.dtype])
         off += n
 
 
@@ -88,7 +92,7 @@ def each(spec: Spec, seed: int, device
          ) -> Iterator[Tuple[Leaf, torch.Tensor]]:
     """Every leaf with its starting value, chunk by chunk."""
     for i, group in enumerate(chunks(spec)):
-        yield from draw_chunk(seed, i, group, device)
+        yield from draw_chunk(spec, seed, i, group, device)
 
 
 def draw_all(spec: Spec, seed: int, device, dtype=None

@@ -1,12 +1,13 @@
 """The benchmark's frozen measures: the card's peaks, the work formulas of
-the two LM kernels and of a model step, and the arithmetic that turns a
+the LM kernels and of a model step, and the arithmetic that turns a
 device trace into busy time, idle gaps and the operations that took most.
 
 Copied, so that the program can change without moving the yardstick:
 - `PEAK_FLOPS`, `PEAK_BYTES_PER_S`: `repro_torch/launch/cost.py`'s `H100`
   (NVIDIA's H100 SXM data sheet, dense bf16 on the tensor cores, HBM3);
 - `flash_cost`, `ssd_cost`, `SSD_TILE`: `launch/cost.py` as of this
-  benchmark's first version;
+  benchmark's first version; `ssd_bwd_cost`: `launch/cost.py` as of the
+  hand-written SSD backward (kernel 12b);
 - `union`, `gaps`, `top_ops`: the arithmetic of `chip_smoke.traced()`
   (its busy time is the union of the device's kernel and copy spans).
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
-from .spec import Spec, conv_flops_per_token, head_params, matmul_params
+from .spec import Spec, family, head_params, matmul_params
 
 PEAK_FLOPS = 989e12          # bf16 dense, tensor cores
 PEAK_BYTES_PER_S = 3.35e12   # HBM3
@@ -47,6 +48,20 @@ def ssd_cost(b, s, h, p, n, itemsize, groups: int = 1):
     return nbytes, flops
 
 
+def ssd_bwd_cost(b, s, h, p, n, itemsize, groups: int = 1):
+    """(bytes, flops) of the SSD scan's backward with 64-row tiles: x, dy
+    and dx (x's dtype), B, C, dB and dC (`groups` a row), dt and ddt, and
+    the float32 dstate each moved once, a and d read, da and dD written;
+    per row and head the causal halves of C B^T, dy x^T, dG B, dG^T C and
+    M^T dy, and five N x P products (the rebuilt state, B dh^T, x dh,
+    dy h and dh's update)."""
+    nbytes = (3.0 * b * s * h * p + 4.0 * b * s * groups * n) * itemsize \
+        + 8.0 * b * s * h + 4.0 * b * h * p * n + 16.0 * h
+    flops = 2.0 * b * s * h * (SSD_TILE / 2 * (3.0 * n + 2.0 * p)
+                               + 5.0 * n * p)
+    return nbytes, flops
+
+
 def bound_s(cost: Tuple[float, float]) -> float:
     """The least time of work of (bytes, flops) on the card."""
     nbytes, flops = cost
@@ -59,24 +74,21 @@ def bound_s(cost: Tuple[float, float]) -> float:
 
 def mixer_cost(spec: Spec, b: int, s: int) -> Tuple[float, float]:
     """(bytes, flops) of one layer's sequence mixer in a forward over a
-    batch of b sequences of s tokens: causal attention (bf16 operands) or
-    the SSD scan."""
-    if spec.family == "dense":
-        return flash_cost(b, spec.n_heads, s, spec.head_dim, 2,
-                          kv=spec.n_kv_heads)
-    return ssd_cost(b, s, spec.ssm_heads, spec.headdim, spec.d_state, 2,
-                    spec.ngroups)
+    batch of b sequences of s tokens, as the configuration's family gives
+    it (`families/<family>.py`)."""
+    return family(spec).mixer_cost(spec, b, s)
 
 
 def forward_flops(spec: Spec, b: int, s: int, head_rows: int) -> float:
     """Model FLOPs of a forward over b x s tokens: 2 per matrix weight and
-    token in the layers, the head over `head_rows` rows, the convolution,
-    and each layer's mixer."""
+    token in the layers, the head over `head_rows` rows, the family's
+    further FLOPs a token and layer (Mamba2's convolution), and each
+    layer's mixer."""
     tokens = b * s
     layer_weights = matmul_params(spec) - head_params(spec)
     return (2.0 * layer_weights * tokens
             + 2.0 * head_params(spec) * head_rows
-            + conv_flops_per_token(spec) * spec.n_layers * tokens
+            + family(spec).flops_per_token(spec) * spec.n_layers * tokens
             + spec.n_layers * mixer_cost(spec, b, s)[1])
 
 
