@@ -2,8 +2,10 @@
 architectures (dense / MoE / MLA / SSM / hybrid / VLM / enc-dec).
 
 A copy of the reference's `repro/configs/base.py`, field for field, so the
-two registries compare equal; the port builds every family and option
-of a registered configuration (`models/lm.build_model`)."""
+two registries compare equal, with a few fields of the port's own whose
+defaults compute what the reference computes (`MLAConfig.rope_theta`, and
+`MoEConfig`'s router and share settings); the port builds every family
+and option of a registered configuration (`models/lm.build_model`)."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ class MLAConfig:
     nope_dim: int = 128
     rope_dim: int = 64
     v_dim: int = 128
+    rope_theta: float = 10000.0      # the RoPE part's angle base
 
 
 @dataclasses.dataclass(frozen=True)

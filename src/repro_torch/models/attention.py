@@ -35,7 +35,10 @@ decompresses K and V per KV chunk inside its online-softmax loop, so the
 full (S, H, nope + v) tensors never exist, and the decode scores the
 query against the compressed cache (c_kv, k_rope) with W_uk absorbed
 into the query and W_uv applied after the weighting.  Its RoPE angle base
-is 10000.0, whatever the config's `rope_theta`, as in the reference.
+is `MLAConfig.rope_theta`, 10000.0 unless a configuration says otherwise
+(Moonlight-16B-A3B: 50000.0), whatever the config's `rope_theta`, as in
+the reference.  A prefill or training pass of MLA runs inside the span
+`attn.mla` (`spans.py`).
 `quantize_kv` and `decode_attention_q8` are the int8 KV cache
 (`kv_cache_quant`), plain torch as in the reference.
 """
@@ -48,6 +51,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..spans import span
 from . import flash as fl
 from .common import (_param, apply_rope, dense_init, matmul, named_scope,
                      rmsnorm)
@@ -397,22 +401,25 @@ class MLA(nn.Module):
 
 
 def _mla_qkv(p: MLA, x: torch.Tensor, positions: torch.Tensor,
-             n_heads: int, nope_dim: int, rope_dim: int):
+             n_heads: int, nope_dim: int, rope_dim: int,
+             rope_theta: float = MLA_ROPE_THETA):
     """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,S,kv_lora),
-    k_rope (B,S,1,rope)), RoPE applied, all in x's dtype."""
+    k_rope (B,S,1,rope)), RoPE at base `rope_theta` applied, all in x's
+    dtype."""
     b, s, _ = x.shape
     q = (x @ p.wq).reshape(b, s, n_heads, nope_dim + rope_dim)
     q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
-    q_rope = apply_rope(q_rope, positions, MLA_ROPE_THETA)
+    q_rope = apply_rope(q_rope, positions, rope_theta)
     c_kv = rmsnorm(x @ p.wdkv, p.kv_norm)
     k_rope = (x @ p.wkr).reshape(b, s, 1, rope_dim)
-    k_rope = apply_rope(k_rope, positions, MLA_ROPE_THETA)
+    k_rope = apply_rope(k_rope, positions, rope_theta)
     return q_nope, q_rope, c_kv, k_rope
 
 
 def mla_attention(p: MLA, x: torch.Tensor, positions: torch.Tensor,
                   n_heads: int, nope_dim: int, rope_dim: int, v_dim: int,
-                  kv_chunk: int = 1024, return_kv: bool = False):
+                  kv_chunk: int = 1024, return_kv: bool = False,
+                  rope_theta: float = MLA_ROPE_THETA):
     """Prefill MLA, causal.  x: (B,S,D); positions (B,S).  K and V are
     decompressed per KV chunk inside the online-softmax loop, so full
     (S, H, nope + v) tensors never exist.  The reference asserts S % kv_chunk
@@ -420,49 +427,53 @@ def mla_attention(p: MLA, x: torch.Tensor, positions: torch.Tensor,
     last chunk instead, which changes nothing where the reference runs.
     With `return_kv`, also (c_kv (B,S,kv_lora), k_rope (B,S,rope)), what
     the decode caches."""
-    b, s, _ = x.shape
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, positions, n_heads,
-                                            nope_dim, rope_dim)
-    scale = 1.0 / math.sqrt(nope_dim + rope_dim)
-    kv_chunk = min(kv_chunk, s)
-    wuk = p.wuk.reshape(-1, n_heads, nope_dim)
-    wuv = p.wuv.reshape(-1, n_heads, v_dim)
-    qn = q_nope.float() * scale
-    qr = q_rope.float() * scale
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=x.device)
+    with span("attn.mla"):
+        b, s, _ = x.shape
+        q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, positions, n_heads,
+                                                nope_dim, rope_dim, rope_theta)
+        scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+        kv_chunk = min(kv_chunk, s)
+        wuk = p.wuk.reshape(-1, n_heads, nope_dim)
+        wuv = p.wuv.reshape(-1, n_heads, v_dim)
+        qn = q_nope.float() * scale
+        qr = q_rope.float() * scale
+        # filled on the device: a tensor of a Python number is copied from
+        # the host, and that copy waits for the device
+        neg = torch.full((), NEG_INF, dtype=torch.float32, device=x.device)
 
-    m = torch.full((b, s, n_heads), NEG_INF, dtype=torch.float32,
-                   device=x.device)
-    l = torch.zeros((b, s, n_heads), dtype=torch.float32, device=x.device)
-    acc = torch.zeros((b, s, n_heads, v_dim), dtype=torch.float32,
-                      device=x.device)
-    for start in range(0, s, kv_chunk):
-        ckv = c_kv[:, start:start + kv_chunk]
-        kr = k_rope[:, start:start + kv_chunk, 0]
-        kpos = start + torch.arange(ckv.shape[1], device=x.device)
-        k_nope = torch.einsum("bcl,lhd->bchd", ckv, wuk)     # decompress K
-        v = torch.einsum("bcl,lhv->bchv", ckv, wuv)          # decompress V
-        sc = torch.einsum("bshd,bchd->bshc", qn, k_nope.float())
-        sc = sc + torch.einsum("bshr,bcr->bshc", qr, kr.float())
-        mask = kpos[None, None, None, :] <= positions[:, :, None, None]
-        sc = torch.where(mask, sc, neg)
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        pr = torch.exp(sc - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + pr.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bshc,bchv->bshv", pr,
-                                                   v.float())
-        m = m_new
-    out = (acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype)
-    y = out.reshape(b, s, n_heads * v_dim) @ p.wo
-    if return_kv:
-        return y, (c_kv, k_rope[:, :, 0, :])
-    return y
+        m = torch.full((b, s, n_heads), NEG_INF, dtype=torch.float32,
+                       device=x.device)
+        l = torch.zeros((b, s, n_heads), dtype=torch.float32, device=x.device)
+        acc = torch.zeros((b, s, n_heads, v_dim), dtype=torch.float32,
+                          device=x.device)
+        for start in range(0, s, kv_chunk):
+            ckv = c_kv[:, start:start + kv_chunk]
+            kr = k_rope[:, start:start + kv_chunk, 0]
+            kpos = start + torch.arange(ckv.shape[1], device=x.device)
+            k_nope = torch.einsum("bcl,lhd->bchd", ckv, wuk)     # decompress K
+            v = torch.einsum("bcl,lhv->bchv", ckv, wuv)          # decompress V
+            sc = torch.einsum("bshd,bchd->bshc", qn, k_nope.float())
+            sc = sc + torch.einsum("bshr,bcr->bshc", qr, kr.float())
+            mask = kpos[None, None, None, :] <= positions[:, :, None, None]
+            sc = torch.where(mask, sc, neg)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            pr = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + pr.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bshc,bchv->bshv", pr,
+                                                       v.float())
+            m = m_new
+        out = (acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype)
+        y = out.reshape(b, s, n_heads * v_dim) @ p.wo
+        if return_kv:
+            return y, (c_kv, k_rope[:, :, 0, :])
+        return y
 
 
 def mla_decode(p: MLA, x: torch.Tensor, cache_ckv: torch.Tensor,
                cache_kr: torch.Tensor, cur_len: int, n_heads: int,
-               nope_dim: int, rope_dim: int, v_dim: int) -> torch.Tensor:
+               nope_dim: int, rope_dim: int, v_dim: int,
+               rope_theta: float = MLA_ROPE_THETA) -> torch.Tensor:
     """One-token MLA decode against the compressed cache (cache_ckv
     (B,Smax,kv_lora), cache_kr (B,Smax,rope)); the token's c_kv and k_rope
     are written at cur_len IN PLACE.  Scores take W_uk into the query
@@ -472,7 +483,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cache_ckv: torch.Tensor,
     b = x.shape[0]
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, pos, n_heads, nope_dim,
-                                            rope_dim)
+                                            rope_dim, rope_theta)
     cache_ckv[:, cur_len:cur_len + 1] = c_kv.to(cache_ckv.dtype)
     cache_kr[:, cur_len:cur_len + 1] = k_rope[:, :, 0].to(cache_kr.dtype)
     t = cache_ckv.shape[1]
@@ -485,7 +496,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cache_ckv: torch.Tensor,
     sc = sc + torch.einsum("bshr,btr->bsht", q_rope.float() * scale,
                            cache_kr.float())
     mask = torch.arange(t, device=x.device)[None, None, None, :] <= cur_len
-    sc = torch.where(mask, sc, torch.tensor(NEG_INF, device=x.device))
+    sc = torch.where(mask, sc, torch.full((), NEG_INF, device=x.device))
     w = torch.softmax(sc, dim=-1)
     ctx = torch.einsum("bsht,btl->bshl", w, ckv)
     out = torch.einsum("bshl,lhv->bshv", ctx, wuv)

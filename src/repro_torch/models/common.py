@@ -219,7 +219,33 @@ class Embed(nn.Module):
                                  generator))
 
 
+class _Lookup(torch.autograd.Function):
+    """table[tokens], whose backward adds each row's gradients in a
+    float32 buffer and rounds the sum once to the table's dtype: added
+    into a bfloat16 gradient one at a time (indexing's own backward), the
+    duplicates of a frequent token lose most of their sum to rounding."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        tokens, = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=torch.float32, device=grad.device)
+        acc.index_put_((tokens.reshape(-1),),
+                       grad.reshape(-1, ctx.shape[-1]).float(),
+                       accumulate=True)
+        return acc.to(ctx.dtype), None
+
+
 def embed_lookup(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of `tokens`; when autograd records, the table's gradient
+    is summed in float32 (`_Lookup`)."""
+    if torch.is_grad_enabled() and p.tok.requires_grad:
+        return _Lookup.apply(p.tok, tokens)
     return p.tok[tokens]
 
 

@@ -462,7 +462,7 @@ def _self_attn_full(cfg: ModelConfig, attn: nn.Module, h, positions,
         m = cfg.mla
         out = att.mla_attention(attn, h, positions, cfg.n_heads, m.nope_dim,
                                 m.rope_dim, m.v_dim, cfg.kv_chunk,
-                                return_kv=want_kv)
+                                return_kv=want_kv, rope_theta=m.rope_theta)
     else:
         out = att.self_attention(attn, h, positions, cfg.n_heads,
                                  cfg.n_kv_heads, cfg.hd, cfg.rope_theta,
@@ -523,7 +523,10 @@ def _hybrid_full(cfg: ModelConfig, model: LM, x, positions,
 def _decoder_full(cfg: ModelConfig, model: LM, x, positions,
                   caches: Optional[Caches], stats: Optional[List]):
     """The dense and moe families' blocks: `layer0` first if the model
-    has one, then the stacked `layers` (each a block for `_remat`)."""
+    has one, then the stacked `layers`, each a block for `_remat` (so is
+    `layer0`, which the reference leaves to XLA: kept whole, an MLA
+    layer's scores over an 8k sequence would hold the card's memory from
+    the forward to the end of the backward)."""
     a, b = _cache_names(cfg)
     opts = _attn_opts(cfg)
     keep_stats = stats is not None
@@ -531,8 +534,9 @@ def _decoder_full(cfg: ModelConfig, model: LM, x, positions,
         lp = model.layer0
         kv = (None, None) if caches is None else (caches["k0"],
                                                   caches["v0"])
-        x = _attn_mlp_full(cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x,
-                           positions, *kv, opts=opts)
+        x = _remat(cfg, lambda x, lp=lp, kv=kv: _attn_mlp_full(
+            cfg, lp.ln1, lp.attn, lp.ln2, lp.mlp, x, positions, *kv,
+            opts=opts), x)
     for i, lp in enumerate(model.layers):
         kv = (None, None) if caches is None else (caches[a][i], caches[b][i])
         scales = ((caches["k_scale"][i], caches["v_scale"][i])
@@ -745,7 +749,7 @@ def _attn_mlp_decode(cfg: ModelConfig, ln_a: Norm, attn: nn.Module,
     if cfg.mla is not None:
         m = cfg.mla
         a = att.mla_decode(attn, h, cache_a, cache_b, cur_len, cfg.n_heads,
-                           m.nope_dim, m.rope_dim, m.v_dim)
+                           m.nope_dim, m.rope_dim, m.v_dim, m.rope_theta)
     elif scales is not None:
         a = att.decode_attention_q8(attn, h, cache_a, scales[0], cache_b,
                                     scales[1], cur_len, cfg.n_heads,

@@ -26,6 +26,18 @@ parallelism over the device slots of the active mesh
 (`parallel.set_mesh`): each slot routes its own tokens at a capacity
 counted per source slot, with the same pinned choices, and the slots
 exchange capacity buffers along the `model` axis (ROADMAP A.5.4).
+
+The DeepSeek-V3 router (Moonlight-16B-A3B; arXiv:2412.19437 §2.1.2, its
+`noaux_tc` with one group) is the same top k over other scores: the
+sigmoid of the router's logits, with a fixed per-expert `select_bias`
+added for the choice alone, the k chosen scores renormalised to sum 1
+(plus 1e-20) and multiplied by `routed_scale`.  `moe_apply_grouped` is the
+layer of one expert-parallel rank: it holds the experts [held_offset,
+held_offset + held), routes every token over all `num_experts`, and
+computes its own experts' part of the result, dropless, grouped by expert
+(`torch._grouped_mm` over one buffer of every assignment the held experts
+can get, sized without reading the counts back to the host); the absent
+experts' part is left out, as the other ranks would add it.
 """
 
 from __future__ import annotations
@@ -35,9 +47,11 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.compat import get_abstract_mesh
+from ..spans import span
 from .common import _param, exchange, named_scope, normal, swiglu
 
 
@@ -50,26 +64,55 @@ class MoEConfig:
     capacity_factor: float = 1.25
     first_dense: bool = False  # layer 0 uses a dense MLP (DeepSeek-V2)
     dense_d_ff: int = 0
+    # the router's scores, "softmax" or "sigmoid" (DeepSeek-V3)
+    score: str = "softmax"
+    routed_scale: float = 1.0  # the routed experts' weights times this
+    select_bias: bool = False  # a fixed per-expert bias in the choice alone
+    held: int = 0              # experts this layer holds (0: all of them)
+    held_offset: int = 0       # the first one's id among the num_experts
+
+
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MoEConfig)}
+
+
+def setting(cfg, name: str):
+    """A field of `MoEConfig`, or its default where `cfg` has no such
+    field (the reference's configuration, which tests hand to the port,
+    has only the fields both declare)."""
+    return getattr(cfg, name, _DEFAULTS[name])
+
+
+def n_held(cfg) -> int:
+    """The experts a layer of `cfg` holds."""
+    return setting(cfg, "held") or cfg.num_experts
+
+
+def is_share(cfg) -> bool:
+    """Whether a layer of `cfg` holds a share of the experts, not all."""
+    return n_held(cfg) != cfg.num_experts
 
 
 class MoE(nn.Module):
     """One layer of `moe_init`'s parameters, as the LM's stacked layers
     draw them: `router` (d, E) float32; `w_gate`, `w_up` (E, d, d_expert)
-    and `w_down` (E, d_expert, d); with `n_shared > 0`, `shared_gate`,
-    `shared_up` (d, n_shared * d_expert) and `shared_down`.  Every matrix
-    is N(0, 1/in) (the reference's `stacked_dense_init`; its unstacked
-    `moe_init` alone draws the router at std 0.02)."""
+    and `w_down` (E, d_expert, d), E the experts held (`n_held`); with
+    `n_shared > 0`, `shared_gate`, `shared_up` (d, n_shared * d_expert) and
+    `shared_down`; with `select_bias`, `select_bias` (num_experts,) float32
+    zeros, marked `untrained`: no gradient trains it
+    (`training/train_step`).  Every matrix is N(0, 1/in) (the reference's
+    `stacked_dense_init`; its unstacked `moe_init` alone draws the router
+    at std 0.02)."""
 
     def __init__(self, d_model: int, cfg: MoEConfig, dtype=torch.bfloat16,
                  device=None, generator=None):
         super().__init__()
-        e = cfg.num_experts
+        e = n_held(cfg)
 
         def mk(shape, dt=dtype):
             return _param(normal(shape, 1.0 / math.sqrt(shape[-2]), dt,
                                  device, generator))
 
-        self.router = mk((d_model, e), torch.float32)
+        self.router = mk((d_model, cfg.num_experts), torch.float32)
         self.w_gate = mk((e, d_model, cfg.d_expert))
         self.w_up = mk((e, d_model, cfg.d_expert))
         self.w_down = mk((e, cfg.d_expert, d_model))
@@ -78,6 +121,10 @@ class MoE(nn.Module):
             self.shared_gate = mk((d_model, sh_ff))
             self.shared_up = mk((d_model, sh_ff))
             self.shared_down = mk((sh_ff, d_model))
+        if setting(cfg, "select_bias"):
+            self.select_bias = _param(torch.zeros(
+                cfg.num_experts, dtype=torch.float32, device=device))
+            self.select_bias.untrained = True
 
 
 def capacity(t: int, cfg: MoEConfig, dropless: bool = False) -> int:
@@ -89,14 +136,28 @@ def capacity(t: int, cfg: MoEConfig, dropless: bool = False) -> int:
                             * cfg.capacity_factor)))
 
 
-def _route(xf: torch.Tensor, router: torch.Tensor, k: int):
-    """The router over tokens xf (T, D): gates (T, E) float32, the top-k
-    weights renormalized and the top-k expert ids (T, k)."""
-    gates = torch.softmax(xf.float() @ router, dim=-1)          # (T, E)
-    srt, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
-    topw, topi = srt[:, :k], idx[:, :k]
-    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
-    return gates, topw, topi
+def _route(xf: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
+           bias=None):
+    """The router over tokens xf (T, D), in float32: the gates (T, E), the
+    softmax or the sigmoid of the logits; the top-k expert ids (T, k) by
+    gate, or by gate plus `bias` (E,) where given; their weights, the k
+    gates renormalised (softmax: over their sum clamped at 1e-9; sigmoid:
+    over their sum plus 1e-20, as DeepSeek-V3's router), then times
+    `routed_scale`."""
+    k = cfg.top_k
+    logits = xf.float() @ router                                # (T, E)
+    sigmoid = setting(cfg, "score") == "sigmoid"
+    if sigmoid:
+        gates = torch.sigmoid(logits)
+    else:
+        gates = torch.softmax(logits, dim=-1)
+    choice = gates if bias is None else gates + bias
+    srt, idx = torch.sort(choice, dim=-1, descending=True, stable=True)
+    topi = idx[:, :k]
+    topw = srt[:, :k] if bias is None else torch.gather(gates, 1, topi)
+    total = topw.sum(-1, keepdim=True)
+    topw = topw / (total + 1e-20 if sigmoid else torch.clamp(total, min=1e-9))
+    return gates, topw * setting(cfg, "routed_scale"), topi
 
 
 def _slots(flat_e: torch.Tensor, cap: int):
@@ -162,12 +223,16 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: MoEConfig,
     are tiny and batch-dependent drops would break prefill/decode
     equivalence.  With `return_stats`, also {"expert_load" (E,) float32
     assignment counts, "frac_dropped" float32, "router_entropy"
-    float32}."""
+    float32}.  A layer that holds a share of the experts (`is_share`)
+    runs `moe_apply_grouped` instead, dropless whatever `dropless` says."""
+    if is_share(cfg):
+        return moe_apply_grouped(p, x, cfg, return_stats)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.top_k
     xf = x.reshape(t, d)
-    gates, topw, topi = _route(xf, p.router, k)
+    gates, topw, topi = _route(xf, p.router, cfg,
+                               getattr(p, "select_bias", None))
     cap = capacity(t, cfg, dropless)
     flat_e = topi.reshape(-1)                                   # (T*k,)
     slot, keep = _slots(flat_e, cap)
@@ -183,6 +248,76 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: MoEConfig,
     frac_dropped = 1.0 - keep.sum() / (t * k)
     entropy = -torch.mean(torch.sum(gates * torch.log(gates + 1e-9), -1))
     return y, {"expert_load": load, "frac_dropped": frac_dropped,
+               "router_entropy": entropy}
+
+
+def _group(topi: torch.Tensor, cfg: MoEConfig):
+    """The assignments (T, k) of the held experts, grouped: `order`, the
+    flat assignments sorted by held expert, each expert's run in token
+    order, cut to the most the held experts can get, T min(k, held);
+    `offs` (held,) int32, each run's end; `pos` (T, k), each assignment's
+    place in the sorted order; `mine` (T, k), whether a held expert has
+    it.  All on the device: nothing is read back to the host."""
+    t, k = topi.shape
+    h = n_held(cfg)
+    local = topi - setting(cfg, "held_offset")
+    mine = (local >= 0) & (local < h)
+    key = torch.where(mine, local, h).reshape(-1)               # others last
+    order = torch.argsort(key, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(t * k, device=topi.device)
+    counts = torch.zeros(h + 1, dtype=torch.int64, device=topi.device) \
+        .scatter_add_(0, key, torch.ones_like(key))
+    offs = torch.cumsum(counts[:h], 0).to(torch.int32)
+    return order[:t * min(k, h)], offs, pos.reshape(t, k), mine
+
+
+@named_scope("moe")
+def moe_apply_grouped(p: MoE, x: torch.Tensor, cfg: MoEConfig,
+                      return_stats: bool = False):
+    """x: (B, S, D) -> (B, S, D): one rank's share of a dropless layer.
+
+    Every token is routed over all `num_experts` (`_route`, with the
+    layer's `select_bias` where it has one); the assignments that land on
+    the held experts are gathered into one buffer, grouped by expert
+    (`_group`; its rows past the last run are zeros, and the products'
+    rows there, which `_grouped_mm` leaves unwritten, are never read),
+    and each held expert's SwiGLU runs over its own run of rows
+    (`torch._grouped_mm`, bf16 products, the activation in float32).  Each
+    token's held assignments come back in k order, weighted and summed in
+    float32, with no atomics; the shared experts are added once.  With
+    `return_stats`, also {"expert_load" (num_experts,) float32 over every
+    expert, "frac_dropped" 0, "router_entropy"}: nothing drops."""
+    b, s, d = x.shape
+    t, k = b * s, cfg.top_k
+    xf = x.reshape(t, d)
+    with span("moe.route"):
+        gates, topw, topi = _route(xf, p.router, cfg,
+                                   getattr(p, "select_bias", None))
+        order, offs, pos, mine = _group(topi, cfg)
+        rows = order.numel()
+        live = torch.arange(rows, device=x.device) < offs[-1]
+        xs = torch.where(live[:, None], xf[order // k],
+                         torch.zeros((), dtype=x.dtype, device=x.device))
+    with span("moe.experts"):
+        g = torch._grouped_mm(xs, p.w_gate, offs=offs)
+        u = torch._grouped_mm(xs, p.w_up, offs=offs)
+        a = F.silu(g.float()).to(x.dtype) * u
+        out = torch._grouped_mm(a, p.w_down, offs=offs)         # (rows, D)
+        y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+        zero = torch.zeros((), dtype=out.dtype, device=x.device)
+        for j in range(k):
+            yj = torch.where(mine[:, j, None],
+                             out[pos[:, j].clamp(max=rows - 1)], zero)
+            y = y + yj.float() * topw[:, j, None]
+        y = _shared(p, x, cfg, y.to(x.dtype).reshape(b, s, d))
+    if not return_stats:
+        return y
+    load = _expert_load(topi.reshape(-1), cfg.num_experts)
+    entropy = -torch.mean(torch.sum(gates * torch.log(gates + 1e-9), -1))
+    return y, {"expert_load": load,
+               "frac_dropped": torch.zeros((), dtype=torch.float32,
+                                           device=x.device),
                "router_entropy": entropy}
 
 
@@ -245,10 +380,14 @@ def moe_apply_ep(p: MoE, x: torch.Tensor, cfg: MoEConfig,
     `expert_load`, with `frac_dropped` and `router_entropy` 0.  Without a
     mesh, a `model` axis, or where E or S does not divide by its size,
     this is `moe_apply`."""
+    if is_share(cfg):
+        raise NotImplementedError("expert parallelism over the mesh takes "
+                                  "a layer that holds every expert")
     layout = ep_layout(x.shape, cfg)
     if layout is None:
         return moe_apply(p, x, cfg, return_stats=return_stats)
     slots, bl, sl, cap = layout
+    bias = getattr(p, "select_bias", None)
     nb, ep = slots.shape
     d = x.shape[2]
     e, k = cfg.num_experts, cfg.top_k
@@ -260,7 +399,8 @@ def moe_apply_ep(p: MoE, x: torch.Tensor, cfg: MoEConfig,
             dev = slots[i, j]
             xf = x[i * bl:(i + 1) * bl, j * sl:(j + 1) * sl].to(dev)
             xf = xf.reshape(bl * sl, d)
-            _, topw, topi = _route(xf, p.router.to(dev), k)
+            _, topw, topi = _route(xf, p.router.to(dev), cfg,
+                                   None if bias is None else bias.to(dev))
             flat_e = topi.reshape(-1)
             slot, keep = _slots(flat_e, cap)
             send = _dispatch(xf, flat_e, slot, keep, e, cap, k)
@@ -290,7 +430,7 @@ def moe_apply_ep(p: MoE, x: torch.Tensor, cfg: MoEConfig,
 
     if not return_stats:
         return y
-    _, _, topi = _route(x.reshape(-1, d), p.router, k)
+    _, _, topi = _route(x.reshape(-1, d), p.router, cfg, bias)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return y, {"expert_load": _expert_load(topi.reshape(-1), e),
                "frac_dropped": zero, "router_entropy": zero.clone()}

@@ -5,7 +5,8 @@ accumulation over microbatches (the reference's
 `make_train_step(cfg, opt, microbatches)` returns `train_step(model,
 opt_state, batch) -> (model, opt_state, metrics)`: the model's
 parameters, which the step updates in place, have their gradients turned
-on (serving weights are built without them); the forward runs kernels 11
+on (serving weights are built without them), but for those marked
+`untrained` (a MoE router's selection bias, held fixed); the forward runs kernels 11
 and 12 on the card (`models/lm.loss_fn`), and autograd takes the
 gradients.  With microbatches > 1 the global batch splits along axis 0
 and the gradients accumulate in float32; the loss and gradients are the
@@ -32,7 +33,11 @@ from .schedule import warmup_cosine
 
 
 def _trainable(model) -> Dict[str, torch.Tensor]:
-    params = dict(model.named_parameters())
+    """The parameters the step updates, their gradients turned on: all
+    but those marked `untrained` (a MoE router's selection bias), which
+    the step leaves as they are."""
+    params = {n: p for n, p in model.named_parameters()
+              if not getattr(p, "untrained", False)}
     for p in params.values():
         p.requires_grad_(True)
     return params
